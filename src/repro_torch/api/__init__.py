@@ -1,0 +1,23 @@
+"""Declarative, sessionized solver API (the user-facing surface)::
+
+    from repro_torch.api import Problem, Topology, Schedule, Session
+    from repro_torch.core.prng import PRNGKey
+
+    prob = Problem(X, y, loss="squared", lam=0.05)
+    topo = Topology.two_level(2, 2, 128)
+    sess = Session.compile(prob, topo, Schedule(rounds=10))  # cuda default
+    res  = sess.run(key=PRNGKey(0))                          # SolveResult
+    more = sess.run(rounds=5, warm_start=res)                # exact continuation
+
+The same objects as the JAX package's ``repro.api``, with ``backend=``
+``"cuda"`` (the hand-written leaf kernel) or ``"torch"`` (its plain
+version) and an explicit ``device=``.  Sweeps, stragglers, checkpoints and
+LM training are not ported yet (see ROADMAP).
+"""
+from repro_torch.api.problem import Problem                   # noqa: F401
+from repro_torch.api.schedule import Schedule                 # noqa: F401
+from repro_torch.api.session import Session                   # noqa: F401
+from repro_torch.api.topology import Topology                 # noqa: F401
+from repro_torch.core.instrument import SolveResult           # noqa: F401
+
+__all__ = ["Problem", "Topology", "Schedule", "Session", "SolveResult"]

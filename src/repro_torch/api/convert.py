@@ -1,0 +1,57 @@
+"""Carry state between the JAX package and this one, through numpy.
+
+``from_reference`` turns the parts of a reference ``SolveResult`` (as
+numpy arrays: ``np.asarray(res.alpha)``, ...) into this package's
+:class:`~repro_torch.core.instrument.SolveResult`, so a run of the port
+can continue one of the reference (``Session.run(warm_start=...)``);
+``problem_from_numpy`` builds a :class:`~repro_torch.api.problem.Problem`
+from the arrays a reference ``Problem`` was built from.  The tests start
+both packages from the same state this way.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.api.problem import Problem
+from repro_torch.core import prng
+from repro_torch.core.instrument import SolveResult
+
+
+def from_reference(alpha, w, history: Sequence[dict] = (), next_key=None,
+                   lam: Optional[float] = None,
+                   device="cuda") -> SolveResult:
+    """A :class:`SolveResult` on ``device`` from numpy ``alpha`` (m,),
+    ``w`` (d,), a reference history (list of dicts) and the reference's
+    uint32 ``next_key``."""
+    return SolveResult(
+        alpha=torch.as_tensor(np.array(alpha, np.float32), device=device),
+        w=torch.as_tensor(np.array(w, np.float32), device=device),
+        history=[dict(h) for h in history],
+        next_key=None if next_key is None else prng.as_key(
+            np.asarray(next_key)),
+        lam=None if lam is None else float(lam))
+
+
+def to_reference(res: SolveResult) -> dict:
+    """The parts of ``res`` as numpy arrays (``alpha``, ``w``, uint32
+    ``next_key``), plus its history and lambda, for the reference side."""
+    return {
+        "alpha": res.alpha.detach().cpu().numpy(),
+        "w": res.w.detach().cpu().numpy(),
+        "history": [dict(h) for h in res.history],
+        "next_key": (None if res.next_key is None
+                     else res.next_key.cpu().numpy().astype(np.uint32)),
+        "lam": res.lam,
+    }
+
+
+def problem_from_numpy(X, y, loss="squared", lam: float = 0.1,
+                       device="cuda") -> Problem:
+    """A Problem on ``device`` from numpy (m, d) data and (m,) labels."""
+    return Problem(
+        torch.as_tensor(np.array(X, np.float32), device=device),
+        torch.as_tensor(np.array(y, np.float32), device=device),
+        loss=loss, lam=lam)

@@ -1,0 +1,120 @@
+"""Threefry-2x32 keys and integer draws, bit-exact with ``jax.random``.
+
+Every executor of the reference replays the legacy key chain (``split`` per
+internal round, ``randint(leaf_key, (H,), 0, m_b)`` per leaf solve), so an
+exact port of that chain is what makes a Session-level result of this
+package comparable with the JAX package's at all.  The arithmetic here is
+the partitionable threefry of jax >= 0.5 (``jax_threefry_partitionable``
+on, the default there):
+
+  * ``split(key, n)``: threefry2x32(key, (hi, lo) of iota(n)) -> (n, 2);
+  * random bits of shape ``s``: threefry2x32(key, (hi, lo) of
+    iota(prod(s)).reshape(s)), the two output words XOR-ed;
+  * ``randint``: ``k1, k2 = split(key)``, two 32-bit draws ``hi``, ``lo``
+    and ``(hi % span * (2**32 % span) + lo % span) % span`` in uint32
+    arithmetic (jax's ``_randint``).
+
+uint32 arithmetic is done on int64 tensors masked with ``0xFFFFFFFF``, so
+the same code runs on the CPU and on the card.  A key is an int64 tensor
+of shape ``(..., 2)`` holding two uint32 words; keys live on the CPU unless
+a caller moves them.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(v: Tensor, r: int) -> Tensor:
+    return ((v << r) | (v >> (32 - r))) & _M32
+
+
+def threefry2x32(k0: Tensor, k1: Tensor, x0: Tensor, x1: Tensor):
+    """The Threefry-2x32 block cipher (20 rounds) on broadcastable int64
+    tensors of uint32 words; returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Tensor:
+    """The legacy ``jax.random.PRNGKey(seed)``: words ``(seed >> 32,
+    seed & 0xFFFFFFFF)`` for ``0 <= seed < 2**32``."""
+    seed = int(seed)
+    if not 0 <= seed <= _M32:
+        raise ValueError(f"seed must be in [0, 2**32), got {seed}")
+    return torch.tensor([seed >> 32, seed & _M32], dtype=torch.int64)
+
+
+def as_key(key) -> Tensor:
+    """A key from a tensor, a numpy array or a sequence of uint32 words
+    (e.g. ``np.asarray(jax_key)``), as an int64 tensor."""
+    if isinstance(key, Tensor):
+        return key.to(torch.int64)
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
+
+
+def _iota_hi_lo(shape: Sequence[int], device):
+    """jax's ``iota_2x32_shape``: the (hi, lo) words of a row-major iota."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    flat = torch.arange(n, dtype=torch.int64, device=device)
+    return ((flat >> 32) & _M32).reshape(shape), (flat & _M32).reshape(shape)
+
+
+def _bits(keys: Tensor, shape: Sequence[int]) -> Tensor:
+    """32 random bits of ``shape`` per key: output ``keys.shape[:-1] +
+    shape``."""
+    hi, lo = _iota_hi_lo(shape, keys.device)
+    pad = (1,) * len(shape)
+    k0 = keys[..., 0].reshape(keys.shape[:-1] + pad)
+    k1 = keys[..., 1].reshape(keys.shape[:-1] + pad)
+    b0, b1 = threefry2x32(k0, k1, hi, lo)
+    return b0 ^ b1
+
+
+def split(key: Tensor, num: int = 2) -> Tensor:
+    """``jax.random.split(key, num)``: (..., 2) keys -> (..., num, 2)."""
+    hi, lo = _iota_hi_lo((num,), key.device)
+    k0 = key[..., 0:1]
+    k1 = key[..., 1:2]
+    b0, b1 = threefry2x32(k0, k1, hi, lo)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def randint(keys: Tensor, shape: Sequence[int], minval: int,
+            maxval: Union[int, Tensor]) -> Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 output) for
+    every key of a batch: ``keys`` is (..., 2), the result ``keys.shape[:-1]
+    + shape``.  ``maxval`` is a scalar or one value per key (the executors
+    draw each leaf's coordinates below its own block size)."""
+    shape = tuple(int(s) for s in shape)
+    batch = keys.shape[:-1]
+    pair = split(keys, 2)
+    higher = _bits(pair[..., 0, :], shape)
+    lower = _bits(pair[..., 1, :], shape)
+    mx = torch.as_tensor(maxval, dtype=torch.int64, device=keys.device)
+    mx = mx.reshape(mx.shape + (1,) * (len(batch) + len(shape) - mx.dim()))
+    span = (mx - int(minval)) & _M32
+    span = torch.where(mx <= int(minval), torch.ones_like(span), span)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = ((higher % span) * mult) & _M32
+    off = ((off + lower % span) & _M32) % span
+    return (int(minval) + off).to(torch.int32)

@@ -1,0 +1,132 @@
+"""The port on the card: the hand-written sdca_block kernel against its
+plain version, the wrapper's checks, on-device draws and the Session's
+CUDA backend against its CPU run.  Every test here needs an NVIDIA GPU
+and skips without one; the file imports no JAX, so it runs on a machine
+with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.api import Problem, Session, Topology  # noqa: E402
+from repro_torch.core import dual, prng  # noqa: E402
+from repro_torch.kernels.sdca import kernel, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+LOSSES = ["squared", "hinge", "smooth_hinge_1", "logistic"]
+# |kernel - plain| <= 1e-3 * max(1, max|plain|), as chip_smoke.py states
+# it: float32 in both, <w, x_i> summed in different orders
+REL = 1e-3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _block(loss_name, K, m_b, d, H, seed, per_leaf, masked, device):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((K, m_b, d)).astype(np.float32)
+    y = rng.standard_normal((K, m_b)).astype(np.float32)
+    alpha = (0.1 * rng.standard_normal((K, m_b))).astype(np.float32)
+    if loss_name != "squared":
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+        alpha = np.abs(alpha) * y
+    w = (0.1 * rng.standard_normal((K, d) if per_leaf else (d,))).astype(
+        np.float32)
+    idx = rng.integers(0, m_b, (K, H)).astype(np.int32)
+    mask = (rng.uniform(size=(K, H)) < 0.7).astype(np.float32) \
+        if masked else None
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in (X, y, alpha, w, idx, mask)]
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_kernel_matches_plain_version(loss_name, per_leaf, cuda_device):
+    X, y, alpha, w, idx, mask = _block(loss_name, 8, 256, 128, 512, 6,
+                                       per_leaf, per_leaf, cuda_device)
+    loss = dual.get_loss(loss_name)
+    before = kernel.LAUNCHES
+    got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=loss, lm=204.8,
+                                   step_mask=mask)
+    want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=loss, lm=204.8,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+def test_kernel_all_ones_mask_is_bit_identical_to_no_mask(cuda_device):
+    X, y, alpha, w, idx, _ = _block("logistic", 4, 128, 64, 256, 1, True,
+                                    False, cuda_device)
+    ones = torch.ones(idx.shape, device=cuda_device)
+    a = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.logistic,
+                                 lm=51.2)
+    b = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.logistic,
+                                 lm=51.2, step_mask=ones)
+    assert all(torch.equal(u, v) for u, v in zip(a, b, strict=True))
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    X, y, alpha, w, idx, _ = _block("squared", 2, 32, 8, 16, 0, False,
+                                    False, cuda_device)
+    sq = dual.squared
+    with pytest.raises(TypeError):
+        kernel.sdca_block_kernel(X.double(), y, alpha, w, idx, loss=sq,
+                                 lm=6.4)
+    with pytest.raises(TypeError):
+        kernel.sdca_block_kernel(X, y, alpha, w, idx.long(), loss=sq, lm=6.4)
+    with pytest.raises(ValueError):
+        kernel.sdca_block_kernel(X, y, alpha, w[:4], idx, loss=sq, lm=6.4)
+    with pytest.raises(ValueError):
+        kernel.sdca_block_kernel(X, y, alpha.cpu(), w, idx, loss=sq, lm=6.4)
+    # a leaf whose w, alpha, y and xsq overflow shared memory
+    big = torch.zeros(1, 60_000, 4, device=cuda_device)
+    vec = torch.zeros(1, 60_000, device=cuda_device)
+    with pytest.raises(ValueError, match="shared"):
+        kernel.sdca_block_kernel(
+            big, vec, vec, torch.zeros(4, device=cuda_device),
+            torch.zeros(1, 8, dtype=torch.int32, device=cuda_device),
+            loss=sq, lm=1.0)
+
+
+def test_draws_on_the_card_match_the_cpu(cuda_device):
+    keys = prng.split(prng.PRNGKey(3), 128)
+    cpu = prng.randint(keys, (4096,), 0, 8191)
+    dev = prng.randint(keys.to(cuda_device), (4096,), 0, 8191)
+    assert torch.equal(dev.cpu(), cpu)
+
+
+def test_session_cuda_backend_matches_the_cpu_run(cuda_device):
+    """The kernel path on the card against the plain path on the CPU on an
+    imbalanced tree (padded blocks, idle ticks, mixed depth); the launch
+    count equals the run's solve ticks."""
+    topo = Topology.groups([[24, 16], [12, 20, 8], 20], root_rounds=5,
+                           group_rounds=2, local_steps=30)
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((topo.m_total, 12)).astype(np.float32)
+    y = rng.standard_normal(topo.m_total).astype(np.float32)
+    sess = Session.compile(Problem(X, y, lam=0.1), topo, backend="cuda",
+                           device=cuda_device)
+    before = kernel.LAUNCHES
+    res = sess.run(key=prng.PRNGKey(5))
+    torch.cuda.synchronize()
+    ticks = int(sess.executor.solves.sum()) * sess.default_rounds
+    assert kernel.LAUNCHES - before == ticks
+    cpu = Session.compile(Problem(X, y, lam=0.1), topo, backend="torch",
+                          device="cpu").run(key=prng.PRNGKey(5))
+    np.testing.assert_allclose(res.alpha.cpu().numpy(), cpu.alpha.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(res.w.cpu().numpy(), cpu.w.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(res.gaps, cpu.gaps, rtol=1e-4, atol=1e-5)
+    assert torch.equal(res.next_key, cpu.next_key)

@@ -1,0 +1,234 @@
+"""The port's main path -- Problem + Topology + Schedule -> Session.run --
+against the JAX package's Session on tests/test_api.py's scenarios, plus
+the port's own contracts (exact warm restarts, all-ones masks, the
+convert round trip).  The CUDA backend on the card is tested in
+tests/test_torch_cuda.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.api import Problem as JProblem  # noqa: E402
+from repro.api import Schedule as JSchedule  # noqa: E402
+from repro.api import Session as JSession  # noqa: E402
+from repro.api import Topology as JTopology  # noqa: E402
+from repro.core.engine import host as jhost  # noqa: E402
+from repro.core.engine import plan as jplan  # noqa: E402
+from repro_torch.api import Problem, Schedule, Session, Topology  # noqa: E402
+from repro_torch.api import convert  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.engine import host as thost  # noqa: E402
+from repro_torch.core.engine import plan as tplan  # noqa: E402
+from repro_torch.kernels.sdca import kernel as t_kernel  # noqa: E402
+from test_api import TOPOLOGIES  # noqa: E402
+
+torch.set_num_threads(1)
+
+LAM = 0.1
+# the engine oracle's float32 tolerance (verify skill): the same
+# arithmetic in two libraries, summed in different orders
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def port_topology(case) -> Topology:
+    return Topology.from_json(TOPOLOGIES[case]().to_json())
+
+
+def data(m, d=12, seed=0, labels=False):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((m, d)).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    if labels:
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+    return X, y
+
+
+def assert_close_runs(res, ref):
+    np.testing.assert_allclose(res.alpha.numpy(), np.asarray(ref.alpha),
+                               **TOL)
+    np.testing.assert_allclose(res.w.numpy(), np.asarray(ref.w), **TOL)
+    assert [h["round"] for h in res.history] == \
+        [h["round"] for h in ref.history]
+    np.testing.assert_allclose(res.times, ref.times, rtol=1e-12)
+    for field in ("duals", "primals", "gaps"):
+        np.testing.assert_allclose(getattr(res, field), getattr(ref, field),
+                                   **TOL, err_msg=field)
+    np.testing.assert_array_equal(
+        res.next_key.numpy(), np.asarray(ref.next_key).astype(np.int64))
+
+
+@pytest.mark.parametrize("jax_backend", ["vmap", "pallas"])
+@pytest.mark.parametrize("case", sorted(TOPOLOGIES))
+def test_session_run_matches_jax(case, jax_backend):
+    topo = TOPOLOGIES[case]()
+    X, y = data(topo.m_total)
+    ref = JSession.compile(JProblem(X, y, lam=LAM), topo,
+                           backend=jax_backend).run(
+        key=jax.random.PRNGKey(3))
+    res = Session.compile(Problem(X, y, lam=LAM), port_topology(case),
+                          backend="torch", device="cpu").run(
+        key=prng.PRNGKey(3))
+    assert_close_runs(res, ref)
+
+
+@pytest.mark.parametrize("loss", ["hinge", "smooth_hinge_1", "logistic"])
+def test_session_run_matches_jax_classification_losses(loss):
+    topo = TOPOLOGIES["two_level"]()
+    X, y = data(topo.m_total, seed=1, labels=True)
+    ref = JSession.compile(JProblem(X, y, loss=loss, lam=LAM), topo).run(
+        rounds=3, key=jax.random.PRNGKey(1))
+    res = Session.compile(Problem(X, y, loss=loss, lam=LAM),
+                          port_topology("two_level"), backend="torch",
+                          device="cpu").run(rounds=3, key=prng.PRNGKey(1))
+    assert_close_runs(res, ref)
+
+
+def test_heterogeneous_runtime_h_and_size_weighting_match_jax():
+    """h_cap capacity + a per-leaf runtime H (step masks), size-weighted
+    aggregation, history decimation and a lambda override."""
+    topo = TOPOLOGIES["imbalanced"]()
+    X, y = data(topo.m_total, seed=2)
+    sj = JSchedule(rounds=4, h_cap=40, weighting="size")
+    st = Schedule(rounds=4, h_cap=40, weighting="size")
+    h = [10, 40, 25, 5, 30, 15]
+    kw = dict(local_h=h, lam=0.05, history_every=3)
+    ref = JSession.compile(JProblem(X, y, lam=LAM), topo, sj).run(
+        key=jax.random.PRNGKey(8), **kw)
+    res = Session.compile(Problem(X, y, lam=LAM), port_topology(
+        "imbalanced"), st, backend="torch", device="cpu").run(
+        key=prng.PRNGKey(8), **kw)
+    assert_close_runs(res, ref)
+    assert [e["round"] for e in res.history] == [0, 3, 4]
+
+
+def test_execute_plan_with_participation_mask_matches_jax():
+    """A leaf absent for a whole chunk: renormalized weights, the
+    per-depth server carry and the stale-snapshot fast-forward."""
+    tree = TOPOLOGIES["imbalanced"]().tree
+    ptree = port_topology("imbalanced").tree
+    a, b = jplan.compile_tree(tree), tplan.compile_tree(ptree)
+    X, y = data(tree.total_data(), seed=3)
+    keys = jplan.key_plan(tree, a, jax.random.PRNGKey(2))
+    part = jplan.chunk_participation(a, [1, 0, 1, 1, 0, 1])
+    steps = jplan.steps_for_h(a, 20)
+    ja, jw = jhost.execute_plan(a, X, y, keys, loss=JProblem(X, y).loss,
+                                lam=LAM, record_history=False,
+                                participation=part, steps=steps)
+    ta, tw = thost.execute_plan(b, torch.from_numpy(X), torch.from_numpy(y),
+                                keys, loss=Problem(X, y).loss, lam=LAM,
+                                backend="torch", participation=part,
+                                steps=steps)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), **TOL)
+
+
+def test_split_run_with_warm_start_equals_one_long_run_bitwise():
+    topo = port_topology("two_level")
+    X, y = data(topo.m_total, seed=4)
+    sess = Session.compile(Problem(X, y, lam=LAM), topo, backend="torch",
+                           device="cpu")
+    once = sess.run(rounds=5, key=prng.PRNGKey(7))
+    first = sess.run(rounds=2, key=prng.PRNGKey(7))
+    rest = sess.run(rounds=3, warm_start=first)
+    assert torch.equal(rest.alpha, once.alpha)
+    assert torch.equal(rest.w, once.w)
+    assert torch.equal(rest.next_key, once.next_key)
+    assert first.history + rest.history == once.history
+
+
+def test_all_ones_step_mask_gives_the_static_h_result_bitwise():
+    topo = port_topology("star")
+    X, y = data(topo.m_total, seed=5)
+    sess = Session.compile(Problem(X, y, lam=LAM), topo, backend="torch",
+                           device="cpu")
+    static = sess.run(rounds=3, key=prng.PRNGKey(1), record_history=False)
+    ones = sess.run(rounds=3, key=prng.PRNGKey(1), record_history=False,
+                    local_h=80)                  # == the compiled H
+    assert torch.equal(static.alpha, ones.alpha)
+    assert torch.equal(static.w, ones.w)
+
+
+def test_cuda_backend_on_cpu_tensors_is_the_plain_path_bitwise():
+    topo = port_topology("imbalanced")
+    X, y = data(topo.m_total, seed=6)
+    prob = Problem(X, y, lam=LAM)
+    before = t_kernel.LAUNCHES
+    a = Session.compile(prob, topo, backend="cuda", device="cpu").run(
+        rounds=2, key=prng.PRNGKey(2))
+    b = Session.compile(prob, topo, backend="torch", device="cpu").run(
+        rounds=2, key=prng.PRNGKey(2))
+    assert t_kernel.LAUNCHES == before
+    assert torch.equal(a.alpha, b.alpha) and torch.equal(a.w, b.w)
+
+
+def test_convert_carries_a_reference_run_into_the_port():
+    """JAX runs 2 rounds, the port continues 3 from its converted result:
+    the same iterates as JAX running 5 (state and RNG chain carried)."""
+    topo = TOPOLOGIES["star"]()
+    X, y = data(topo.m_total, seed=7)
+    jsess = JSession.compile(JProblem(X, y, lam=LAM), topo)
+    long = jsess.run(rounds=5, key=jax.random.PRNGKey(4))
+    head = jsess.run(rounds=2, key=jax.random.PRNGKey(4))
+    start = convert.from_reference(
+        np.asarray(head.alpha), np.asarray(head.w), head.history,
+        np.asarray(head.next_key), lam=head.lam, device="cpu")
+    prob = convert.problem_from_numpy(X, y, "squared", LAM, device="cpu")
+    tail = Session.compile(prob, port_topology("star"), backend="torch",
+                           device="cpu").run(rounds=3, warm_start=start)
+    np.testing.assert_allclose(tail.alpha.numpy(), np.asarray(long.alpha),
+                               **TOL)
+    np.testing.assert_allclose(tail.w.numpy(), np.asarray(long.w), **TOL)
+    np.testing.assert_array_equal(
+        tail.next_key.numpy(), np.asarray(long.next_key).astype(np.int64))
+    assert [e["round"] for e in tail.history] == [3, 4, 5]
+    back = convert.to_reference(tail)
+    again = convert.from_reference(**back, device="cpu")
+    assert torch.equal(again.alpha, tail.alpha)
+    assert torch.equal(again.next_key, tail.next_key)
+    assert again.history == tail.history and again.lam == tail.lam
+
+
+def test_cross_lambda_warm_start_rebuilds_w():
+    topo = port_topology("star")
+    X, y = data(topo.m_total, seed=8)
+    sess = Session.compile(Problem(X, y, lam=LAM), topo, backend="torch",
+                           device="cpu")
+    res = sess.run(rounds=2, key=prng.PRNGKey(0))
+    more = sess.run(rounds=0, warm_start=res, lam=0.5)
+    Xt = torch.from_numpy(X)
+    np.testing.assert_allclose(
+        more.w.numpy(), (Xt.T @ res.alpha / (0.5 * len(X))).numpy(), **TOL)
+
+
+def test_topology_json_round_trips_with_the_reference():
+    for case in sorted(TOPOLOGIES):
+        jt = TOPOLOGIES[case]()
+        pt = port_topology(case)
+        assert pt.to_dict() == jt.to_dict()
+        assert Topology.from_json(pt.to_json()) == pt
+        assert pt.n_leaves == jt.n_leaves and pt.m_total == jt.m_total
+    bal = Topology.balanced([2, 3], m_leaf=16, local_steps=32,
+                            level_rounds=[4, 2], level_delays=[0.5, 1e-3])
+    assert bal.to_dict() == JTopology.balanced(
+        [2, 3], m_leaf=16, local_steps=32, level_rounds=[4, 2],
+        level_delays=[0.5, 1e-3]).to_dict()
+
+
+def test_unported_options_raise():
+    topo = port_topology("star")
+    X, y = data(topo.m_total)
+    with pytest.raises(NotImplementedError):
+        Schedule(rounds="auto")
+    with pytest.raises(NotImplementedError):
+        Schedule(compression="int8")
+    with pytest.raises(NotImplementedError):
+        Schedule(acceleration=0.5)
+    plan = tplan.compile_tree(topo.tree)
+    with pytest.raises(NotImplementedError):
+        thost.get_host_executor(plan, loss=Problem(X, y).loss,
+                                device="cpu", carry_state=True)
+    with pytest.raises(ValueError):
+        Session.compile(Problem(X[:-1], y[:-1]), topo, device="cpu")
+    with pytest.raises(ValueError):
+        Session.compile(Problem(X, y), topo, backend="vmap", device="cpu")
