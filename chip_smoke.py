@@ -24,12 +24,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the count was read;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
-     the kernel's bound from that tick's inputs.
+     the kernel's bound from that tick's inputs;
+  5. hold the flash_attention kernel against its plain version on the
+     card: f32 and bf16; causal with and without a window, non-causal;
+     GQA H/KV in {10/1, 32/8, 4/4}; seq_offset > 0; d in {64, 80, 256};
+     and at B=1, S=4096, H=10, KV=1, d=256, window 2048, bf16;
+  6. hold the rglru_scan kernel against its plain version on the card:
+     small shapes (S not a multiple of 256 among them) and (B=4, S=4096,
+     W=2560) f32;
+  7. the serving path: recurrentgemma-2b at full width (26 layers, d_model
+     2560, attention_impl="flash"), weights drawn on the card from
+     torch.Generator("cuda").manual_seed(0), through
+     repro_torch.launch.serve.generate: batch 4, 4096-token prompts, 32
+     generated tokens.  The launch counts are zeroed before and read after
+     a prefill-only generate (8 flash, 18 scan) and the full generate (the
+     same: decode launches neither).  Logits must be finite and tokens in
+     range; the same prefill through the plain route (attention_impl=
+     "xla_chunked" and the plain scan) must give last-position logits
+     within LM_TOL; one warm prefill and a few decode steps run under
+     torch.profiler;
+  8. time the two LM kernels warm (CUDA events) at the serving shape beside
+     their plain versions, their bounds and, for flash attention, one
+     F.scaled_dot_product_attention call with the same band mask (a
+     yardstick only: the port never calls it).
 
 Prints the card's name and power limit, the build seconds, the kernel and
-plain times, the run's seconds per root round and peak device memory,
-then one JSON line describing each kernel and, last, the device line.
-Needs one CUDA device; exits non-zero without one.
+plain times, the run's seconds per root round and peak device memory, the
+serving path's prefill seconds, decode tokens/s and peak memory, then one
+JSON line describing each kernel and, last, the device line.  Needs one
+CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -43,16 +66,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and float32 rate
-# outside the tensor cores -- the roofline the kernel's bound is taken on
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, float32 rate
+# outside the tensor cores, dense bf16 tensor-core rate -- the roofline the
+# kernels' bounds are taken on
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # |kernel - plain| <= TOL * max(1, max|plain|) per output: both run in
 # float32 but sum <w, x_i> in different orders, and the differences ride
 # along H dependent steps; on the logistic loss the 8 Newton steps near
 # the edge of (0, 1) amplify them further.
 TOL = 1e-3
+# flash attention, |kernel - plain| per element: float32 softmax in both,
+# summed in other orders; bf16 outputs are rounded to 8 mantissa bits
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the serving path's last-position logits, kernel route against the plain
+# route, as a share of max|plain logits|: bf16 activations through 26
+# layers, where the routes round P (bf16 in the plain einsum, f32 in the
+# kernel) and sum in other orders
+LM_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -150,6 +183,299 @@ def check_losses(dev) -> float:
             print(f"check sdca_block {name:15s} {label:18s} "
                   f"max_abs_err={e:.3e}")
     return worst
+
+
+def time_plain_ms(fn, reps: int) -> float:
+    """Like time_ms after one warm call (the plain versions are long)."""
+    fn()
+    return time_ms(fn, reps)
+
+
+def check_flash(dev) -> float:
+    """Phase 5: the flash kernel against its plain version on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=dev).manual_seed(5)
+    # (B, Sq, Sk, H, KV, D, causal, window, seq_offset)
+    cases = [(2, 256, 256, 10, 1, 256, True, 96, 0),
+             (1, 192, 192, 32, 8, 64, True, None, 0),
+             (1, 128, 128, 4, 4, 80, False, None, 0),
+             (2, 100, 100, 10, 1, 64, True, 30, 0),
+             (1, 64, 320, 4, 4, 256, True, 100, 256),
+             (1, 96, 200, 32, 8, 80, False, 50, 60)]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for B, Sq, Sk, H, KV, D, causal, window, off in cases + [
+                (1, 4096, 4096, 10, 1, 256, True, 2048, 0)]:
+            if Sq == 4096 and dtype != torch.bfloat16:
+                continue
+            q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
+            got = fa.flash_attention_kernel(q, k, v, causal=causal,
+                                            window=window, seq_offset=off)
+            want = attention_ref(q, k, v, causal=causal, window=window,
+                                 seq_offset=off)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            if not e <= FLASH_TOL[name]:
+                raise AssertionError(
+                    f"flash_attention disagrees with its plain version: "
+                    f"{e} > {FLASH_TOL[name]} at {name} B={B} Sq={Sq} "
+                    f"Sk={Sk} H={H} KV={KV} d={D} causal={causal} "
+                    f"window={window} seq_offset={off}")
+            worst = max(worst, e)
+            print(f"check flash_attention {name:8s} B={B} Sq={Sq} Sk={Sk} "
+                  f"H={H} KV={KV} d={D} causal={causal} window={window} "
+                  f"seq_offset={off} max_abs_err={e:.3e}")
+    return worst
+
+
+def check_rglru(dev) -> float:
+    """Phase 6: the scan kernel against its plain version on the card."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for B, S, W in [(1, 1, 8), (2, 300, 64), (3, 37, 40), (2, 256, 2560),
+                    (4, 4096, 2560)]:
+        a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
+        b = torch.randn(B, S, W, generator=g, device=dev)
+        h0 = torch.randn(B, W, generator=g, device=dev)
+        got = rg.rglru_scan_kernel(a, b, h0)
+        want = rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        worst = max(worst, e)
+        print(f"check rglru_scan B={B} S={S} W={W} max_abs_err={e:.3e}")
+    return worst
+
+
+def profile_window(fn, label: str, card: str) -> None:
+    """fn under torch.profiler: wall time, device busy share, device time
+    by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
+                      f"ms x{e.count}" for e in top)
+    share = f"{100 * busy_ms / wall_ms:.1f}%" if busy_ms else "not measured"
+    print(f"profile, {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({share}); by kernel: {names}  [{card}]")
+
+
+def serve_path(dev, card: str) -> dict:
+    """Phase 7: recurrentgemma-2b at full width through generate."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(recurrentgemma_2b.FULL, attention_impl="flash")
+    B, S, gen = 4, 4096, 32
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k == "attn" for k in kinds)
+    n_rec = sum(k == "rec" for k in kinds)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, g)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve: {cfg.name} {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=g, device=dev)}
+
+    # prefill only (gen_tokens=1: no decode step), also the warm-up
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    _, cold = generate(cfg, params, prompts, 1, device=dev)
+    pre = (fa.LAUNCHES, rg.LAUNCHES)
+    # the whole request: prefill then 31 decode steps
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    toks, stats = generate(cfg, params, prompts, gen, device=dev)
+    launches = {"flash_attention": fa.LAUNCHES, "rglru_scan": rg.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve: batch {B}, prompt {S}, {gen} generated: prefill "
+          f"{stats['prefill_s']:.4f} s (cold {cold['prefill_s']:.4f} s), "
+          f"decode {stats['decode_s']:.4f} s = {stats['tok_per_s']:.2f} "
+          f"tokens/s; peak device memory {peak / 2**30:.3f} GiB  [{card}]")
+    print(f"serve: launches in prefill flash={pre[0]} scan={pre[1]}; in the "
+          f"whole request flash={launches['flash_attention']} "
+          f"scan={launches['rglru_scan']}")
+    if pre != (n_attn, n_rec):
+        raise AssertionError(f"prefill launched (flash, scan) = {pre}, the "
+                             f"model has ({n_attn}, {n_rec}) layers")
+    if (launches["flash_attention"], launches["rglru_scan"]) != pre:
+        raise AssertionError(f"decode launched kernels: {launches} over a "
+                             f"prefill's {pre}")
+    if tuple(toks.shape) != (B, gen) or toks.dtype != torch.int32:
+        raise AssertionError(f"tokens {tuple(toks.shape)} {toks.dtype}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("generated tokens out of the vocabulary")
+
+    # the same prefill by the kernel route and by the plain route; logits
+    # checked below are not part of the counted run
+    with torch.no_grad():
+        logits, cache = transformer.prefill(cfg, params, prompts,
+                                            max_len=S + gen)
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        dlogits, _ = transformer.decode_step(cfg, params, cache, nxt)
+        del cache
+        plain_cfg = dataclasses.replace(cfg, attention_impl="xla_chunked")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, _ = transformer.prefill(plain_cfg, params, prompts,
+                                       max_len=S + gen,
+                                       plain_recurrence=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    for name, t in (("prefill", logits), ("decode", dlogits)):
+        if tuple(t.shape) != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name} logits {tuple(t.shape)} not "
+                                 f"finite or of the wrong shape")
+    err = float((logits - plain).abs().max())
+    scale = float(plain.abs().max())
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"serve: last-position logits, kernel route vs plain route: max "
+          f"abs diff {err:.4e}, max|plain| {scale:.4e} (tolerance "
+          f"{LM_TOL} x max|plain|), argmax agreement {agree:.2f}; plain "
+          f"route prefill {plain_s:.3f} s  [{card}]")
+    if not err <= LM_TOL * scale:
+        raise AssertionError("the kernel route's logits disagree with the "
+                             "plain route's")
+
+    def one_prefill():
+        with torch.no_grad():
+            transformer.prefill(cfg, params, prompts, max_len=S + gen)
+
+    def decode_steps():
+        generate(cfg, params, {"tokens": prompts["tokens"][:, :64]}, 5,
+                 device=dev)
+
+    n0 = (fa.LAUNCHES, rg.LAUNCHES)
+    profile_window(one_prefill, f"one warm prefill (B={B}, S={S})", card)
+    profile_window(decode_steps, "generate of 5 tokens after a 64-token "
+                   "prompt (prefill + 4 decode steps)", card)
+    fa.LAUNCHES, rg.LAUNCHES = n0
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def time_lm_kernels(dev, card: str) -> dict:
+    """Phase 8: the two LM kernels at the serving shape, warm, beside their
+    plain versions, their bounds and (flash) one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    n0 = (fa.LAUNCHES, rg.LAUNCHES)
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, S, H, KV, D, win = 4, 4096, 10, 1, 256, 2048
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, D, generator=g, device=dev).bfloat16()
+    run = lambda: fa.flash_attention_kernel(q, k, v, causal=True,  # noqa: E731
+                                            window=win)
+    plain = lambda: attention_ref(q, k, v, causal=True,  # noqa: E731
+                                  window=win, seq_offset=0)
+    got, want = run(), plain()
+    err = float((got.float() - want.float()).abs().max())
+    ms = time_ms(run, 10)
+    plain_ms = time_plain_ms(plain, 2)
+    pos = torch.arange(S, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < win)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=band, enable_gqa=True)
+    lib = sdpa().transpose(1, 2)
+    lib_err = float((lib.float() - want.float()).abs().max())
+    library_ms = time_ms(sdpa, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    sdpa_kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: -e.self_device_time_total)
+    backend = sdpa_kernels[0].key if sdpa_kernels else "not measured"
+    # visible (query, key) pairs of this causal band; QK^T and PV each 2d
+    # flops a pair; bytes: q, k, v read once, out written once
+    pairs = sum(min(i + 1, win) for i in range(S))
+    flops = 4 * D * pairs * B * H
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out["flash_attention"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=library_ms, max_abs_err=err)
+    print(f"flash_attention at the serving shape (B={B} S={S} H={H} KV={KV} "
+          f"d={D} window={win} bf16): kernel {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (band mask, "
+          f"enable_gqa; its top kernel: {backend[:90]}; max abs diff from "
+          f"plain {lib_err:.3e}), bound {max(t_ops, t_bytes):.4f} ms "
+          f"(operations {t_ops:.4f} ms: {flops} flop over {pairs} visible "
+          f"pairs per (b, h) at the bf16 tensor-core peak; bytes "
+          f"{t_bytes:.4f} ms: {nbytes} B), max_abs_err {err:.3e}  [{card}]")
+    del q, k, v, got, want, lib, band, qt, kt, vt
+
+    W = 2560
+    a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
+    b = torch.randn(B, S, W, generator=g, device=dev)
+    h0 = torch.zeros(B, W, device=dev)
+    got = rg.rglru_scan_kernel(a, b, h0)
+    want = rglru_scan_ref(a, b, h0)
+    err = max_err(got, want)
+    ms = time_ms(lambda: rg.rglru_scan_kernel(a, b, h0), 20)
+    plain_ms = time_plain_ms(lambda: rglru_scan_ref(a, b, h0), 1)
+    nbytes = (3 * a.numel() + 2 * h0.numel()) * 4
+    flops = 2 * a.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    out["rglru_scan"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, max_abs_err=err)
+    print(f"rglru_scan at the serving shape (B={B} S={S} W={W} f32): kernel "
+          f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+          f"{max(t_ops, t_bytes):.4f} ms (bytes {t_bytes:.4f} ms: {nbytes} "
+          f"B; operations {t_ops:.4f} ms: {flops} flop), max_abs_err "
+          f"{err:.3e}, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s  [{card}]")
+    fa.LAUNCHES, rg.LAUNCHES = n0
+    return out
 
 
 def main() -> int:
@@ -282,6 +608,31 @@ def main() -> int:
           f"max_abs_err {err:.3e}  [{card}]")
     print("sdca_block ms/launch by loss at that shape: " + ", ".join(
         f"{k} {v:.4f}" for k, v in per_loss.items()) + f"  [{card}]")
+    # ---- 5-6. the LM kernels against their plain versions ------------------
+    flash_err = check_flash(dev)
+    rglru_err = check_rglru(dev)
+    del X, y, problem, sess, res, res2, data, ex, args, got, want, cls_args
+    torch.cuda.empty_cache()
+
+    # ---- 7. the serving path ---------------------------------------------------
+    lm_launches = serve_path(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8. the LM kernels timed at the serving shape ------------------------
+    lm = time_lm_kernels(dev, card)
+    lm["flash_attention"]["max_abs_err"] = max(
+        lm["flash_attention"]["max_abs_err"], flash_err)
+    lm["rglru_scan"]["max_abs_err"] = max(lm["rglru_scan"]["max_abs_err"],
+                                          rglru_err)
+    lm_rows = [dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/kernels/{pkg}/csrc/{name}.cu",
+        replaces=replaces, launches=lm_launches[name], **lm[name])
+        for name, pkg, replaces in (
+            ("flash_attention", "flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:86"),
+            ("rglru_scan", "rglru",
+             "src/repro/kernels/rglru/kernel.py:71"))]
     print(json.dumps({"kernels": [{
         "name": "sdca_block",
         "route": "cuda",
@@ -294,7 +645,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }]}))
+    }] + lm_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ numpy arrays: ``np.asarray(res.alpha)``, ...) into this package's
 :class:`~repro_torch.core.instrument.SolveResult`, so a run of the port
 can continue one of the reference (``Session.run(warm_start=...)``);
 ``problem_from_numpy`` builds a :class:`~repro_torch.api.problem.Problem`
-from the arrays a reference ``Problem`` was built from.  The tests start
-both packages from the same state this way.
+from the arrays a reference ``Problem`` was built from;
+``lm_params_from_reference`` carries a reference LM's parameters over.
+The tests start both packages from the same state this way.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from repro_torch.api.problem import Problem
 from repro_torch.core import prng
 from repro_torch.core.instrument import SolveResult
+from repro_torch.models.transformer import block_layout
 
 
 def from_reference(alpha, w, history: Sequence[dict] = (), next_key=None,
@@ -55,3 +57,34 @@ def problem_from_numpy(X, y, loss="squared", lam: float = 0.1,
         torch.as_tensor(np.array(X, np.float32), device=device),
         torch.as_tensor(np.array(y, np.float32), device=device),
         loss=loss, lam=lam)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16, which torch lacks
+        return torch.as_tensor(a.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _tree(node, device, index=None):
+    if isinstance(node, dict):
+        return {k: _tree(v, device, index) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, device, index) for v in node]
+    return _tensor(node if index is None else np.asarray(node)[index],
+                   device)
+
+
+def lm_params_from_reference(tree, cfg, device="cuda") -> dict:
+    """The port's LM parameters on ``device`` from the reference's
+    ``repro.models.transformer.init_params(cfg, key)`` with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): the stacked ``blocks`` are
+    split into one dict per block; ``tail``, the tied or untied embedding
+    and the norms carry over as they are."""
+    _, n_full, _ = block_layout(cfg)
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
+    if "blocks" in tree:
+        out["blocks"] = [_tree(tree["blocks"], device, i)
+                         for i in range(n_full)]
+    return out

@@ -3,9 +3,13 @@ each with its wrapper (``kernel.py``), its plain-torch version (``ref.py``)
 and its CUDA source under ``csrc/``; ``_build.py`` compiles the sources
 at first use.
 
-  sdca  -- Procedure P (LocalSDCA) for every leaf of a tick in one launch:
-           the counterpart of the JAX package's Pallas ``sdca_block_kernel``.
-
-The JAX package's ``flash_attention`` and ``rglru`` kernels serve only the
-LM workload and are not ported yet.
+  sdca             -- Procedure P (LocalSDCA) for every leaf of a tick in
+                      one launch: the counterpart of the JAX package's
+                      Pallas ``sdca_block_kernel``.
+  flash_attention  -- forward blocked online-softmax attention (causal /
+                      window, GQA, query offset): the counterpart of
+                      ``flash_attention_kernel``; the LM prefill's attention.
+  rglru            -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t:
+                      the counterpart of ``rglru_scan_kernel``; the LM
+                      prefill's recurrent layers.
 """

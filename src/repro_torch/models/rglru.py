@@ -1,0 +1,118 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427), the
+JAX package's ``models/rglru.py``.
+
+Block:  x -> [in-proj -> causal conv1d(w=4) -> RG-LRU] * gelu(gate-proj)
+          -> out-proj
+
+RG-LRU:  r_t = sigmoid(x_t W_a);  i_t = sigmoid(x_t W_x)
+         a_t = exp(-c * softplus(Lambda) * r_t)          (c = 8)
+         h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Over a sequence the recurrence h_t = a_t h_{t-1} + b_t (h_0 = 0) runs in
+``kernels.rglru.ops.rglru_scan`` -- the hand-written kernel on the card --
+where the reference uses ``jax.lax.associative_scan``; decode carries
+(h, conv tail) state, O(1) per token.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.models.common import dense_init
+from repro_torch.models.mlp import gelu
+
+Tensor = torch.Tensor
+_C = 8.0
+
+
+def init_rglru_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+    d, w = cfg.d_model, cfg.lru_width
+    return {
+        "w_in": dense_init(gen, (d, w), dtype),
+        "w_gate": dense_init(gen, (d, w), dtype),
+        "conv": dense_init(gen, (cfg.conv_width, w), dtype, scale=0.1),
+        "w_a": dense_init(gen, (w, w), dtype),
+        "w_x": dense_init(gen, (w, w), dtype),
+        # Lambda parametrized so softplus(lam) spreads decays in (0.9, 0.999)
+        "lam": torch.linspace(-2.0, 2.0, w, dtype=torch.float32,
+                              device=gen.device),
+        "w_out": dense_init(gen, (w, d), dtype),
+    }
+
+
+def _gates(p, u: Tensor) -> Tuple[Tensor, Tensor]:
+    """u: (..., W) conv output -> (a_t, b_t) of the recurrence, float32.
+
+    ``p["lam"]`` arrives in the activation dtype (``cast_floats`` rounds it
+    as the reference does), so softplus runs in that dtype.  ``F.softplus``
+    returns x above its threshold of 20 where ``jax.nn.softplus`` computes
+    logaddexp(x, 0); the two differ by under 1e-8 there, and lam lies in
+    [-2, 2] anyway."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_a"].float())
+    i = torch.sigmoid(uf @ p["w_x"].float())
+    log_a = -_C * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
+        i * uf)
+    return a, b
+
+
+def linear_recurrence(a: Tensor, b: Tensor, plain: bool = False) -> Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 (time), h_0 = 0: the kernel op,
+    or with ``plain=True`` its plain version on any device."""
+    h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype, device=a.device)
+    if plain:
+        return rglru_scan_ref(a, b, h0)[0]
+    return rglru_scan(a, b, h0)[0]
+
+
+def causal_conv(u: Tensor, conv: Tensor) -> Tuple[Tensor, Tensor]:
+    """Causal conv1d of width cw over time: returns (conv output, the
+    left-padded input).  A Python sum in u's dtype, term i = 0..cw-1 in
+    order, as the reference's prefill writes it."""
+    cw, S = conv.shape[0], u.shape[1]
+    padded = F.pad(u, (0, 0, cw - 1, 0))
+    out = sum(padded[:, i: i + S] * conv[i] for i in range(cw))
+    return out, padded
+
+
+def rglru_block(p, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """x: (B, S, D) -> (B, S, D), parallel over channels."""
+    u = x @ p["w_in"]  # (B, S, W)
+    gate = gelu(x @ p["w_gate"])
+    conv, _ = causal_conv(u, p["conv"])
+    a, b = _gates(p, conv)
+    h = linear_recurrence(a, b).to(x.dtype)
+    return (h * gate) @ p["w_out"]
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cuda"):
+    return {
+        "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width),
+                            dtype=dtype, device=device),
+    }
+
+
+def rglru_decode(p, cfg: ModelConfig, x: Tensor, cache: dict
+                 ) -> Tuple[Tensor, dict]:
+    """x: (B, 1, D) -> (B, 1, D); O(1) state update.  The conv is the
+    reference's einsum over the cw taps: summed in float32, rounded once
+    to x's dtype."""
+    u = (x @ p["w_in"])[:, 0]  # (B, W)
+    gate = gelu(x @ p["w_gate"])[:, 0]
+    hist = torch.cat([cache["conv"], u[:, None]], dim=1)  # (B, cw, W)
+    conv = torch.einsum("bcw,cw->bw", hist.float(),
+                        p["conv"].float()).to(hist.dtype)
+    a, b = _gates(p, conv)
+    h = a * cache["h"] + b
+    out = ((h.to(x.dtype) * gate) @ p["w_out"])[:, None]
+    return out, {"h": h, "conv": hist[:, 1:]}

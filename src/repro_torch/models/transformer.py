@@ -1,0 +1,283 @@
+"""The decoder-only model of the JAX package's ``models/transformer.py``, for
+the ``attn`` and ``rec`` sub-layer kinds (dense GQA attention and RG-LRU
+hybrids such as recurrentgemma-2b).
+
+Layers are grouped into repeating *pattern blocks* (``cfg.block_pattern``)
+plus a tail.  Parameters are a dict laid out as the reference's, except
+that ``blocks`` is a list with one dict per block where the reference
+stacks them on a leading axis; the blocks run as a Python loop.  The
+reference's ``shardctx.constrain`` has no counterpart: the port runs on
+one device.  Two modes: prefill (a full-sequence forward that builds the
+decode cache) and decode (one token against the cache; O(1) state for the
+recurrent layers).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models.common import (cast_floats, dense_init, dtype_of,
+                                       rms_norm)
+
+Tensor = torch.Tensor
+PyTree = Any
+
+KINDS = ("attn", "rec")
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"sub-layer kind {kind!r} is not ported yet (ROADMAP A13); the port "
+        f"serves {KINDS}")
+
+
+def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.is_rwkv:
+        return ("rwkv",)
+    return cfg.block_pattern or ("attn",)
+
+
+def block_layout(cfg: ModelConfig
+                 ) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(pattern, n_full_blocks, tail_kinds)."""
+    p = _pattern(cfg)
+    n_full = cfg.num_layers // len(p)
+    tail = tuple(p[: cfg.num_layers % len(p)])
+    return p, n_full, tail
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                   dtype) -> Dict:
+    dev = gen.device
+    p: Dict[str, Any] = {"ln1": torch.zeros((cfg.d_model,), dtype=dtype,
+                                            device=dev)}
+    if kind == "attn":
+        p["mix"] = attn_mod.init_attn_params(gen, cfg, dtype)
+    elif kind == "rec":
+        p["mix"] = rglru_mod.init_rglru_params(gen, cfg, dtype)
+    else:
+        raise _unported(kind)
+    p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
+    p["ffn"] = mlp_mod.init_ffn_params(gen, cfg, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
+    """Random weights at the config's shapes, drawn from ``gen`` on its
+    device (the reference's initializers; ``jax.random`` and a
+    ``torch.Generator`` give different numbers)."""
+    dtype = dtype_of(cfg.param_dtype)
+    pattern, n_full, tail = block_layout(cfg)
+    params: Dict[str, Any] = {
+        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                            scale=0.02),
+        "final_ln": torch.zeros((cfg.d_model,), dtype=dtype,
+                                device=gen.device),
+    }
+    if n_full:
+        params["blocks"] = [
+            {f"sub{i}": _init_sublayer(gen, cfg, kind, dtype)
+             for i, kind in enumerate(pattern)}
+            for _ in range(n_full)]
+    if tail:
+        params["tail"] = [_init_sublayer(gen, cfg, kind, dtype)
+                          for kind in tail]
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype)
+    return params
+
+
+def _unembed(cfg: ModelConfig, params) -> Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch) -> Tensor:
+    dtype = dtype_of(cfg.activation_dtype)
+    if cfg.input_mode == "embeddings" and "embeds" in batch:
+        return batch["embeds"].to(dtype)
+    x = params["embed"][batch["tokens"].long()].to(dtype)
+    if cfg.tie_embeddings:   # sqrt(d_model) taken in f32, rounded to dtype
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
+                                        device=x.device)).to(dtype)
+    return x
+
+
+def _logits(cfg: ModelConfig, params, h: Tensor) -> Tensor:
+    """(B, D) final hidden states -> (B, V) float32 logits against the
+    float32 master embedding."""
+    return h.float() @ _unembed(cfg, params).float()
+
+
+# ---------------------------------------------------------------------------
+# cache init
+# ---------------------------------------------------------------------------
+def _init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
+                         max_len: int, dtype, device):
+    if kind == "attn":
+        return attn_mod.init_layer_cache(cfg, batch, max_len, dtype=dtype,
+                                         device=device)
+    if kind == "rec":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype=dtype,
+                                          device=device)
+    raise _unported(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> PyTree:
+    pattern, n_full, tail = block_layout(cfg)
+    cache: Dict[str, Any] = {"pos": 0}
+    if n_full:
+        cache["blocks"] = [
+            {f"sub{i}": _init_sublayer_cache(cfg, kind, batch, max_len,
+                                             dtype, device)
+             for i, kind in enumerate(pattern)}
+            for _ in range(n_full)]
+    if tail:
+        cache["tail"] = [_init_sublayer_cache(cfg, kind, batch, max_len,
+                                              dtype, device)
+                         for kind in tail]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
+                     cache) -> Tuple[Tensor, PyTree]:
+    p = cast_floats(p, x.dtype)
+    h = rms_norm(x, p["ln1"])
+    if kind == "attn":
+        o, cache = attn_mod.decode_attention(p["mix"], cfg, h, pos, cache)
+    elif kind == "rec":
+        o, cache = rglru_mod.rglru_decode(p["mix"], cfg, h, cache)
+    else:
+        raise _unported(kind)
+    x = x + o
+    h2 = rms_norm(x, p["ln2"])
+    x = x + mlp_mod.ffn(p["ffn"], cfg, h2)[0]
+    return x, cache
+
+
+def decode_step(cfg: ModelConfig, params, cache: PyTree, tokens: Tensor
+                ) -> Tuple[Tensor, PyTree]:
+    """One token per sequence. tokens: (B, 1) -> logits (B, V) float32 and
+    the cache one position on (attention caches are updated in place)."""
+    pattern, n_full, tail = block_layout(cfg)
+    pos = cache["pos"]
+    x = _embed_inputs(cfg, params, {"tokens": tokens})
+    new_cache: Dict[str, Any] = {"pos": pos + 1}
+    if n_full:
+        new_cache["blocks"] = []
+        for blk, blk_cache in zip(params["blocks"], cache["blocks"],
+                                  strict=True):
+            ncache = {}
+            for i, kind in enumerate(pattern):
+                x, ncache[f"sub{i}"] = _sublayer_decode(
+                    blk[f"sub{i}"], cfg, kind, x, pos, blk_cache[f"sub{i}"])
+            new_cache["blocks"].append(ncache)
+    if tail:
+        new_cache["tail"] = []
+        for i, kind in enumerate(tail):
+            x, c = _sublayer_decode(params["tail"][i], cfg, kind, x, pos,
+                                    cache["tail"][i])
+            new_cache["tail"].append(c)
+    h = rms_norm(x, params["final_ln"])
+    return _logits(cfg, params, h[:, 0]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# prefill: full-sequence forward that also builds the decode cache
+# ---------------------------------------------------------------------------
+def _attn_prefill_cache(p, cfg: ModelConfig, h: Tensor, positions: Tensor,
+                        max_len: int, dtype) -> PyTree:
+    """Recompute k/v for the whole prompt and lay them out
+    ring-consistently."""
+    B, S, _ = h.shape
+    _, k, v = attn_mod._project_qkv(p["mix"], cfg, h, positions)
+    cache = attn_mod.init_layer_cache(cfg, B, max_len, dtype=dtype,
+                                      device=h.device)
+    n = cache["k"].shape[1]
+    take = min(n, S)
+    src = slice(S - take, S)  # last `take` positions
+    pos_tail = positions[0, src]
+    slots = (pos_tail % n).long()
+    cache["k"][:, slots] = k[:, src].to(dtype)
+    cache["v"][:, slots] = v[:, src].to(dtype)
+    cache["slot_pos"][slots] = pos_tail.to(torch.int32)
+    return cache
+
+
+def _sublayer_prefill(p, cfg: ModelConfig, kind: str, x: Tensor,
+                      positions: Tensor, max_len: int, dtype,
+                      plain_recurrence: bool = False
+                      ) -> Tuple[Tensor, PyTree]:
+    p = cast_floats(p, x.dtype)
+    h = rms_norm(x, p["ln1"])
+    if kind == "attn":
+        cache = _attn_prefill_cache(p, cfg, h, positions, max_len, dtype)
+        x = x + attn_mod.attend(p["mix"], cfg, h, positions)
+    elif kind == "rec":
+        pm = p["mix"]
+        u = h @ pm["w_in"]
+        gate = mlp_mod.gelu(h @ pm["w_gate"])
+        cw = cfg.conv_width
+        conv, padded = rglru_mod.causal_conv(u, pm["conv"])
+        a, b = rglru_mod._gates(pm, conv)
+        hseq = rglru_mod.linear_recurrence(a, b, plain_recurrence)
+        # clones, so the cache does not hold the whole sequence alive
+        cache = {"h": hseq[:, -1].clone(),
+                 "conv": padded[:, padded.shape[1] - (cw - 1):].clone()}
+        x = x + ((hseq.to(x.dtype) * gate) @ pm["w_out"])
+    else:
+        raise _unported(kind)
+    h2 = rms_norm(x, p["ln2"])
+    x = x + mlp_mod.ffn(p["ffn"], cfg, h2)[0]
+    return x, cache
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor],
+            max_len: Optional[int] = None, cache_dtype=torch.bfloat16,
+            plain_recurrence: bool = False) -> Tuple[Tensor, PyTree]:
+    """Process a prompt; return (last-position logits (B, V) float32,
+    decode cache).  ``plain_recurrence=True`` runs the RG-LRU recurrence
+    through its plain version instead of the kernel (a reference route
+    for checking the kernel path on the card)."""
+    pattern, n_full, tail = block_layout(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    max_len = max_len or S
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+
+    def run(p, kind, x):
+        return _sublayer_prefill(p, cfg, kind, x, positions, max_len,
+                                 cache_dtype, plain_recurrence)
+
+    cache: Dict[str, Any] = {"pos": S}
+    if n_full:
+        cache["blocks"] = []
+        for blk in params["blocks"]:
+            ncache = {}
+            for i, kind in enumerate(pattern):
+                x, ncache[f"sub{i}"] = run(blk[f"sub{i}"], kind, x)
+            cache["blocks"].append(ncache)
+    if tail:
+        cache["tail"] = []
+        for i, kind in enumerate(tail):
+            x, c = run(params["tail"][i], kind, x)
+            cache["tail"].append(c)
+    h = rms_norm(x, params["final_ln"])
+    return _logits(cfg, params, h[:, -1]), cache

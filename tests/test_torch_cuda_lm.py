@@ -1,0 +1,177 @@
+"""The serving path's kernels on the card: the hand-written flash-attention
+and RG-LRU scan kernels against their plain versions over the shape and
+dtype grid chip_smoke.py runs, the wrappers' checks, and
+``launch/serve.generate`` on the card against its CPU run with the launch
+counts of prefill and decode.  Every test here needs an NVIDIA GPU and
+skips without one; the file imports no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_lm.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import recurrentgemma_2b  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rglru import kernel as rg  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# |kernel - plain| per element, as chip_smoke.py states it: float32
+# softmax in both, summed in other orders (and q scaled before the product
+# in the kernel, after it in the plain version); in bf16 both outputs are
+# rounded to 8 mantissa bits
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _qkv(B, Sq, Sk, H, KV, D, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D))]
+
+
+# (B, Sq, Sk, H, KV, causal, window, seq_offset)
+FLASH_CASES = [
+    (2, 128, 128, 10, 1, True, None, 0),
+    (1, 192, 192, 10, 1, True, 64, 0),       # window prunes k tiles
+    (1, 64, 64, 32, 8, False, None, 0),      # GQA 4:1, non-causal
+    (2, 100, 100, 4, 4, True, 30, 0),        # S not a multiple of a tile
+    (1, 64, 256, 4, 4, True, 80, 192),       # queries late in the keys
+    (1, 48, 160, 32, 8, False, 40, 70),      # window without causality
+]
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(D, dtype, case, cuda_device):
+    B, Sq, Sk, H, KV, causal, window, off = case
+    q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, cuda_device)
+    before = fa.LAUNCHES
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                    seq_offset=off)
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         seq_offset=off)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+def test_flash_kernel_at_the_serving_shape(cuda_device):
+    """B=1, S=4096, 10 query heads on 1 kv head, d=256, window 2048,
+    bf16: one prefill attention layer of recurrentgemma-2b."""
+    q, k, v = _qkv(1, 4096, 4096, 10, 1, 256, torch.bfloat16, cuda_device)
+    got = fa.flash_attention_kernel(q, k, v, causal=True, window=2048)
+    want = attention_ref(q, k, v, causal=True, window=2048, seq_offset=0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 8), (2, 384, 64), (3, 37, 40),
+                                   (4, 1000, 2560)])
+def test_rglru_kernel_equals_plain_version(B, S, W, cuda_device):
+    """The kernel rounds the product and the sum of each step as the plain
+    version's two elementwise kernels do, so the two agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=cuda_device)
+    b = torch.randn(B, S, W, generator=g, device=cuda_device)
+    h0 = torch.randn(B, W, generator=g, device=cuda_device)
+    before = rg.LAUNCHES
+    h, h_last = rg.rglru_scan_kernel(a, b, h0)
+    want_h, want_last = rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 1
+    assert torch.equal(h, want_h) and torch.equal(h_last, want_last)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device,
+                                                            monkeypatch):
+    q, k, v = _qkv(1, 32, 32, 4, 2, 64, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention_kernel(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_kernel(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="compiled"):
+        fa.flash_attention_kernel(q[..., :32].contiguous(),
+                                  k[..., :32].contiguous(),
+                                  v[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        fa.flash_attention_kernel(q, k.cpu(), v)
+    monkeypatch.setattr(fa, "smem_limit", lambda device: 1024)
+    with pytest.raises(ValueError, match="shared"):
+        fa.flash_attention_kernel(q, k, v)
+
+
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    a = torch.rand(2, 16, 8, device=cuda_device)
+    h0 = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        rg.rglru_scan_kernel(a.double(), a.double(), h0.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_scan_kernel(a.transpose(0, 1).contiguous().transpose(0, 1),
+                             a, h0)
+    with pytest.raises(ValueError):
+        rg.rglru_scan_kernel(a, a[:, :8].contiguous(), h0)
+    with pytest.raises(ValueError):
+        rg.rglru_scan_kernel(a, a, h0.cpu())
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla_chunked"])
+def test_generate_on_the_card_matches_the_cpu(impl, cuda_device):
+    """recurrentgemma-2b SMOKE at float32 activations: prefill logits and
+    greedy tokens on the card against the CPU run; the prefill launches
+    the flash kernel once per attention layer (with attention_impl
+    "flash") and the scan kernel once per recurrent layer, decode neither."""
+    cfg = dataclasses.replace(recurrentgemma_2b.SMOKE,
+                              activation_dtype="float32",
+                              attention_impl=impl)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _to(params, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k == "attn" for k in kinds) if impl == "flash" else 0
+    n_rec = sum(k == "rec" for k in kinds)
+
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    serve.generate(cfg, on_card, {"tokens": toks}, 1, device=cuda_device)
+    assert (fa.LAUNCHES, rg.LAUNCHES) == (n_attn, n_rec)
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    got, _ = serve.generate(cfg, on_card, {"tokens": toks}, 12,
+                            device=cuda_device)
+    assert (fa.LAUNCHES, rg.LAUNCHES) == (n_attn, n_rec)
+    want, _ = serve.generate(cfg, params, {"tokens": toks}, 12, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+    dl, _ = transformer.prefill(cfg, on_card, {"tokens": toks.to(
+        cuda_device)})
+    cl, _ = transformer.prefill(cfg, params, {"tokens": toks})
+    torch.testing.assert_close(dl.cpu(), cl, rtol=1e-4, atol=1e-5)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
