@@ -24,11 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the count was read;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
-     the kernel's bound from that tick's inputs;
-  5. hold the flash_attention kernel against its plain version on the
-     card: f32 and bf16; causal with and without a window, non-causal;
-     GQA H/KV in {10/1, 32/8, 4/4}; seq_offset > 0; d in {64, 80, 256};
-     and at B=1, S=4096, H=10, KV=1, d=256, window 2048, bf16;
+     the kernel's bound from that tick's inputs; time it for every loss at
+     that shape (ms per launch and us per dependent step);
+  5. hold the flash_attention kernels against their plain version on the
+     card: f32 (CUDA-core kernel) and bf16 (tensor-core kernel); causal
+     with and without a window, non-causal; GQA H/KV in {10/1, 32/8, 4/4,
+     8/2, 4/1}; seq_offset > 0; d in {16, 64, 80, 128, 256}; lengths that
+     are not multiples of a tile; and at B=1, S=4096, H=10, KV=1, d=256,
+     window 2048, bf16;
   6. hold the rglru_scan kernel against its plain version on the card:
      small shapes (S not a multiple of 256 among them) and (B=4, S=4096,
      W=2560) f32;
@@ -37,11 +40,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      torch.Generator("cuda").manual_seed(0), through
      repro_torch.launch.serve.generate: batch 4, 4096-token prompts, 32
      generated tokens.  The launch counts are zeroed before and read after
-     a prefill-only generate (8 flash, 18 scan) and the full generate (the
-     same: decode launches neither).  Logits must be finite and tokens in
-     range; the same prefill through the plain route (attention_impl=
-     "xla_chunked" and the plain scan) must give last-position logits
-     within LM_TOL; one warm prefill and a few decode steps run under
+     a prefill-only generate (8 flash, all on the tensor-core route, and
+     18 scan) and the full generate (the same: decode launches neither).
+     Logits must be finite and tokens in range; the same prefill through
+     the plain route (attention_impl="xla_chunked" and the plain scan)
+     must give last-position logits within LM_TOL; one warm prefill and a few decode steps run under
      torch.profiler;
   8. time the two LM kernels warm (CUDA events) at the serving shape beside
      their plain versions, their bounds and, for flash attention, one
@@ -86,6 +89,10 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # layers, where the routes round P (bf16 in the plain einsum, f32 in the
 # kernel) and sum in other orders
 LM_TOL = 5e-2
+
+
+# the kernels of this package, by the names the profiler shows
+PORT_KERNELS = ("sdca_block_kernel", "flash_fwd", "rglru_scan_kernel")
 
 
 def card_line() -> str:
@@ -203,7 +210,9 @@ def check_flash(dev) -> float:
              (1, 128, 128, 4, 4, 80, False, None, 0),
              (2, 100, 100, 10, 1, 64, True, 30, 0),
              (1, 64, 320, 4, 4, 256, True, 100, 256),
-             (1, 96, 200, 32, 8, 80, False, 50, 60)]
+             (1, 96, 200, 32, 8, 80, False, 50, 60),
+             (1, 130, 300, 8, 2, 128, True, None, 5),
+             (1, 70, 130, 4, 1, 16, True, 40, 10)]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
@@ -214,8 +223,12 @@ def check_flash(dev) -> float:
             q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
             k = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
             v = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
+            before = fa.LAUNCHES_BY_ROUTE[fa.route(dtype, D)]
             got = fa.flash_attention_kernel(q, k, v, causal=causal,
                                             window=window, seq_offset=off)
+            if fa.LAUNCHES_BY_ROUTE[fa.route(dtype, D)] != before + 1:
+                raise AssertionError(f"{name} d={D} did not take the "
+                                     f"{fa.route(dtype, D)} route")
             want = attention_ref(q, k, v, causal=causal, window=window,
                                  seq_offset=off)
             torch.cuda.synchronize()
@@ -227,7 +240,8 @@ def check_flash(dev) -> float:
                     f"Sk={Sk} H={H} KV={KV} d={D} causal={causal} "
                     f"window={window} seq_offset={off}")
             worst = max(worst, e)
-            print(f"check flash_attention {name:8s} B={B} Sq={Sq} Sk={Sk} "
+            print(f"check flash_attention {name:8s} "
+                  f"({fa.route(dtype, D)}) B={B} Sq={Sq} Sk={Sk} "
                   f"H={H} KV={KV} d={D} causal={causal} window={window} "
                   f"seq_offset={off} max_abs_err={e:.3e}")
     return worst
@@ -272,9 +286,13 @@ def profile_window(fn, label: str, card: str) -> None:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
                       f"ms x{e.count}" for e in top)
+    ours = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                     f"ms x{e.count}" for e in kernels
+                     if any(n in e.key for n in PORT_KERNELS)) or "none"
     share = f"{100 * busy_ms / wall_ms:.1f}%" if busy_ms else "not measured"
     print(f"profile, {label}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({share}); by kernel: {names}  [{card}]")
+          f"{busy_ms:.3f} ms ({share}); by kernel: {names}; the port's "
+          f"kernels: {ours}  [{card}]")
 
 
 def serve_path(dev, card: str) -> dict:
@@ -304,24 +322,34 @@ def serve_path(dev, card: str) -> dict:
 
     # prefill only (gen_tokens=1: no decode step), also the warm-up
     fa.LAUNCHES = rg.LAUNCHES = 0
+    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
     _, cold = generate(cfg, params, prompts, 1, device=dev)
     pre = (fa.LAUNCHES, rg.LAUNCHES)
+    pre_routes = dict(fa.LAUNCHES_BY_ROUTE)
     # the whole request: prefill then 31 decode steps
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = rg.LAUNCHES = 0
+    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
     toks, stats = generate(cfg, params, prompts, gen, device=dev)
     launches = {"flash_attention": fa.LAUNCHES, "rglru_scan": rg.LAUNCHES}
+    routes = dict(fa.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
     print(f"serve: batch {B}, prompt {S}, {gen} generated: prefill "
           f"{stats['prefill_s']:.4f} s (cold {cold['prefill_s']:.4f} s), "
           f"decode {stats['decode_s']:.4f} s = {stats['tok_per_s']:.2f} "
           f"tokens/s; peak device memory {peak / 2**30:.3f} GiB  [{card}]")
-    print(f"serve: launches in prefill flash={pre[0]} scan={pre[1]}; in the "
-          f"whole request flash={launches['flash_attention']} "
+    print(f"serve: launches in prefill flash={pre[0]} {pre_routes} "
+          f"scan={pre[1]}; in the whole request "
+          f"flash={launches['flash_attention']} {routes} "
           f"scan={launches['rglru_scan']}")
     if pre != (n_attn, n_rec):
         raise AssertionError(f"prefill launched (flash, scan) = {pre}, the "
                              f"model has ({n_attn}, {n_rec}) layers")
+    for label, r in (("prefill", pre_routes), ("request", routes)):
+        if r != {"wgmma": n_attn, "f32": 0}:
+            raise AssertionError(f"{label}'s flash launches by route {r}: "
+                                 f"the bf16 model's {n_attn} attention "
+                                 f"layers must take the tensor-core kernel")
     if (launches["flash_attention"], launches["rglru_scan"]) != pre:
         raise AssertionError(f"decode launched kernels: {launches} over a "
                              f"prefill's {pre}")
@@ -443,7 +471,9 @@ def time_lm_kernels(dev, card: str) -> dict:
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=library_ms, max_abs_err=err)
     print(f"flash_attention at the serving shape (B={B} S={S} H={H} KV={KV} "
-          f"d={D} window={win} bf16): kernel {ms:.4f} ms/launch, plain "
+          f"d={D} window={win} bf16, tensor-core kernel): kernel "
+          f"{ms:.4f} ms/launch ({100 * max(t_ops, t_bytes) / ms:.1f}% of "
+          f"its bound, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
           f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (band mask, "
           f"enable_gqa; its top kernel: {backend[:90]}; max abs diff from "
           f"plain {lib_err:.3e}), bound {max(t_ops, t_bytes):.4f} ms "
@@ -606,8 +636,9 @@ def main() -> int:
           f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, "
           f"{flops} flop), {ms * 1e3 / idx.shape[1]:.3f} us per step, "
           f"max_abs_err {err:.3e}  [{card}]")
-    print("sdca_block ms/launch by loss at that shape: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in per_loss.items()) + f"  [{card}]")
+    print("sdca_block by loss at that shape: " + ", ".join(
+        f"{k} {v:.4f} ms/launch = {v * 1e3 / idx.shape[1]:.4f} us/step"
+        for k, v in per_loss.items()) + f"  [{card}]")
     # ---- 5-6. the LM kernels against their plain versions ------------------
     flash_err = check_flash(dev)
     rglru_err = check_rglru(dev)
@@ -624,14 +655,15 @@ def main() -> int:
         lm["flash_attention"]["max_abs_err"], flash_err)
     lm["rglru_scan"]["max_abs_err"] = max(lm["rglru_scan"]["max_abs_err"],
                                           rglru_err)
+    # the flash row is the serving path's (bf16) kernel
     lm_rows = [dict(
         name=name, route="cuda",
-        source=f"src/repro_torch/kernels/{pkg}/csrc/{name}.cu",
+        source=f"src/repro_torch/kernels/{pkg}/csrc/{src}.cu",
         replaces=replaces, launches=lm_launches[name], **lm[name])
-        for name, pkg, replaces in (
-            ("flash_attention", "flash_attention",
+        for name, pkg, src, replaces in (
+            ("flash_attention", "flash_attention", "flash_attention_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:86"),
-            ("rglru_scan", "rglru",
+            ("rglru_scan", "rglru", "rglru_scan",
              "src/repro/kernels/rglru/kernel.py:71"))]
     print(json.dumps({"kernels": [{
         "name": "sdca_block",

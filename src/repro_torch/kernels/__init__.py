@@ -9,6 +9,8 @@ at first use.
   flash_attention  -- forward blocked online-softmax attention (causal /
                       window, GQA, query offset): the counterpart of
                       ``flash_attention_kernel``; the LM prefill's attention.
+                      Two sources, chosen by dtype: a wgmma + TMA kernel
+                      for bf16, a CUDA-core kernel for f32.
   rglru            -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t:
                       the counterpart of ``rglru_scan_kernel``; the LM
                       prefill's recurrent layers.

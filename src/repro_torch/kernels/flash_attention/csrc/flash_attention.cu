@@ -1,14 +1,18 @@
-// Forward flash attention (blocked online softmax) for Hopper.
+// Forward flash attention (blocked online softmax) on the CUDA cores, for
+// float32 inputs.
 //
 // Replaces the JAX package's Pallas kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
-// (_attn_kernel).  It computes that kernel's function: q (B, Sq, H, d) and
-// k/v (B, Sk, KV, d), f32 or bf16; query i at position i + seq_offset sees
+// (_attn_kernel) for f32 q, k, v; bf16 inputs go to the tensor-core kernel
+// of flash_attention_wgmma.cu (the wrapper chooses by dtype alone: TF32 or
+// bf16 tensor cores cannot hold f32 attention to 1e-4).  It computes that
+// kernel's function: q (B, Sq, H, d) and k/v (B, Sk, KV, d), f32; query i
+// at position i + seq_offset sees
 // key j when j <= i + seq_offset (causal) and i + seq_offset - j < window
 // (windowed); q-head h reads kv-head h*KV/H in place (no repeat); scale is
 // applied to q in f32; (m, l, acc) are f32; masked scores are -2^30 and
-// their probabilities 0; the output is acc / (l + 1e-30) in q's dtype, so
-// a row that sees no key is 0.
+// their probabilities 0; the output is acc / (l + 1e-30), so a row that
+// sees no key is 0.
 //
 // Layout: one block of 256 threads per (q-block of BQ = 64 rows, head h,
 // batch b).  The block keeps its scaled q rows in shared memory and walks
@@ -26,13 +30,11 @@
 // 140,800 B at d = 256, inside the 227 KB a block may use (the wrapper
 // checks it against cudaDevAttrMaxSharedMemoryPerBlockOptin).
 //
-// What bounds it on this card: operations.  At the serving shape (B = 4,
-// S = 4096, window 2048, H = 10, KV = 1, d = 256, bf16) it does about 1,400
-// flops for each byte it must move.  This
-// first version multiplies on the CUDA cores in f32 (no tensor cores, no
-// TMA): its ceiling is the f32 rate, not the bf16 tensor-core rate its bound
-// is taken at.  The next step is wgmma on bf16 tiles.
-#include <cuda_bf16.h>
+// What bounds it on this card: operations, at the f32 rate of the CUDA
+// cores (the products need f32 to meet the f32 tolerance); its inner loops
+// also wait on shared-memory loads, and K/V are staged through registers
+// with no copy in flight during the products.  Only f32 models take it:
+// the serving path runs bf16.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,15 +47,6 @@ constexpr int ROWS = BQ / 16;   // query rows per thread
 constexpr int KPT = BK / 16;    // keys per thread per tile
 constexpr float NEG_INF = -1073741824.0f;  // -2^30, the reference's
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
 template <int D>
 constexpr int smem_floats() {
   return BQ * (D + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1);
@@ -65,10 +58,11 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
          (window <= 0 || qpos - kpos < window);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
+          int H,
           int KV, float scale, int causal, int window, int seq_offset) {
   constexpr int CPT = D / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
@@ -89,7 +83,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, c = i - r * D;
     const int s = q0 + r;
     float x = 0.f;
-    if (s < Sq) x = to_f32(q[(((size_t)b * Sq + s) * H + h) * D + c]) * scale;
+    if (s < Sq) x = q[(((size_t)b * Sq + s) * H + h) * D + c] * scale;
     Qs[r * (D + 1) + c] = x;
   }
 
@@ -119,8 +113,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (key < Sk) {
         const size_t off = (((size_t)b * Sk + key) * KV + kvh) * D + c;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       Kt[c * (BK + 1) + r] = kx;
       Vs[r * D + c] = vx;
@@ -200,39 +194,27 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < ROWS; ++rr) {
     const int s = q0 + r0 + rr;
     if (s >= Sq) continue;
-    T* out = o + (((size_t)b * Sq + s) * H + h) * D;
+    float* out = o + (((size_t)b * Sq + s) * H + h) * D;
     const float denom = l[rr] + 1e-30f;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      store_as(out + lane + 16 * cc, acc[rr][cc] / denom);
+      out[lane + 16 * cc] = acc[rr][cc] / denom;
   }
-}
-
-template <int D, typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int H, int KV, float scale, int causal,
-                 int window, int seq_offset, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<D, T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, scale,
-      causal, window, seq_offset);
-  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Sk, int H, int KV, int is_bf16, float scale,
-             int causal, int window, int seq_offset, cudaStream_t stream) {
-  if (is_bf16)
-    return launch_typed<D, __nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV,
-                                          scale, causal, window, seq_offset,
-                                          stream);
-  return launch_typed<D, float>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                                window, seq_offset, stream);
+             int Sq, int Sk, int H, int KV, float scale, int causal,
+             int window, int seq_offset, cudaStream_t stream) {
+  const int smem = smem_floats<D>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd<D><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+      H, KV, scale, causal, window, seq_offset);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -258,25 +240,25 @@ extern "C" int flash_attention_smem_limit(int device) {
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok, -1 =
-// head dim not compiled).  window <= 0 means no window.
+// head dim not compiled).  q, k, v, o are float32; window <= 0 means no
+// window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int H, int KV, int D,
-                                      int is_bf16, float scale, int causal,
-                                      int window, int seq_offset,
-                                      void* stream) {
+                                      float scale, int causal, int window,
+                                      int seq_offset, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_d<16>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, scale,
-                                 causal, window, seq_offset, st);
-    case 64: return launch_d<64>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, scale,
-                                 causal, window, seq_offset, st);
-    case 80: return launch_d<80>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, scale,
-                                 causal, window, seq_offset, st);
-    case 128: return launch_d<128>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16,
-                                   scale, causal, window, seq_offset, st);
-    case 256: return launch_d<256>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16,
-                                   scale, causal, window, seq_offset, st);
+    case 16: return launch_d<16>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                                 window, seq_offset, st);
+    case 64: return launch_d<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                                 window, seq_offset, st);
+    case 80: return launch_d<80>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                                 window, seq_offset, st);
+    case 128: return launch_d<128>(q, k, v, o, B, Sq, Sk, H, KV, scale,
+                                   causal, window, seq_offset, st);
+    case 256: return launch_d<256>(q, k, v, o, B, Sq, Sk, H, KV, scale,
+                                   causal, window, seq_offset, st);
     default: return -1;
   }
 }

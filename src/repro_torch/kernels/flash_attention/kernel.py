@@ -1,13 +1,22 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``),
-the counterpart of the JAX package's Pallas ``flash_attention_kernel``.
+"""Wrapper of the Hopper flash-attention kernels, the counterpart of the
+JAX package's Pallas ``flash_attention_kernel``.
 
-On CUDA tensors :func:`flash_attention_kernel` checks what the kernel
-takes (float32 or bfloat16, one dtype, contiguous, one device, shapes, a
-compiled head dim, shared memory) and launches it, raising on anything
-else -- there is no fallback.  On CPU tensors it runs the plain version
-(``ref.attention_ref``), because only there is no kernel to launch.
-``LAUNCHES`` counts kernel launches, so a run can show that its attention
-went through the kernel.
+Two hand-written kernels compute the one function, chosen by ``q.dtype``
+alone (:func:`route`): bfloat16 goes to the tensor-core kernel
+(``csrc/flash_attention_wgmma.cu``: wgmma products, TMA-fed K/V ring),
+float32 to the CUDA-core kernel (``csrc/flash_attention.cu``), which keeps
+f32 products because tensor cores cannot hold f32 attention to its 1e-4
+tolerance.  A failed launch raises; neither kernel is retried with the
+other.
+
+On CUDA tensors :func:`flash_attention_kernel` checks what the kernels
+take (float32 or bfloat16, one dtype, contiguous, one device, shapes, a
+compiled head dim, shared memory, 16-byte aligned bf16 data) and launches
+one, raising on anything else -- there is no fallback.  On CPU tensors it
+runs the plain version (``ref.attention_ref``), because only there is no
+kernel to launch.  ``LAUNCHES`` counts kernel launches and
+``LAUNCHES_BY_ROUTE`` splits them by route, so a run can show that its
+attention went through the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -21,32 +30,51 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 Tensor = torch.Tensor
 
 LAUNCHES = 0            # kernel launches since the last reset
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "f32": 0}
 
-HEAD_DIMS = (16, 64, 80, 128, 256)   # the head dims the source compiles
-_DTYPES = (torch.float32, torch.bfloat16)
-_lib = None
+HEAD_DIMS = (16, 64, 80, 128, 256)   # the head dims the sources compile
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "f32"}
+_SOURCES = {"wgmma": "flash_attention_wgmma", "f32": "flash_attention"}
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes inputs of ``dtype`` and ``head_dim``: "wgmma"
+    for bfloat16, "f32" for float32; raises for anything else."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not compiled (HEAD_DIMS = "
+                         f"{HEAD_DIMS})")
+    return ROUTES[dtype]
+
+
+def _library(name: str):
+    if name not in _libs:
         from repro_torch.kernels import _build
-        lib = _build.load("flash_attention")
+        lib = _build.load(_SOURCES[name])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_launch.argtypes = (
-            [p] * 4 + [i] * 7 + [f] + [i] * 3 + [p])
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [i]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_int
-        lib.flash_attention_smem_limit.argtypes = [i]
-        lib.flash_attention_smem_limit.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        if name == "wgmma":
+            launch, smem = (lib.flash_attention_wgmma_launch,
+                            lib.flash_attention_wgmma_smem_bytes)
+        else:
+            launch, smem = (lib.flash_attention_launch,
+                            lib.flash_attention_smem_bytes)
+            lib.flash_attention_smem_limit.argtypes = [i]
+            lib.flash_attention_smem_limit.restype = ctypes.c_int
+        launch.argtypes = [p] * 4 + [i] * 6 + [f] + [i] * 3 + [p]
+        launch.restype = ctypes.c_int
+        smem.argtypes = [i]
+        smem.restype = ctypes.c_int
+        _libs[name] = (lib, launch, smem)
+    return _libs[name]
 
 
 def smem_limit(device: torch.device) -> int:
     """The shared memory a block may opt in to on ``device``."""
-    return _library().flash_attention_smem_limit(device.index)
+    lib = _library("f32")[0]
+    return lib.flash_attention_smem_limit(device.index)
 
 
 def _check(name: str, t: Tensor, dtype, shape, device):
@@ -85,35 +113,34 @@ def flash_attention_kernel(q: Tensor, k: Tensor, v: Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (or cpu via its "
                          f"plain version), got {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not compiled (HEAD_DIMS = "
-                         f"{HEAD_DIMS})")
+    name = route(q.dtype, D)
     dev = q.device
     _check("q", q, q.dtype, (B, Sq, H, D), dev)
     _check("k", k, q.dtype, (B, Sk, KV, D), dev)
     _check("v", v, q.dtype, (B, Sk, KV, D), dev)
-    lib = _library()
-    smem = lib.flash_attention_smem_bytes(D)
+    if name == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's TMA copies need q, k and v "
+                         "16-byte aligned")
+    _, launch, smem_bytes = _library(name)
+    smem = smem_bytes(D)
     limit = smem_limit(dev)
     if smem > limit:
         raise ValueError(
-            f"flash_attention keeps a {D}-wide q block and K/V tile in "
+            f"flash_attention keeps a {D}-wide q block and K/V tiles in "
             f"shared memory: {smem} B exceeds the {limit} B a block may use")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, KV, D, int(q.dtype == torch.bfloat16), float(s),
-            int(causal), 0 if window is None else int(window),
-            int(seq_offset), stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, Sq, Sk, H, KV, D, float(s),
+                     int(causal), 0 if window is None else int(window),
+                     int(seq_offset), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention ({name}) launch failed: "
+                           f"error {err}")
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[name] += 1
     return out

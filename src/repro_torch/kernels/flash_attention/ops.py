@@ -16,7 +16,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None,
                     seq_offset: int = 0) -> Tensor:
-    """Blocked online-softmax attention; see ``csrc/flash_attention.cu``.
+    """Blocked online-softmax attention; see ``kernel.py`` for the two
+    kernels (``csrc/flash_attention_wgmma.cu`` for bf16,
+    ``csrc/flash_attention.cu`` for f32).
 
     q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with H % KV == 0.
     """

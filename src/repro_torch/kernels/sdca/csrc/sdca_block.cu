@@ -8,26 +8,42 @@
 // and writes (a_end - a0, w_end - w0).  xsq = sum(X^2) / lm is computed by
 // the caller, as on the TPU.
 //
-// Design: one CTA per leaf (the grid is the paper's "for all workers in
-// parallel"; K = 128 leaves fill the 132 SMs of an H100 in one wave).  The
-// leaf's private w copy and its alpha, y and xsq vectors live in shared
-// memory for the whole launch; the block X[k] (m_b * d floats, 16 MiB at
-// m_b = 8192, d = 512) cannot, so row x_i is read from device memory each
-// step, coalesced, and read a second time (from L1) for the rank-1 update.
-// <w, x_i> is a warp-shuffle reduction, then one cross-warp pass; thread 0
-// evaluates coord_delta and broadcasts dlt / lm through shared memory.
-// Each thread owns the same columns in the dot and in the update, so the
-// only barriers are the two around the cross-warp reduction.
-//
-// What bounds it on this card: not bytes and not operations but the chain
-// of H dependent steps per leaf.  Each step waits for its row to arrive
-// from device memory, for two block barriers, and for thread 0's scalar
-// update (eight Newton iterations with two logf each for the logistic
-// loss) before the next step can start.  What a later version can do:
-// idx is known before the launch, so row x_{idx[h+1]} can be prefetched
-// into shared memory with cp.async or TMA while step h reduces, taking
-// the row's latency off the chain; only the barrier and scalar latency
-// would then remain per step.
+// What bounds it on this card: the chain of H dependent steps per leaf,
+// not bytes and not operations (a leaf's block X[k], 16 MiB at m_b = 8192,
+// d = 512, cannot stay on chip, but a step reads one 2 KiB row).  So the
+// design takes everything it can off that chain:
+//   * Rows arrive before their step.  idx[k, :] is known at launch, so a
+//     ring of P row buffers in shared memory (P = 16 at d = 512; 4 to 16,
+//     a multiple of G = 4) holds the rows of the next P steps.  A producer
+//     warp fills it in groups of G rows, each group with a "full" mbarrier
+//     the copies complete and an "empty" mbarrier the stepping warp
+//     arrives on when it is done with the group, so the producer refills a
+//     group P steps ahead of its use.  With d % 4 == 0 and 16-byte aligned
+//     X a row is one cp.async.bulk (a 1-D TMA copy) counted in bytes on
+//     the group's mbarrier; otherwise the producer's lanes copy 4 bytes each
+//     with cp.async and the mbarrier counts their 32 arrivals
+//     (cp.async.mbarrier.arrive.noinc).  The stepping warp waits once per
+//     group of G steps and never issues a copy.
+//   * One warp steps a leaf, so no block barrier sits in the step loop.
+//     With d % 4 == 0, d <= 1024 and 16-byte aligned w, each lane holds its
+//     d/32 elements of w in registers (NC float4 chunks lane, lane + 32,
+//     ..., NC fixed at compile time); <w, x_i> is an xor-shuffle all-reduce,
+//     so every lane has the sum; every lane then evaluates coord_delta on
+//     identical inputs and writes the identical a_i, so nothing is
+//     broadcast through shared memory and no lane waits for another.  Other
+//     d keep w in shared memory, each lane owning the same elements in the
+//     dot and the update (still no barrier).
+//   * idx and the step mask are read 32 steps at a time, a block ahead, one
+//     value per lane, and taken with a shuffle, so no global load sits on
+//     the chain either.
+// What remains per step: the row's shared-memory loads, the shuffle
+// all-reduce, the loss's scalar update (8 Newton iterations with two logf
+// each for the logistic loss) and the w update.  Loading the next step's
+// row and alpha, y, xsq before this step's dot was tried and made the
+// squared loss's step slower on the card.  Four warps load alpha, y and
+// xsq into shared memory before the chain and write delta alpha after it;
+// a, y and xsq stay in shared memory, a_i read every step because idx may
+// repeat.
 //
 // Plain C interface, loaded with ctypes (kernels/_build.py); the launch
 // goes on the caller's stream and the return value is cudaGetLastError().
@@ -37,8 +53,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;     // warp 0 steps, warp 1 copies rows;
+                                  // all four load and store the leaf
+constexpr int kGroup = 4;         // rows per mbarrier of the ring
+constexpr int kRingFloats = 8192;   // the ring's budget: 32 KiB
 
 enum LossKind { kSquared = 0, kHinge = 1, kSmoothHinge = 2, kLogistic = 3 };
 
@@ -108,7 +126,225 @@ __device__ __forceinline__ int clamp_row(int i, int m_b) {
   return i < 0 ? 0 : (i >= m_b ? m_b - 1 : i);
 }
 
-template <int L>
+__host__ __device__ __forceinline__ int ring_depth(int d) {
+  const int p = kRingFloats / d / kGroup * kGroup;
+  return p < 4 ? 4 : (p > 16 ? 16 : p);
+}
+
+// floats before the barriers: ring, w, alpha, y, xsq (even, so the
+// barriers that follow are 8-byte aligned)
+__host__ __device__ __forceinline__ size_t smem_floats(int m_b, int d) {
+  const size_t n = static_cast<size_t>(ring_depth(d) + 1) * d +
+                   3 * static_cast<size_t>(m_b);
+  return n + (n & 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// waits for the phase of `bar` with the given parity to complete; a copy
+// that never lands (a fault) traps after 4 s instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == 1024) t0 = global_ns();
+    if (polls > 1024 && (polls & 1023) == 0 && global_ns() - t0 > 4000000000ull)
+      __trap();
+  }
+}
+
+// Values v[t] of a length-H row, for t = h + off as the step h advances:
+// lane l holds v[32 c + off + l] for the current block c of 32 steps and
+// the next block's value, loaded a block ahead.
+template <typename T>
+struct Lookahead {
+  const T* v;
+  int H, off;
+  T cur, nxt;
+  __device__ __forceinline__ T load(int t) const { return t < H ? v[t] : T(0); }
+  __device__ __forceinline__ void start(const T* v_, int H_, int off_,
+                                        int lane) {
+    v = v_;
+    H = H_;
+    off = off_;
+    cur = load(off + lane);
+    nxt = load(off + 32 + lane);
+  }
+  // the value for step h (every lane calls it with the same h, in order)
+  __device__ __forceinline__ T at(int h, int lane) {
+    if ((h & 31) == 0 && h > 0) {
+      cur = nxt;
+      nxt = load(h + off + 32 + lane);
+    }
+    return __shfl_sync(0xffffffffu, cur, h & 31);
+  }
+};
+
+// Warp 1: copies the rows of steps g0 .. g0 + G - 1 into ring group
+// (g0 / G) mod (P / G), once the stepping warp has released the group's
+// previous rows (steps g0 - P ..).  bars: full[P / G], then empty[P / G].
+__device__ __forceinline__ void fill_ring(const float* __restrict__ Xk,
+                                          const int32_t* __restrict__ idxk,
+                                          float* ring, uint32_t bars,
+                                          int m_b, int d, int H, bool bulk,
+                                          int lane) {
+  const int P = ring_depth(d);
+  const int groups = P / kGroup;
+  Lookahead<int32_t> rows;
+  rows.start(idxk, H, 0, lane);
+  for (int g0 = 0; g0 < H; g0 += kGroup) {
+    const int grp = (g0 / kGroup) % groups;
+    const uint32_t full = bars + 8 * grp;
+    if (g0 >= P) mbar_wait(bars + 8 * (groups + grp), ((g0 - P) / P) & 1);
+    const int n = min(kGroup, H - g0);
+    float* dst = ring + static_cast<size_t>(grp) * kGroup * d;
+    if (bulk && lane == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(d) * 4;
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              full), "r"(bytes * n) : "memory");
+    }
+    for (int r = 0; r < kGroup; ++r) {
+      if (r >= n) break;
+      const int i = clamp_row(rows.at(g0 + r, lane), m_b);
+      const float* src = Xk + static_cast<size_t>(i) * d;
+      float* row = dst + r * d;
+      if (bulk) {
+        if (lane == 0)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(row)),
+              "l"(src), "r"(static_cast<uint32_t>(d) * 4), "r"(full)
+              : "memory");
+      } else {
+        for (int j = lane; j < d; j += 32)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           smem_u32(row + j)), "l"(src + j) : "memory");
+      }
+    }
+    if (!bulk)
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                       "r"(full) : "memory");
+  }
+}
+
+// Warp 0: the leaf's H steps.  NC > 0: w in registers, NC float4 chunks a
+// lane (d % 4 == 0, d <= 128 NC, 16-byte aligned w); NC == 0: w in w_s.
+template <int L, int NC>
+__device__ __forceinline__ void leaf_chain(
+    const float* __restrict__ wk, const int32_t* __restrict__ idxk,
+    const float* __restrict__ mk, float* __restrict__ dwk, const float* ring,
+    float* w_s, float* a_s, const float* y_s, const float* q_s,
+    uint32_t bars, int m_b, int d, int H, float lm, float g, int lane) {
+  const int P = ring_depth(d);
+  const int groups = P / kGroup;
+  const int n4 = d >> 2;            // float4 chunks of a row
+  float4 w4[NC > 0 ? NC : 1];
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int t = 0; t < NC; ++t) {
+      const int c = lane + 32 * t;
+      w4[t] = c < n4 ? reinterpret_cast<const float4*>(wk)[c]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  Lookahead<int32_t> step_idx;
+  Lookahead<float> step_mask;
+  step_idx.start(idxk, H, 0, lane);
+  if (mk) step_mask.start(mk, H, 0, lane);
+
+  int slot = 0;   // ring slot of step h: h mod P
+  for (int h = 0; h < H; ++h) {
+    const int i = clamp_row(step_idx.at(h, lane), m_b);
+    const float mh = mk ? step_mask.at(h, lane) : 1.0f;
+    const int grp = slot / kGroup;
+    if (slot % kGroup == 0) mbar_wait(bars + 8 * grp, (h / P) & 1);
+    const float* x = ring + static_cast<size_t>(slot) * d;
+
+    float part = 0.0f;
+    float4 x4[NC > 0 ? NC : 1];
+    if constexpr (NC > 0) {
+      float p4[NC];   // one partial a chunk, summed as a tree
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        const int c = lane + 32 * t;
+        x4[t] = c < n4 ? reinterpret_cast<const float4*>(x)[c]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        p4[t] = w4[t].x * x4[t].x + w4[t].y * x4[t].y + w4[t].z * x4[t].z +
+                w4[t].w * x4[t].w;
+      }
+#pragma unroll
+      for (int n = NC; n > 1; n >>= 1)
+#pragma unroll
+        for (int t = 0; t < n / 2; ++t) p4[t] += p4[t + n / 2];
+      part = p4[0];
+    } else {
+      for (int j = lane; j < d; j += 32) part += w_s[j] * x[j];
+    }
+    const float wx = warp_sum(part);   // every lane holds the sum
+
+    const float a = a_s[i];
+    float dl = coord_delta<L>(wx, a, y_s[i], q_s[i], g);
+    if (mk) dl = dl * mh;
+    a_s[i] = a + dl;   // every lane writes the same value
+    const float c = dl / lm;
+    if constexpr (NC > 0) {
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        w4[t].x = w4[t].x + c * x4[t].x;
+        w4[t].y = w4[t].y + c * x4[t].y;
+        w4[t].z = w4[t].z + c * x4[t].z;
+        w4[t].w = w4[t].w + c * x4[t].w;
+      }
+    } else {
+      for (int j = lane; j < d; j += 32) w_s[j] = w_s[j] + c * x[j];
+    }
+    if (slot % kGroup == kGroup - 1) {   // done with this group's rows
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (groups + grp));
+    }
+    if (++slot == P) slot = 0;
+  }
+
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int t = 0; t < NC; ++t) {
+      const int c = lane + 32 * t;
+      if (c < n4) {
+        const float4 w0 = reinterpret_cast<const float4*>(wk)[c];
+        reinterpret_cast<float4*>(dwk)[c] =
+            make_float4(w4[t].x - w0.x, w4[t].y - w0.y, w4[t].z - w0.z,
+                        w4[t].w - w0.w);
+      }
+    }
+  }
+}
+
+template <int L, int NC>
 __global__ void __launch_bounds__(kThreads)
 sdca_block_kernel(const float* __restrict__ X, const float* __restrict__ y,
                   const float* __restrict__ alpha,
@@ -116,69 +352,71 @@ sdca_block_kernel(const float* __restrict__ X, const float* __restrict__ y,
                   const int32_t* __restrict__ idx,
                   const float* __restrict__ mask, float* __restrict__ da,
                   float* __restrict__ dw, int m_b, int d, int H,
-                  int w_stride, float lm, float g) {
-  extern __shared__ float smem[];
-  float* w_s = smem;          // d
-  float* a_s = w_s + d;       // m_b
-  float* y_s = a_s + m_b;     // m_b
-  float* q_s = y_s + m_b;     // m_b
-  __shared__ float red[kWarps];
-  __shared__ float coef;
+                  int w_stride, float lm, float g, int bulk) {
+  extern __shared__ __align__(16) float smem[];
+  const int P = ring_depth(d);
+  const int groups = P / kGroup;
+  float* ring = smem;              // P x d
+  float* w_s = ring + P * d;       // d (NC > 0: unused)
+  float* a_s = w_s + d;            // m_b
+  float* y_s = a_s + m_b;          // m_b
+  float* q_s = y_s + m_b;          // m_b
+  // full[groups], then empty[groups]
+  const uint32_t bars = smem_u32(smem + smem_floats(m_b, d));
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int k = blockIdx.x;
   const size_t kb = static_cast<size_t>(k) * m_b;
-  const float* Xk = X + kb * d;
   const float* wk = w + static_cast<size_t>(k) * w_stride;
   const int32_t* idxk = idx + static_cast<size_t>(k) * H;
-  const float* mk = mask ? mask + static_cast<size_t>(k) * H : nullptr;
 
-  for (int j = tid; j < d; j += kThreads) w_s[j] = wk[j];
+  if (NC == 0)
+    for (int j = tid; j < d; j += kThreads) w_s[j] = wk[j];
   for (int i = tid; i < m_b; i += kThreads) {
     a_s[i] = alpha[kb + i];
     y_s[i] = y[kb + i];
     q_s[i] = xsq[kb + i];
   }
-  __syncthreads();
-
-  // the next step's coordinate (and mask) is loaded one step ahead
-  int i_next = H > 0 ? clamp_row(idxk[0], m_b) : 0;
-  float m_next = (mk && H > 0) ? mk[0] : 1.0f;
-  for (int h = 0; h < H; ++h) {
-    const int i = i_next;
-    const float mh = m_next;
-    if (h + 1 < H) {
-      i_next = clamp_row(idxk[h + 1], m_b);
-      if (mk) m_next = mk[h + 1];
+  if (tid == 0) {
+    for (int s = 0; s < groups; ++s) {
+      mbar_init(bars + 8 * s, bulk ? 1 : 32);
+      mbar_init(bars + 8 * (groups + s), 1);
     }
-    const float* xi = Xk + static_cast<size_t>(i) * d;
-
-    float part = 0.0f;
-    for (int j = tid; j < d; j += kThreads) part += w_s[j] * xi[j];
-    part = warp_sum(part);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < kWarps ? red[lane] : 0.0f;
-      v = warp_sum(v);
-      if (lane == 0) {
-        float dl = coord_delta<L>(v, a_s[i], y_s[i], q_s[i], g);
-        if (mk) dl = dl * mh;
-        a_s[i] = a_s[i] + dl;
-        coef = dl / lm;
-      }
-    }
-    __syncthreads();
-    const float c = coef;
-    for (int j = tid; j < d; j += kThreads) w_s[j] = w_s[j] + c * xi[j];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int j = tid; j < d; j += kThreads)
-    dw[static_cast<size_t>(k) * d + j] = w_s[j] - wk[j];
+  if (tid < 32)
+    leaf_chain<L, NC>(wk, idxk,
+                      mask ? mask + static_cast<size_t>(k) * H : nullptr,
+                      dw + static_cast<size_t>(k) * d, ring, w_s, a_s, y_s,
+                      q_s, bars, m_b, d, H, lm, g, tid);
+  else if (tid < 64)
+    fill_ring(X + kb * d, idxk, ring, bars, m_b, d, H, bulk != 0, tid - 32);
+  __syncthreads();
+
+  if (NC == 0)
+    for (int j = tid; j < d; j += kThreads)
+      dw[static_cast<size_t>(k) * d + j] = w_s[j] - wk[j];
   for (int i = tid; i < m_b; i += kThreads) da[kb + i] = a_s[i] - alpha[kb + i];
+}
+
+template <int L, int NC>
+cudaError_t launch_path(const float* X, const float* y, const float* alpha,
+                        const float* w, const float* xsq, const int32_t* idx,
+                        const float* mask, float* da, float* dw, int K,
+                        int m_b, int d, int H, int w_stride, float lm, float g,
+                        int bulk, cudaStream_t stream) {
+  const size_t smem = smem_floats(m_b, d) * sizeof(float) +
+                      16 * (ring_depth(d) / kGroup);
+  cudaError_t err = cudaFuncSetAttribute(
+      sdca_block_kernel<L, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sdca_block_kernel<L, NC><<<K, kThreads, smem, stream>>>(
+      X, y, alpha, w, xsq, idx, mask, da, dw, m_b, d, H, w_stride, lm, g,
+      bulk);
+  return cudaGetLastError();
 }
 
 template <int L>
@@ -187,32 +425,43 @@ cudaError_t launch(const float* X, const float* y, const float* alpha,
                    const float* mask, float* da, float* dw, int K, int m_b,
                    int d, int H, int w_stride, float lm, float g,
                    cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(d + 3 * m_b) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdca_block_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  sdca_block_kernel<L><<<K, kThreads, smem, stream>>>(
-      X, y, alpha, w, xsq, idx, mask, da, dw, m_b, d, H, w_stride, lm, g);
-  return cudaGetLastError();
+  // bulk copies need 16-byte aligned rows of a multiple of 16 bytes; w in
+  // registers needs float4 access to w and dw and d <= 1024
+  const bool bulk = d % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  const bool reg_w = d % 4 == 0 && d <= 1024 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dw) % 16 == 0;
+  const int b = bulk ? 1 : 0;
+#define SDCA_PATH(NC)                                                       \
+  launch_path<L, NC>(X, y, alpha, w, xsq, idx, mask, da, dw, K, m_b, d, H, \
+                     w_stride, lm, g, b, stream)
+  if (!reg_w) return SDCA_PATH(0);
+  if (d <= 128) return SDCA_PATH(1);
+  if (d <= 256) return SDCA_PATH(2);
+  if (d <= 512) return SDCA_PATH(4);
+  return SDCA_PATH(8);
+#undef SDCA_PATH
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest dynamic shared memory (bytes) one block of this kernel may use
-// on `device`: the opt-in limit less the kernel's static shared memory.
+// Dynamic shared memory one block needs for a leaf of m_b examples in d
+// dimensions: a ring of ring_depth(d) rows, w, alpha, y and xsq, and two
+// 8-byte mbarriers (full, empty) per group of kGroup ring rows.
+long long sdca_block_smem_bytes(int m_b, int d) {
+  return static_cast<long long>(smem_floats(m_b, d)) * 4 +
+         16 * (ring_depth(d) / kGroup);
+}
+
+// Largest dynamic shared memory (bytes) one block may use on `device`.
 int sdca_block_smem_limit(int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, sdca_block_kernel<kSquared>) !=
-      cudaSuccess)
-    return -1;
-  return optin - static_cast<int>(attr.sharedSizeBytes);
+  return optin;
 }
 
 // loss: 0 squared, 1 hinge, 2 smoothed hinge (smoothing g), 3 logistic.

@@ -2,7 +2,8 @@
 counterpart of the JAX package's Pallas ``sdca_block_kernel``.
 
 On CUDA tensors :func:`sdca_block_launch` checks what the kernel takes
-(float32 / int32, contiguous, one device, shapes, shared memory) and
+(float32 / int32, contiguous, one device, shapes, shared memory reckoned
+by :func:`smem_bytes` with the row ring of :func:`ring_depth`) and
 launches it, raising on anything else -- there is no fallback.  On CPU
 tensors it runs the plain version (``ref.sdca_steps_ref``), because only
 there is no kernel to launch.  ``LAUNCHES`` counts kernel launches, so a
@@ -23,7 +24,37 @@ Tensor = torch.Tensor
 LAUNCHES = 0            # kernel launches since the last reset
 
 _LOSS_IDS = {"squared": 0, "hinge": 1, "smooth_hinge": 2, "logistic": 3}
+RING_FLOATS = 8192      # the row ring's budget (csrc: kRingFloats)
+RING_GROUP = 4          # rows per mbarrier of the ring (csrc: kGroup)
 _lib = None
+
+
+def ring_depth(d: int) -> int:
+    """Rows the kernel keeps in flight per leaf: 32 KiB of rows in whole
+    groups of 4, at least 4 and at most 16 (``ring_depth`` in the source)."""
+    return max(4, min(16, RING_FLOATS // d // RING_GROUP * RING_GROUP))
+
+
+def smem_bytes(m_b: int, d: int) -> int:
+    """Dynamic shared memory one block takes for a leaf of ``m_b``
+    examples in ``d`` dimensions: the row ring, w, alpha, y and xsq as
+    float32 (padded to an even count), then a full and an empty 8-byte
+    mbarrier per group of ring rows (``sdca_block_smem_bytes`` in the
+    source)."""
+    n = (ring_depth(d) + 1) * d + 3 * m_b
+    return 4 * (n + n % 2) + 16 * (ring_depth(d) // RING_GROUP)
+
+
+def check_smem(m_b: int, d: int, limit: int) -> int:
+    """:func:`smem_bytes`, or ValueError when it exceeds ``limit``, the
+    shared memory a block may use."""
+    smem = smem_bytes(m_b, d)
+    if smem > limit:
+        raise ValueError(
+            f"sdca_block keeps a leaf's alpha, y, xsq and w and a ring of "
+            f"{ring_depth(d)} rows in shared memory: {smem} B exceeds the "
+            f"{limit} B a block may use (d={d}, m_b={m_b})")
+    return smem
 
 
 def _library():
@@ -36,6 +67,8 @@ def _library():
         lib.sdca_block_launch.restype = ctypes.c_int
         lib.sdca_block_smem_limit.argtypes = [i]
         lib.sdca_block_smem_limit.restype = ctypes.c_int
+        lib.sdca_block_smem_bytes.argtypes = [i, i]
+        lib.sdca_block_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -103,13 +136,7 @@ def sdca_block_launch(
         _check("step_mask", step_mask, f32, (K, H), dev)
     code = loss_id(loss)
     lib = _library()
-    smem = (d + 3 * m_b) * 4
-    limit = lib.sdca_block_smem_limit(dev.index)
-    if smem > limit:
-        raise ValueError(
-            f"sdca_block keeps w, alpha, y and xsq of a leaf in shared "
-            f"memory: (d + 3 m_b) * 4 = {smem} B exceeds the {limit} B a "
-            f"block may use (d={d}, m_b={m_b})")
+    check_smem(m_b, d, lib.sdca_block_smem_limit(dev.index))
     da = torch.empty((K, m_b), dtype=f32, device=dev)
     dw = torch.empty((K, d), dtype=f32, device=dev)
     with torch.cuda.device(dev):

@@ -65,6 +65,71 @@ def test_kernel_matches_plain_version(loss_name, per_leaf, cuda_device):
             1.0, float(r.abs().max()))
 
 
+# (K, m_b, d, H, idx range): the ring, the two row-copy routes and the two
+# places w lives, at the edges of the step count
+EDGE_SHAPES = {
+    "idx repeating within the ring": (3, 64, 512, 300, (0, 4)),
+    "H < ring depth": (2, 40, 512, 5, None),
+    "H = 1": (2, 40, 512, 1, None),
+    "H = 0": (2, 40, 512, 0, None),
+    "d % 4 != 0 (4-byte copies, w in shared memory)": (2, 64, 13, 200, None),
+    "d > 1024 (bulk copies, w in shared memory)": (2, 32, 2048, 60, None),
+    "out-of-range idx (clamped)": (2, 50, 100, 100, (-5, 55)),
+    "ring of 12, a partial last group, w in 8 chunks": (2, 40, 600, 77,
+                                                       None),
+}
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+@pytest.mark.parametrize("loss_name", LOSSES)
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES), ids=list(EDGE_SHAPES))
+def test_kernel_matches_plain_version_at_the_edges(shape, loss_name,
+                                                   per_leaf, cuda_device):
+    K, m_b, d, H, span = EDGE_SHAPES[shape]
+    X, y, alpha, w, idx, mask = _block(loss_name, K, m_b, d, H, 8, per_leaf,
+                                       per_leaf, cuda_device)
+    if span is not None:
+        idx = torch.from_numpy(np.random.default_rng(3).integers(
+            *span, (K, H)).astype(np.int32)).to(cuda_device)
+    loss = dual.get_loss(loss_name)
+    lm = 0.1 * K * m_b
+    got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=loss, lm=lm,
+                                   step_mask=mask)
+    # the kernel clamps out-of-range coordinates, as the TPU kernel's
+    # dynamic slices do; the plain version indexes, so it gets them clamped
+    want = ref.sdca_block_ref(X, y, alpha, w, idx.clamp(0, m_b - 1),
+                              loss=loss, lm=lm, step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+def test_kernel_takes_rows_of_an_unaligned_block(cuda_device):
+    """X 4 bytes off a 16-byte boundary: the rows come in by 4-byte copies,
+    w stays in registers."""
+    X, y, alpha, w, idx, mask = _block("hinge", 2, 48, 64, 90, 4, True, True,
+                                       cuda_device)
+    X = torch.cat([torch.zeros(1, device=cuda_device),
+                   X.flatten()])[1:].view(X.shape)
+    assert X.data_ptr() % 16 == 4
+    got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.hinge,
+                                   lm=9.6, step_mask=mask)
+    want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=dual.hinge, lm=9.6,
+                              step_mask=mask)
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("m_b,d", [(8192, 512), (512, 256), (64, 13),
+                                   (32, 2048), (60_000, 4)])
+def test_kernel_shared_memory_is_what_the_wrapper_reckons(m_b, d,
+                                                          cuda_device):
+    assert kernel._library().sdca_block_smem_bytes(m_b, d) == \
+        kernel.smem_bytes(m_b, d)
+
+
 def test_kernel_all_ones_mask_is_bit_identical_to_no_mask(cuda_device):
     X, y, alpha, w, idx, _ = _block("logistic", 4, 128, 64, 256, 1, True,
                                     False, cuda_device)

@@ -63,15 +63,53 @@ def test_flash_kernel_matches_plain_version(D, dtype, case, cuda_device):
     B, Sq, Sk, H, KV, causal, window, off = case
     q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, cuda_device)
     before = fa.LAUNCHES
+    name = fa.route(dtype, D)
+    before_route = fa.LAUNCHES_BY_ROUTE[name]
     got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
                                     seq_offset=off)
     want = attention_ref(q, k, v, causal=causal, window=window,
                          seq_offset=off)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
+    assert fa.LAUNCHES_BY_ROUTE[name] == before_route + 1
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+# the tensor-core kernel's edges: BQ = 128 query rows, BK = 64-key tiles;
+# (B, Sq, Sk, H, KV, causal, window, seq_offset)
+WGMMA_CASES = {
+    # neither length a multiple of 64; the window edge and the diagonal
+    # inside one tile; queries late in the keys; one kv head
+    "ragged, edges in a tile, offset, KV=1": (1, 130, 200, 8, 1, True, 40,
+                                              70),
+    "KV = H": (2, 100, 100, 4, 4, True, 30, 0),
+    "GQA 4:1, window without causality": (1, 96, 150, 8, 2, False, 50, 20),
+    # rows 59.. sit past the keys' window: they see no key
+    "rows that see no key": (1, 100, 50, 4, 1, True, 40, 30),
+}
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("case", list(WGMMA_CASES), ids=list(WGMMA_CASES))
+def test_flash_tensor_core_kernel_at_its_edges(D, case, cuda_device):
+    B, Sq, Sk, H, KV, causal, window, off = WGMMA_CASES[case]
+    q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, cuda_device, seed=2)
+    before = dict(fa.LAUNCHES_BY_ROUTE)
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                    seq_offset=off)
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         seq_offset=off)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_ROUTE == dict(before, wgmma=before["wgmma"] + 1)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_TOL[torch.bfloat16],
+                               atol=FLASH_TOL[torch.bfloat16])
+    blind = (want == 0).flatten(2).all(-1)       # (B, Sq): rows seeing no key
+    assert bool((got[blind] == 0).all())
+    if case == "rows that see no key":
+        assert int(blind.sum()) == B * (Sq - 59)
 
 
 def test_flash_kernel_at_the_serving_shape(cuda_device):
@@ -167,6 +205,25 @@ def test_generate_on_the_card_matches_the_cpu(impl, cuda_device):
         cuda_device)})
     cl, _ = transformer.prefill(cfg, params, {"tokens": toks})
     torch.testing.assert_close(dl.cpu(), cl, rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_prefill_takes_the_tensor_core_route(cuda_device):
+    """recurrentgemma-2b SMOKE at its bf16 activations: every prefill
+    attention layer goes through the tensor-core kernel, and the greedy
+    tokens are in range."""
+    cfg = dataclasses.replace(recurrentgemma_2b.SMOKE, attention_impl="flash")
+    params = transformer.init_params(
+        cfg, torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    fa.LAUNCHES = 0
+    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    got, _ = serve.generate(cfg, params, {"tokens": toks}, 6,
+                            device=cuda_device)
+    assert fa.LAUNCHES_BY_ROUTE == {"wgmma": n_attn, "f32": 0}
+    assert fa.LAUNCHES == n_attn
+    assert bool(((got >= 0) & (got < cfg.vocab_size)).all())
 
 
 def _to(tree, device):
