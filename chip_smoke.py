@@ -32,29 +32,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      8/2, 4/1}; seq_offset > 0; d in {16, 64, 80, 128, 256}; lengths that
      are not multiples of a tile; and at B=1, S=4096, H=10, KV=1, d=256,
      window 2048, bf16;
-  6. hold the rglru_scan kernel against its plain version on the card:
-     small shapes (S not a multiple of 256 among them) and (B=4, S=4096,
-     W=2560) f32;
+  6. hold the rglru_scan kernel against its plain version on the card,
+     bit for bit (torch.equal), on both routes with the launch counted on
+     the route route() names: small shapes (S not a multiple of a 32-step
+     stage, a tail block of channels), (B=4, S=4096, W=2560) f32, W % 4 !=
+     0 and inputs 4 bytes past a 16-byte boundary (the cp.async route);
   7. the serving path: recurrentgemma-2b at full width (26 layers, d_model
      2560, attention_impl="flash"), weights drawn on the card from
      torch.Generator("cuda").manual_seed(0), through
      repro_torch.launch.serve.generate: batch 4, 4096-token prompts, 32
      generated tokens.  The launch counts are zeroed before and read after
      a prefill-only generate (8 flash, all on the tensor-core route, and
-     18 scan) and the full generate (the same: decode launches neither).
+     18 scan, all on the TMA route) and the full generate (the same:
+     decode launches neither).
      Logits must be finite and tokens in range; the same prefill through
      the plain route (attention_impl="xla_chunked" and the plain scan)
      must give last-position logits within LM_TOL; one warm prefill and a few decode steps run under
      torch.profiler;
   8. time the two LM kernels warm (CUDA events) at the serving shape beside
-     their plain versions, their bounds and, for flash attention, one
+     their plain versions, their bounds (the scan's with its TB/s, its
+     share of the bound and, as a yardstick of the card's streaming rate,
+     one torch.mul over the same a and b) and, for flash attention, one
      F.scaled_dot_product_attention call with the same band mask (a
      yardstick only: the port never calls it).
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
-serving path's prefill seconds, decode tokens/s and peak memory, then one
-JSON line describing each kernel and, last, the device line.  Needs one
+serving path's prefill seconds, decode tokens/s and peak memory, the
+script's own seconds, then one JSON line describing each kernel and,
+last, the device line.  Needs one
 CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -248,23 +254,42 @@ def check_flash(dev) -> float:
 
 
 def check_rglru(dev) -> float:
-    """Phase 6: the scan kernel against its plain version on the card."""
+    """Phase 6: the scan kernel against its plain version on the card, bit
+    for bit, on both routes."""
     import torch
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     g = torch.Generator(device=dev).manual_seed(6)
     worst = 0.0
-    for B, S, W in [(1, 1, 8), (2, 300, 64), (3, 37, 40), (2, 256, 2560),
-                    (4, 4096, 2560)]:
-        a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
-        b = torch.randn(B, S, W, generator=g, device=dev)
+    # (B, S, W, offset): offset floats into the buffers a and b view
+    for B, S, W, off in [(1, 1, 8, 0), (2, 300, 64, 0), (3, 37, 40, 0),
+                         (2, 256, 2560, 0), (4, 4096, 2560, 0),
+                         (2, 300, 6, 0), (3, 1000, 2562, 0),
+                         (2, 300, 64, 1), (4, 4096, 2560, 1)]:
+        n = B * S * W
+        a = (0.9 + 0.1 * torch.rand(n + off, generator=g, device=dev)
+             )[off:].view(B, S, W)
+        b = torch.randn(n + off, generator=g, device=dev)[off:].view(B, S, W)
         h0 = torch.randn(B, W, generator=g, device=dev)
+        name = rg.route(a, b)
+        if name != ("tma" if W % 4 == 0 and off == 0 else "cp_async"):
+            raise AssertionError(f"rglru_scan route {name} for W={W} "
+                                 f"offset={off}")
+        before = rg.LAUNCHES_BY_ROUTE[name]
         got = rg.rglru_scan_kernel(a, b, h0)
+        if rg.LAUNCHES_BY_ROUTE[name] != before + 1:
+            raise AssertionError(f"B={B} S={S} W={W} offset={off} did not "
+                                 f"take the {name} route")
         want = rglru_scan_ref(a, b, h0)
         torch.cuda.synchronize()
         e = max_err(got, want)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"rglru_scan ({name}) is not bit-equal to "
+                                 f"its plain version at B={B} S={S} W={W} "
+                                 f"offset={off}: max abs err {e}")
         worst = max(worst, e)
-        print(f"check rglru_scan B={B} S={S} W={W} max_abs_err={e:.3e}")
+        print(f"check rglru_scan ({name}) B={B} S={S} W={W} offset={off} "
+              f"bit-equal, max_abs_err={e:.3e}")
     return worst
 
 
@@ -323,25 +348,29 @@ def serve_path(dev, card: str) -> dict:
     # prefill only (gen_tokens=1: no decode step), also the warm-up
     fa.LAUNCHES = rg.LAUNCHES = 0
     fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
     _, cold = generate(cfg, params, prompts, 1, device=dev)
     pre = (fa.LAUNCHES, rg.LAUNCHES)
     pre_routes = dict(fa.LAUNCHES_BY_ROUTE)
+    pre_scan_routes = dict(rg.LAUNCHES_BY_ROUTE)
     # the whole request: prefill then 31 decode steps
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = rg.LAUNCHES = 0
     fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
     toks, stats = generate(cfg, params, prompts, gen, device=dev)
     launches = {"flash_attention": fa.LAUNCHES, "rglru_scan": rg.LAUNCHES}
     routes = dict(fa.LAUNCHES_BY_ROUTE)
+    scan_routes = dict(rg.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
     print(f"serve: batch {B}, prompt {S}, {gen} generated: prefill "
           f"{stats['prefill_s']:.4f} s (cold {cold['prefill_s']:.4f} s), "
           f"decode {stats['decode_s']:.4f} s = {stats['tok_per_s']:.2f} "
           f"tokens/s; peak device memory {peak / 2**30:.3f} GiB  [{card}]")
     print(f"serve: launches in prefill flash={pre[0]} {pre_routes} "
-          f"scan={pre[1]}; in the whole request "
+          f"scan={pre[1]} {pre_scan_routes}; in the whole request "
           f"flash={launches['flash_attention']} {routes} "
-          f"scan={launches['rglru_scan']}")
+          f"scan={launches['rglru_scan']} {scan_routes}")
     if pre != (n_attn, n_rec):
         raise AssertionError(f"prefill launched (flash, scan) = {pre}, the "
                              f"model has ({n_attn}, {n_rec}) layers")
@@ -350,6 +379,11 @@ def serve_path(dev, card: str) -> dict:
             raise AssertionError(f"{label}'s flash launches by route {r}: "
                                  f"the bf16 model's {n_attn} attention "
                                  f"layers must take the tensor-core kernel")
+    for label, r in (("prefill", pre_scan_routes), ("request", scan_routes)):
+        if r != {"tma": n_rec, "cp_async": 0}:
+            raise AssertionError(f"{label}'s scan launches by route {r}: "
+                                 f"the model's {n_rec} recurrences at W="
+                                 f"{cfg.lru_width} must take the TMA route")
     if (launches["flash_attention"], launches["rglru_scan"]) != pre:
         raise AssertionError(f"decode launched kernels: {launches} over a "
                              f"prefill's {pre}")
@@ -486,11 +520,22 @@ def time_lm_kernels(dev, card: str) -> dict:
     a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
     b = torch.randn(B, S, W, generator=g, device=dev)
     h0 = torch.zeros(B, W, device=dev)
+    name = rg.route(a, b)
     got = rg.rglru_scan_kernel(a, b, h0)
     want = rglru_scan_ref(a, b, h0)
     err = max_err(got, want)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("rglru_scan is not bit-equal to its plain "
+                             "version at the serving shape")
     ms = time_ms(lambda: rg.rglru_scan_kernel(a, b, h0), 20)
     plain_ms = time_plain_ms(lambda: rglru_scan_ref(a, b, h0), 1)
+    # the card's practical rate for the scan's traffic: an elementwise
+    # product reads a and b and writes one (B, S, W) tensor, the scan's
+    # bytes but h0 and h_last, with no recurrence (a yardstick, not the same
+    # function)
+    prod = torch.empty_like(a)
+    stream_ms = time_ms(lambda: torch.mul(a, b, out=prod), 20)
+    del prod
     nbytes = (3 * a.numel() + 2 * h0.numel()) * 4
     flops = 2 * a.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -499,11 +544,17 @@ def time_lm_kernels(dev, card: str) -> dict:
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, max_abs_err=err)
-    print(f"rglru_scan at the serving shape (B={B} S={S} W={W} f32): kernel "
-          f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
-          f"{max(t_ops, t_bytes):.4f} ms (bytes {t_bytes:.4f} ms: {nbytes} "
-          f"B; operations {t_ops:.4f} ms: {flops} flop), max_abs_err "
-          f"{err:.3e}, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s  [{card}]")
+    print(f"rglru_scan at the serving shape (B={B} S={S} W={W} f32, {name} "
+          f"route): kernel {ms:.4f} ms/launch "
+          f"({nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+          f"{100 * max(t_ops, t_bytes) / ms:.1f}% of its bound), plain "
+          f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms (bytes "
+          f"{t_bytes:.4f} ms: {nbytes} B; operations {t_ops:.4f} ms: {flops} "
+          f"flop), bit-equal to the plain version, max_abs_err {err:.3e}; "
+          f"a and b read and one (B, S, W) tensor written by torch.mul(a, "
+          f"b, out=) {stream_ms:.4f} ms "
+          f"({3 * a.numel() * 4 / (stream_ms * 1e-3) / 1e12:.3f} TB/s)  "
+          f"[{card}]")
     fa.LAUNCHES, rg.LAUNCHES = n0
     return out
 
@@ -521,6 +572,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.sdca import kernel, ref
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -665,6 +717,8 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:86"),
             ("rglru_scan", "rglru", "rglru_scan",
              "src/repro/kernels/rglru/kernel.py:71"))]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first "
+          f"phase to the result")
     print(json.dumps({"kernels": [{
         "name": "sdca_block",
         "route": "cuda",

@@ -122,20 +122,39 @@ def test_flash_kernel_at_the_serving_shape(cuda_device):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("B,S,W", [(1, 1, 8), (2, 384, 64), (3, 37, 40),
-                                   (4, 1000, 2560)])
-def test_rglru_kernel_equals_plain_version(B, S, W, cuda_device):
+# the scan's edges, (B, S, W, offset): W = 6 (W % 4 != 0: the cp.async
+# route), 40 (a block's second consumer lies past W), 32 and 2560; S = 1,
+# 20 (under one 32-row stage), 1000 (not a multiple of a stage) and 4096;
+# offset 1 (a and b viewed 4 bytes past a 16-byte boundary, still
+# contiguous: the cp.async route)
+RGLRU_CASES = ([(1, 1, 8, 0), (2, 384, 64, 0), (3, 37, 40, 0)]
+               + [(B, S, W, 0) for B in (1, 4) for S in (1, 20, 1000, 4096)
+                  for W in (6, 32, 40, 2560)]
+               + [(1, 1000, 32, 1), (2, 20, 6, 1), (4, 4096, 2560, 1)])
+
+
+@pytest.mark.parametrize("B,S,W,offset", RGLRU_CASES)
+def test_rglru_kernel_equals_plain_version(B, S, W, offset, cuda_device):
     """The kernel rounds the product and the sum of each step as the plain
-    version's two elementwise kernels do, so the two agree bit for bit."""
+    version's two elementwise kernels do, so the two agree bit for bit on
+    both routes; TMA takes W % 4 == 0 with 16-byte aligned a and b."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=cuda_device)
-    b = torch.randn(B, S, W, generator=g, device=cuda_device)
+    n = B * S * W
+    a = (0.9 + 0.1 * torch.rand(n + offset, generator=g, device=cuda_device)
+         )[offset:].view(B, S, W)
+    b = torch.randn(n + offset, generator=g, device=cuda_device
+                    )[offset:].view(B, S, W)
     h0 = torch.randn(B, W, generator=g, device=cuda_device)
-    before = rg.LAUNCHES
+    assert a.is_contiguous() and (a.data_ptr() % 16 != 0) == (offset != 0)
+    want_route = "tma" if W % 4 == 0 and offset == 0 else "cp_async"
+    assert rg.route(a, b) == want_route
+    before, routes = rg.LAUNCHES, dict(rg.LAUNCHES_BY_ROUTE)
     h, h_last = rg.rglru_scan_kernel(a, b, h0)
     want_h, want_last = rglru_scan_ref(a, b, h0)
     torch.cuda.synchronize()
     assert rg.LAUNCHES == before + 1
+    assert rg.LAUNCHES_BY_ROUTE == dict(
+        routes, **{want_route: routes[want_route] + 1})
     assert torch.equal(h, want_h) and torch.equal(h_last, want_last)
 
 
@@ -160,7 +179,8 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device,
         fa.flash_attention_kernel(q, k, v)
 
 
-def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda_device,
+                                                            monkeypatch):
     a = torch.rand(2, 16, 8, device=cuda_device)
     h0 = torch.zeros(2, 8, device=cuda_device)
     with pytest.raises(TypeError):
@@ -172,6 +192,15 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         rg.rglru_scan_kernel(a, a[:, :8].contiguous(), h0)
     with pytest.raises(ValueError):
         rg.rglru_scan_kernel(a, a, h0.cpu())
+    # the source's shared memory is the wrapper's reckoning; a limit below
+    # it is refused before the launch
+    assert rg._library().rglru_scan_smem_bytes() == rg.smem_bytes()
+    assert rg.check_smem(rg.smem_limit(cuda_device)) == rg.smem_bytes()
+    before = (rg.LAUNCHES, dict(rg.LAUNCHES_BY_ROUTE))
+    monkeypatch.setattr(rg, "smem_limit", lambda device: 1024)
+    with pytest.raises(ValueError, match="shared"):
+        rg.rglru_scan_kernel(a, a, h0)
+    assert (rg.LAUNCHES, rg.LAUNCHES_BY_ROUTE) == before
 
 
 @pytest.mark.parametrize("impl", ["flash", "xla_chunked"])
@@ -209,19 +238,22 @@ def test_generate_on_the_card_matches_the_cpu(impl, cuda_device):
 
 def test_bf16_prefill_takes_the_tensor_core_route(cuda_device):
     """recurrentgemma-2b SMOKE at its bf16 activations: every prefill
-    attention layer goes through the tensor-core kernel, and the greedy
-    tokens are in range."""
+    attention layer goes through the tensor-core kernel, every recurrence
+    through the scan's TMA route, and the greedy tokens are in range."""
     cfg = dataclasses.replace(recurrentgemma_2b.SMOKE, attention_impl="flash")
     params = transformer.init_params(
         cfg, torch.Generator(cuda_device).manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 96)).astype(np.int32))
     n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
     fa.LAUNCHES = 0
     fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
     got, _ = serve.generate(cfg, params, {"tokens": toks}, 6,
                             device=cuda_device)
     assert fa.LAUNCHES_BY_ROUTE == {"wgmma": n_attn, "f32": 0}
+    assert rg.LAUNCHES_BY_ROUTE == {"tma": n_rec, "cp_async": 0}
     assert fa.LAUNCHES == n_attn
     assert bool(((got >= 0) & (got < cfg.vocab_size)).all())
 

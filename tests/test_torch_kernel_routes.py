@@ -1,18 +1,23 @@
 """The pure-Python parts of the port's kernel wrappers, without a card: the
-flash-attention kernel each (dtype, head dim) goes to, and the shared
-memory the sdca_block wrapper reckons for a leaf (the row ring, w, alpha,
-y, xsq and the ring's mbarriers) with its refusal above a limit passed in.
-The card tests (tests/test_torch_cuda*.py) hold the kernels' own
-reckoning to these numbers."""
+flash-attention kernel each (dtype, head dim) goes to; the shared memory
+the sdca_block wrapper reckons for a leaf (the row ring, w, alpha, y, xsq
+and the ring's mbarriers) with its refusal above a limit passed in; and
+the RG-LRU scan's route (TMA or cp.async copies, by W and alignment), its
+time ring and its shared memory.  The card tests
+(tests/test_torch_cuda*.py) hold the kernels' own reckoning to these
+numbers."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import dual  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.rglru import kernel as rg  # noqa: E402
 from repro_torch.kernels.sdca import kernel as sk  # noqa: E402
 
 H100_OPTIN = 232_448   # bytes of shared memory a block may opt in to
+H100_SMS = 132
+H100_SM_SMEM = 233_472  # bytes of shared memory an SM holds for its blocks
 
 
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
@@ -94,3 +99,77 @@ def test_sdca_cpu_tensors_run_the_plain_version():
                                   loss=dual.squared, lm=1.6)
     assert sk.LAUNCHES == before
     assert da.shape == (2, 8) and dw.shape == (2, 12)
+
+
+def _views(W, a_offset, b_offset, B=2, S=3):
+    """a and b of shape (B, S, W), contiguous views a_offset and b_offset
+    floats into buffers that start 64-byte aligned (torch's CPU
+    allocator)."""
+    n = B * S * W
+    bufs = [torch.zeros(n + off) for off in (a_offset, b_offset)]
+    assert all(t.data_ptr() % 16 == 0 for t in bufs)
+    a, b = (t[off:].view(B, S, W) for t, off in zip(bufs, (a_offset,
+                                                            b_offset)))
+    assert a.is_contiguous() and b.is_contiguous()
+    return a, b
+
+
+@pytest.mark.parametrize("W,a_offset,b_offset,want", [
+    (2560, 0, 0, "tma"),        # the serving shape
+    (32, 0, 0, "tma"),
+    (40, 0, 0, "tma"),          # a tail block: the copies' zero fill
+    (4, 0, 0, "tma"),
+    (6, 0, 0, "cp_async"),      # rows of 24 B: not a multiple of 16
+    (2562, 0, 0, "cp_async"),
+    (1, 0, 0, "cp_async"),
+    (2560, 1, 0, "cp_async"),   # a 4 bytes past a 16-byte boundary
+    (32, 0, 2, "cp_async"),     # b 8 bytes past one
+    (32, 4, 8, "tma"),          # views on 16-byte boundaries
+])
+def test_rglru_route_by_row_bytes_and_alignment(W, a_offset, b_offset, want):
+    a, b = _views(W, a_offset, b_offset)
+    assert rg.route(a, b) == want
+
+
+def test_rglru_ring_stages_of_32_time_steps():
+    """Two stages, each 32 time steps x 64 channels of a and of b: 32 KiB
+    of reads a block."""
+    assert (rg.CONSUMERS, rg.STAGE_ROWS, rg.RING_STAGES) == (2, 32, 2)
+    assert rg.ring_bytes() == 2 * 2 * 32 * 64 * 4 == 32_768
+
+
+def test_rglru_ring_keeps_enough_reads_in_flight_at_the_serving_shape():
+    """B=4, W=2560 in blocks of 64 channels of a batch row: 160 blocks
+    cover all 132 SMs, all resident at once, so every SM holds at least
+    one block's ring, at least 24 KiB of reads in flight (~2.3 MB over the
+    card at ~0.7 us of DRAM latency)."""
+    blocks = 4 * 2560 // (32 * rg.CONSUMERS)
+    assert blocks == 160 and blocks >= H100_SMS
+    fit = H100_SM_SMEM // (rg.smem_bytes() + 1024)   # 1 KiB reserved a block
+    assert fit * H100_SMS >= blocks
+    assert rg.ring_bytes() >= 24 * 1024
+    assert blocks * rg.ring_bytes() >= 2.3e6
+
+
+def test_rglru_smem_bytes():
+    # alignment slack, the ring, a full and an empty mbarrier a stage
+    assert rg.smem_bytes() == 128 + 32_768 + 2 * 16 == 32_928
+
+
+def test_rglru_check_smem_takes_the_limit_it_is_given():
+    need = rg.smem_bytes()
+    assert rg.check_smem(need) == need
+    assert rg.check_smem(H100_OPTIN) == need
+    with pytest.raises(ValueError, match=f"{need} B exceeds the {need - 1}"):
+        rg.check_smem(need - 1)
+
+
+def test_rglru_cpu_tensors_run_the_plain_version():
+    a, b = _views(8, 0, 0, B=2, S=5)
+    a += 0.5
+    b += 1.0
+    before = (rg.LAUNCHES, dict(rg.LAUNCHES_BY_ROUTE))
+    h, h_last = rg.rglru_scan_kernel(a, b, torch.zeros(2, 8))
+    assert (rg.LAUNCHES, rg.LAUNCHES_BY_ROUTE) == before
+    assert torch.equal(h_last, h[:, -1])
+    assert torch.equal(h[:, 0], torch.ones(2, 8))
