@@ -22,6 +22,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      One more warm root round runs under torch.profiler (wall time,
      device busy share, device time by kernel); its launches come after
      the count was read;
+ 3b. the compressed, delay-planned main path on phase 3's problem under
+     Schedule.auto(t_total=60.0, C="auto", compression="auto",
+     h_max=8192), with t_lp=1e-6, group_delay=1e-4, root_delay=5e-2
+     (simulated seconds: leaves at 1 us a coordinate step, groups on a
+     LAN, the root across a slow WAN).  Session.compile runs the C pilot
+     through the kernel.  Phase 3's tree (8 groups x 16) is planned, its
+     pilot launches counted nowhere, and its fitted C and level plan
+     printed; the run uses the same 128 leaves as 16 groups x 8 (see
+     compressed_path).
+     The script prints
+     the fitted C, the level plan, the bytes per root round and the
+     simulated round time against the same tree uncompressed, runs 5
+     root rounds and a warm 2 (seconds per root round, peak memory) and
+     profiles one more.  The launch count is zeroed before the compile
+     and read after its pilot, then zeroed and read around the run: one
+     launch per solve tick each.  Checks: the
+     planner compressed the root level; the gap fell and stayed finite; w
+     matches X^T alpha / (lambda m) within 1e-3 of its max; one warm
+     round's error-feedback targets give the same int8 codes, scales,
+     roundtrips and top-k indices on the card as on the CPU;
+     compression="none" on the same tree shape is the uncompressed plan,
+     and its Session.run (which threads the executor's state) equals the
+     flat executor restarted every root round (torch.equal); and a
+     compressed run at 16 leaves x 1024 examples, d = 512, H = 1024
+     agrees between backend="cuda" and backend="torch" within ROUTE_TOL
+     plus the last messages' quanta;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
      the kernel's bound from that tick's inputs; time it for every loss at
@@ -59,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
 serving path's prefill seconds, decode tokens/s and peak memory, the
-script's own seconds, then one JSON line describing each kernel and,
-last, the device line.  Needs one
+script's own seconds, then one JSON line describing each kernel (the
+sdca_block row's launches are phase 3's run; its launches_by_path also
+gives phase 3b's pilot and run) and, last, the device line.  Needs one
 CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -87,6 +114,13 @@ BF16_FLOP_PER_S = 989e12
 # along H dependent steps; on the logistic loss the 8 Newton steps near
 # the edge of (0, 1) amplify them further.
 TOL = 1e-3
+# the compressed run, kernel route against plain route, on w and on X^T
+# alpha / (lambda m): ROUTE_TOL x max|plain| (the sums' order, as TOL
+# above), plus, for each compressed depth, the largest block scale of its
+# last message in either route: int8 codes flip between the routes, but
+# error feedback re-sends each flip's difference at the next sync, so what
+# stays is the last residual, within half a quantum per route
+ROUTE_TOL = TOL
 # flash attention, |kernel - plain| per element: float32 softmax in both,
 # summed in other orders; bf16 outputs are rounded to 8 mantissa bits
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -202,6 +236,264 @@ def time_plain_ms(fn, reps: int) -> float:
     """Like time_ms after one warm call (the plain versions are long)."""
     fn()
     return time_ms(fn, reps)
+
+
+def capture_targets(ex, targets: list):
+    """Record every error-feedback target ``ex.roundtrip`` is handed (as
+    (depth, tensor)); ``del ex.roundtrip`` restores the method."""
+    orig = ex.roundtrip
+
+    def roundtrip(dd, target):
+        targets.append((dd, target.clone()))
+        return orig(dd, target)
+    ex.roundtrip = roundtrip
+
+
+def ef_allowance(ex, got: list, want: list):
+    """Compare two routes' error-feedback targets (the same sequence of
+    roundtrips) on the rows of the executor's int8 groups.  Returns (int8
+    codes that differ, codes compared, the sum over the compressed depths
+    of the largest block scale of that depth's last message in either
+    route)."""
+    import torch
+    from repro_torch.core import compression as comp
+    flips, codes, last = 0, 0, {}
+    for (dd, g), (dd2, w) in zip(got, want, strict=True):
+        assert dd == dd2
+        for kind, _, rows in ex.comp_groups[dd]:
+            if kind != comp.KIND_INT8:
+                continue
+            gc, gs = comp.quantize_int8(g[rows], keep_leading=1)
+            wc, ws = comp.quantize_int8(w[rows], keep_leading=1)
+            flips += int((gc != wc).sum())
+            codes += gc.numel()
+            last[dd] = float(torch.maximum(gs, ws).max())
+    return flips, codes, sum(last.values())
+
+
+def compressed_path(problem, dev, card: str) -> dict:
+    """Phase 3b: the compressed, delay-planned session on phase 3's
+    problem (see the module docstring).  Returns the kernel's launches in
+    the pilot and in the run, and the route comparison's largest error."""
+    import torch
+    from repro_torch.api import Problem, Schedule, Session, Topology
+    from repro_torch.core import compression as comp
+    from repro_torch.core import dual, prng
+    from repro_torch.core.engine import host as host_mod
+    from repro_torch.core.engine import plan as plan_mod
+    from repro_torch.kernels.sdca import kernel
+    lam = problem.lam
+    t_lp, group_delay, root_delay = 1e-6, 1e-4, 5e-2
+    sched = Schedule.auto(t_total=60.0, C="auto", compression="auto",
+                          h_max=8192)
+
+    def two_level(n_groups, per_group):
+        return Topology.two_level(n_groups, per_group, 8192, t_lp=t_lp,
+                                  group_delay=group_delay,
+                                  root_delay=root_delay)
+
+    # phase 3's 8 x 16 tree: fit_C caps C at the smallest group size (8,
+    # the root's fan-out), and at that cap eq. (12) keeps the root
+    # uncompressed.  Its pilot runs on the card and its plan is printed, to
+    # show whether the fit reaches the cap; those launches count nowhere.
+    # The run uses the same 128 leaves as 16 groups of 8, whose root
+    # fan-out (16) sits above the cap.
+    n0 = kernel.LAUNCHES
+    s8 = Session.compile(problem, two_level(8, 16), sched, backend="cuda",
+                         device=dev)
+    kernel.LAUNCHES = n0
+    print(f"compressed path: two_level(8, 16): fitted C = {s8.fitted_C!r} "
+          f"(cap 8), specs top-down {s8.resolved.compression}, H per level "
+          f"{[row['H'] for row in s8.level_plan]}")
+    del s8
+
+    topo = two_level(16, 8)
+    print(f"compressed path: Topology.two_level(16, 8, 8192, t_lp={t_lp}, "
+          f"group_delay={group_delay}, root_delay={root_delay}), "
+          f"Schedule.auto(t_total=60.0, C='auto', compression='auto', "
+          f"h_max=8192), m={problem.m} d={problem.d} lam={lam}")
+    pilot = plan_mod.compile_tree(Schedule().resolve(topo).chunk_tree)
+    pilot_ticks = int((pilot.solve_mask.max(axis=1) > 0).sum()) * \
+        sched.delay.pilot_rounds
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    sess = Session.compile(problem, topo, sched, backend="cuda", device=dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    pilot_launches = kernel.LAUNCHES
+    if pilot_launches != pilot_ticks:
+        raise AssertionError(f"the C pilot launched sdca_block "
+                             f"{pilot_launches} times for {pilot_ticks} "
+                             f"solve ticks")
+    r = sess.resolved
+    print(f"compressed path: compile {compile_s:.3f} s with the C pilot "
+          f"({pilot_launches} launches on the card), fitted C = "
+          f"{sess.fitted_C!r}")
+    for row in sess.level_plan:
+        print(f"compressed path: level {row['name']}: H={row['H']} "
+              f"spec={row.get('compress')} round_time="
+              f"{row['round_time']!r} s delay={row['delay']!r} s")
+    print(f"compressed path: specs top-down {r.compression}, planned "
+          f"{r.rounds} root rounds in 60 s")
+    plain_plan = plan_mod.compile_tree(r.chunk_tree, weighting=r.weighting)
+    plain_bytes = plan_mod.plan_bytes_per_round(plain_plan, problem.d)
+    plain_time = r.chunk_tree.solve_time()
+    print(f"compressed path: bytes per root round "
+          f"{sess.bytes_per_round!r} against {plain_bytes!r} uncompressed "
+          f"({sess.bytes_per_round / plain_bytes:.5f}); simulated "
+          f"per_round_time {r.per_round_time!r} s against {plain_time!r} s "
+          f"uncompressed")
+    if r.compression[0] in (None, "", "none"):
+        raise AssertionError(f"the planner left the root level "
+                             f"uncompressed: {r.compression}")
+
+    solves = int(sess.executor.solves.sum())
+    rounds, more = 5, 2
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sess.run(rounds=rounds, key=prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res2 = sess.run(rounds=more, warm_start=res)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernel.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    gaps = list(res.gaps) + list(res2.gaps)
+    print(f"compressed path: {solves} solve ticks per root round, "
+          f"{launches} sdca_block launches in the run, "
+          f"gaps={[f'{g:.6e}' for g in gaps]}")
+    print(f"compressed path: {(t1 - t0) / rounds:.4f} s per root round "
+          f"(cold run), {(t2 - t1) / more:.4f} s per root round (warm "
+          f"run); peak device memory {peak / 2**30:.3f} GiB  [{card}]")
+    if launches != solves * (rounds + more):
+        raise AssertionError(f"sdca_block launched {launches} times, the "
+                             f"run had {solves * (rounds + more)} solve "
+                             f"ticks")
+    if not all(math.isfinite(g) for g in gaps):
+        raise AssertionError(f"non-finite gap in {gaps}")
+    if not gaps[-1] < gaps[0]:
+        raise AssertionError(f"duality gap did not fall: {gaps}")
+    w_ref = dual.w_of_alpha(res2.alpha, problem.X, lam)
+    w_err = float((res2.w - w_ref).abs().max())
+    w_scale = float(w_ref.abs().max())
+    print(f"compressed path: max|w - X^T alpha/(lam m)| = {w_err:.3e} "
+          f"(max|X^T alpha/(lam m)| {w_scale:.3e})")
+    if not w_err <= 1e-3 * w_scale:
+        raise AssertionError("w drifted from X^T alpha / (lam m)")
+    profile_round(sess, res2, card)
+    n0 = kernel.LAUNCHES
+
+    # ---- integer exactness: card against CPU on the run's own targets ---
+    ex = sess.executor
+    targets: list = []
+    capture_targets(ex, targets)
+    sess.run(rounds=1, warm_start=res2, record_history=False)
+    del ex.roundtrip
+    k_default = comp.topk_count(problem.d, comp.DEFAULT_TOPK_FRAC)
+    for dd, tgt in targets:
+        host = tgt.cpu()
+        codes, scale = comp.quantize_int8(tgt, keep_leading=1)
+        hcodes, hscale = comp.quantize_int8(host, keep_leading=1)
+        same = (torch.equal(codes.cpu(), hcodes)
+                and torch.equal(scale.cpu(), hscale)
+                and torch.equal(comp.int8_roundtrip(tgt, 1).cpu(),
+                                comp.int8_roundtrip(host, 1)))
+        for k in (k_default, problem.d // 4):
+            same = same and torch.equal(comp.topk_indices(tgt, k).cpu(),
+                                        comp.topk_indices(host, k))
+        if not same:
+            raise AssertionError(f"depth {dd}: int8 codes, scales or top-k "
+                                 f"indices differ between card and CPU")
+    print(f"compressed path: int8 codes, scales, roundtrips and top-k "
+          f"indices (k={k_default}, {problem.d // 4}) of {len(targets)} "
+          f"error-feedback targets ({tuple(targets[0][1].shape)}) from one "
+          f"warm round equal on card and CPU")
+
+    # ---- compression="none": the uncompressed plan and flat executor ----
+    h_leaf, h_group = sess.level_plan[0]["H"], sess.level_plan[1]["H"]
+    s_none = Session.compile(problem, topo, Schedule(
+        rounds=2, level_rounds=[h_group], local_steps=h_leaf,
+        compression="none"), backend="cuda", device=dev)
+    if s_none.plan.has_compression or \
+            s_none.plan.fingerprint != plain_plan.fingerprint:
+        raise AssertionError("compression='none' is not the uncompressed "
+                             "plan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_n = s_none.run(key=prng.PRNGKey(1), record_history=False)
+    torch.cuda.synchronize()
+    none_s = (time.perf_counter() - t0) / 2
+    # the flat executor restarts from (alpha, w) every root round
+    ex_n = s_none.executor
+    lm = host_mod.regularizer_scale(lam, problem.m)
+    keys = prng.as_key(plan_mod.chunked_key_plan(
+        s_none.resolved.chunk_tree, s_none.plan, prng.PRNGKey(1), 2)).to(dev)
+    part = torch.as_tensor(plan_mod.full_participation(s_none.plan),
+                           device=dev)
+    steps = torch.as_tensor(plan_mod.full_steps(s_none.plan), device=dev)
+    alpha_f = torch.zeros_like(problem.y)
+    w_f = torch.zeros(problem.d, device=dev)
+    for t in range(2):
+        alpha_f, w_f = ex_n(s_none.data, keys[t], alpha_f, w_f, part, steps,
+                            lm)
+    if not (torch.equal(alpha_f, run_n.alpha) and torch.equal(w_f, run_n.w)):
+        raise AssertionError("compression='none': Session.run differs from "
+                             "the flat executor")
+    print(f"compressed path: compression='none' (H={h_leaf}, "
+          f"{h_group} group rounds, 2 root rounds) is the uncompressed "
+          f"plan, and its run equals the flat executor's (torch.equal); "
+          f"{none_s:.4f} s per root round (cold run)  [{card}]")
+
+    # ---- kernel route against plain route at a reduced shape ------------
+    m_s = 16 * 1024
+    prob_s = Problem.ridge(problem.X[:m_s], problem.y[:m_s], lam=lam)
+    topo_s = Topology.two_level(2, 8, 1024)
+    sched_s = Schedule(rounds=3, level_rounds=[2], local_steps=1024,
+                       compression="int8")
+    out, secs, targets_of = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        s_r = Session.compile(prob_s, topo_s, sched_s, backend=backend,
+                              device=dev)
+        targets_of[backend] = []
+        capture_targets(s_r.executor, targets_of[backend])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[backend] = s_r.run(key=prng.PRNGKey(2), record_history=False)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+    kernel.LAUNCHES = n0
+    # a last-ulp difference between the routes' targets can flip an int8
+    # code, and the differences the chain builds up flip many more; error
+    # feedback keeps what the flips leave in the end state to the last
+    # residual of each compressed depth, within half a quantum of that
+    # message's block per route (every leaf attends every sync of this
+    # symmetric tree, so each captured row is a message)
+    flips, codes, quanta = ef_allowance(s_r.executor, targets_of["cuda"],
+                                        targets_of["torch"])
+    worst = 0.0
+    for label, got, want in (
+            ("w", out["cuda"].w, out["torch"].w),
+            ("X^T alpha/(lam m)", dual.w_of_alpha(out["cuda"].alpha,
+                                                  prob_s.X, lam),
+             dual.w_of_alpha(out["torch"].alpha, prob_s.X, lam))):
+        err = float((got - want).abs().max())
+        allow = ROUTE_TOL * float(want.abs().max()) + quanta
+        print(f"compressed path, kernel vs plain route (16 x 1024, d=512, "
+              f"H=1024, int8, 3 root rounds): max|d {label}| = {err:.3e}, "
+              f"allowed {allow:.3e} ({ROUTE_TOL} x max|plain| + the last "
+              f"messages' quanta {quanta:.3e}); {flips} of {codes} int8 "
+              f"codes differ between the routes; cuda {secs['cuda']:.3f} s, "
+              f"torch {secs['torch']:.3f} s  [{card}]")
+        if not err <= allow:
+            raise AssertionError(f"kernel and plain routes disagree on "
+                                 f"{label}: {err} > {allow}")
+        worst = max(worst, err)
+    return {"pilot_launches": pilot_launches, "launches": launches,
+            "route_err": worst}
 
 
 def check_flash(dev) -> float:
@@ -641,6 +933,9 @@ def main() -> int:
 
     profile_round(sess, res2, card)
 
+    # ---- 3b. the compressed, delay-planned main path --------------------
+    compressed = compressed_path(problem, dev, card)
+
     # ---- 4. the kernel on one of the main path's ticks -----------------------
     ex, data = sess.executor, sess.data
     K, m_b = sess.plan.n_leaves, sess.plan.m_b
@@ -725,6 +1020,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/sdca/csrc/sdca_block.cu",
         "replaces": "src/repro/kernels/sdca/kernel.py:79",
         "launches": launches,
+        "launches_by_path": {"main": launches,
+                             "compressed_pilot":
+                                 compressed["pilot_launches"],
+                             "compressed_run": compressed["launches"]},
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -11,13 +11,17 @@
 
 The same objects as the JAX package's ``repro.api``, with ``backend=``
 ``"cuda"`` (the hand-written leaf kernel) or ``"torch"`` (its plain
-version) and an explicit ``device=``.  Sweeps, stragglers, checkpoints and
-LM training are not ported yet (see ROADMAP).
+version) and an explicit ``device=``; ``Schedule(rounds="auto",
+delay=DelayModel(...))`` / ``Schedule.auto`` plan H by the paper's eq.
+(12), and ``compression=`` ships compressed deltas with error feedback.
+Sweeps, stragglers, checkpoints and LM training are not ported yet (see
+ROADMAP).
 """
 from repro_torch.api.problem import Problem                   # noqa: F401
-from repro_torch.api.schedule import Schedule                 # noqa: F401
-from repro_torch.api.session import Session                   # noqa: F401
+from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401
+from repro_torch.api.session import Session, solve            # noqa: F401
 from repro_torch.api.topology import Topology                 # noqa: F401
 from repro_torch.core.instrument import SolveResult           # noqa: F401
 
-__all__ = ["Problem", "Topology", "Schedule", "Session", "SolveResult"]
+__all__ = ["Problem", "Topology", "Schedule", "DelayModel", "Session",
+           "SolveResult", "solve"]

@@ -6,8 +6,10 @@ numpy arrays: ``np.asarray(res.alpha)``, ...) into this package's
 can continue one of the reference (``Session.run(warm_start=...)``);
 ``problem_from_numpy`` builds a :class:`~repro_torch.api.problem.Problem`
 from the arrays a reference ``Problem`` was built from;
-``lm_params_from_reference`` carries a reference LM's parameters over.
-The tests start both packages from the same state this way.
+``lm_params_from_reference`` carries a reference LM's parameters over;
+``exec_state_from_reference`` turns a reference state-executor carry into
+this package's :class:`~repro_torch.core.engine.host.ExecState`.  The
+tests start both packages from the same state this way.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.api.problem import Problem
 from repro_torch.core import prng
+from repro_torch.core.engine.host import ExecState
 from repro_torch.core.instrument import SolveResult
 from repro_torch.models.transformer import block_layout
 
@@ -48,6 +51,23 @@ def to_reference(res: SolveResult) -> dict:
                      else res.next_key.cpu().numpy().astype(np.uint32)),
         "lam": res.lam,
     }
+
+
+def exec_state_from_reference(carry, device="cuda") -> ExecState:
+    """The port's executor state from a reference ``StateExecutor`` carry
+    as numpy arrays (``jax.tree.map(np.asarray, state)``): ``(a (n, m_b),
+    w (n, d), snapA (D, n, m_b), snapW (D, n, d), srvW (D, n, d)[,
+    residuals])``, the residuals one (n, d) array per compressed depth."""
+    a, w, snapA, snapW, srvW = (np.array(c) for c in carry[:5])
+    res = tuple(carry[5]) if len(carry) > 5 else ()
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    def per_depth(x):
+        return tuple(t(x[d]) for d in range(x.shape[0]))
+    return ExecState(t(a), t(w), per_depth(snapA), per_depth(snapW),
+                     per_depth(srvW), tuple(t(r) for r in res))
 
 
 def problem_from_numpy(X, y, loss="squared", lam: float = 0.1,

@@ -12,13 +12,21 @@ lays it out in the executor's blocked form and builds the executor.
     where the previous run stopped;
   * streamed history (``on_round=`` fires after every recorded round).
 
-Chunking is exact: every root round ends with a root sync that refreshes
-every snapshot, so (alpha, w, RNG chain) is a complete carry.  Backends:
-``"cuda"`` (the ``sdca_block`` kernel, the default) and ``"torch"`` (its
-plain version).
+A run threads the executor's full state (``init`` once, ``step`` per
+root round, ``finalize`` where it records): compressed plans carry their
+error-feedback residuals across root rounds, and for an uncompressed
+plan, whose root sync refreshes every snapshot, the threaded state equals
+a restart from (alpha, w), so (alpha, w, RNG chain) is a complete carry
+between runs.  ``Schedule(rounds="auto")`` plans the
+per-level H with the paper's eq. (12) at compile time, and
+``DelayModel(C="auto")`` first fits the improvement constant from a
+pilot run on the session's own backend and device.  Backends: ``"cuda"``
+(the ``sdca_block`` kernel, the default) and ``"torch"`` (its plain
+version).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import torch
@@ -28,6 +36,7 @@ from repro_torch.api.schedule import ResolvedSchedule, Schedule
 from repro_torch.api.topology import Topology
 from repro_torch.core import dual as dual_mod
 from repro_torch.core import prng
+from repro_torch.core.delay import fit_C
 from repro_torch.core.engine import host as host_mod
 from repro_torch.core.engine import plan as plan_mod
 from repro_torch.core.instrument import SolveResult, record_round
@@ -58,6 +67,7 @@ class Session:
         self.plan = plan
         self.executor = executor
         self.device = problem.device
+        self.fitted_C = None        # set when DelayModel(C="auto") calibrated
         # the problem in the executor's blocked layout (a view of X when
         # every leaf holds m_b rows)
         self.data = executor.prepare(problem.X, problem.y)
@@ -67,7 +77,9 @@ class Session:
                 schedule: Optional[Schedule] = None, *,
                 backend: str = "cuda", device="cuda") -> "Session":
         """Lower ``topology`` under ``schedule`` and bind the ``backend``
-        executor on ``device``."""
+        executor on ``device``.  A ``rounds="auto"`` schedule whose
+        DelayModel has ``C="auto"`` first runs the calibration pilot
+        (:func:`_calibrate_C`) on the same backend and device."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         schedule = schedule or Schedule()
@@ -75,14 +87,40 @@ class Session:
             raise ValueError(
                 f"problem has m={problem.m} examples but the topology "
                 f"assigns {topology.m_total}")
+        problem = problem.to(device)
+        fitted_C = None
+        if (schedule.rounds == "auto" and schedule.delay is not None
+                and schedule.delay.C == "auto"):
+            # only rounds="auto" reads the DelayModel: an explicit-rounds
+            # schedule would ignore the fitted C, so it pays no pilot
+            schedule, fitted_C = _calibrate_C(problem, topology, schedule,
+                                              backend)
         resolved = schedule.resolve(topology)
         plan = plan_mod.compile_tree(resolved.chunk_tree,
-                                     weighting=resolved.weighting)
-        problem = problem.to(device)
+                                     weighting=resolved.weighting,
+                                     compression=resolved.compression)
         ex = host_mod.get_host_executor(plan, loss=problem.loss,
                                         backend=backend,
                                         device=problem.device)
-        return cls(problem, topology, resolved, backend, plan, ex)
+        sess = cls(problem, topology, resolved, backend, plan, ex)
+        sess.fitted_C = fitted_C
+        return sess
+
+    @property
+    def level_plan(self):
+        """The eq.-(12) planner's per-level rows when the schedule was
+        ``"auto"`` (else ``None``)."""
+        return self.resolved.level_plan
+
+    @property
+    def bytes_per_round(self) -> float:
+        """Simulated uplink bytes one root round ships under this plan's
+        per-edge compression (``core/engine/plan.py::
+        plan_bytes_per_round``); compare with an uncompressed session of
+        the same topology for the wire saving."""
+        return plan_mod.plan_bytes_per_round(
+            self.plan, self.problem.d,
+            dtype_bytes=self.problem.X.element_size())
 
     @property
     def default_rounds(self) -> int:
@@ -135,6 +173,8 @@ class Session:
             record_initial = False
 
         history: list = []
+        ex = self.executor
+        state = ex.init(X, alpha, w)
 
         def record(t: int, a_flat: Tensor):
             if not record_history:
@@ -155,10 +195,11 @@ class Session:
         if record_initial:
             record(0, alpha)
         for t in range(1, T + 1):
-            alpha, w = self.executor(self.data, keys_all[t - 1], alpha, w,
-                                     part, steps, lm)
+            state = ex.step(self.data, keys_all[t - 1], state, part, steps,
+                            lm)
             if record_history and (t % every == 0 or t == T):
-                record(t, alpha)
+                record(t, ex.finalize(state)[0])
+        alpha, w = ex.finalize(state)
         next_key = plan_mod.advance_root_key(k, T, K_root)
         return SolveResult(alpha=alpha, w=w, history=history,
                            next_key=next_key, lam=lam)
@@ -194,3 +235,57 @@ class Session:
                              f"got {tuple(w.shape)}")
         return alpha, w, k.cpu()
 
+
+def _calibrate_C(problem: Problem, topology: Topology, schedule: Schedule,
+                 backend: str):
+    """Resolve ``DelayModel(C="auto")``: run ``pilot_rounds`` root rounds
+    under the topology's default schedule on ``backend`` and the
+    problem's device, fit eq. (11)'s improvement constant from the
+    observed per-root-round gap contractions (``core/delay.py::fit_C``),
+    and return (the schedule with the fitted C, the fitted C)."""
+    dm = schedule.delay
+    pilot = Session.compile(problem, topology,
+                            Schedule(weighting=schedule.weighting),
+                            backend=backend, device=problem.device)
+    res = pilot.run(rounds=int(dm.pilot_rounds), key=prng.PRNGKey(0))
+    plan = pilot.plan
+    # one root round of the pilot, seen as eq. (11)'s star round: K = the
+    # root's fan-out, H = the coordinate steps one leaf runs per root
+    # round, delta = one coordinate's share of a leaf block (the planner's
+    # own delta when the DelayModel pins it).  The clip is the smallest
+    # group size over the sync levels: the planner checks the same C
+    # against every level's K.
+    K = len(topology.tree.children)
+    h_eff = int(plan.solve_mask[:, 0].sum()) * int(plan.leaf_h[0])
+    delta = (dm.delta if dm.delta is not None
+             else 1.0 / max(int(plan.leaf_sizes[0]), 1))
+    c_max = min(lvl.group_size for lvl in topology.sync_levels())
+    C = fit_C(res.history, K=K, H=h_eff, delta=delta, c_max=c_max)
+    return dataclasses.replace(
+        schedule, delay=dataclasses.replace(dm, C=C)), C
+
+
+def solve(
+    problem: Problem,
+    topology: Topology,
+    schedule: Optional[Schedule] = None,
+    *,
+    backend: str = "cuda",
+    device="cuda",
+    key=None,
+    rounds: Optional[int] = None,
+    warm_start: Union[SolveResult, Tuple[Tensor, Tensor], None] = None,
+    record_history: bool = True,
+    history_every: int = 1,
+    on_round: Optional[Callable[[dict], None]] = None,
+    lam: Optional[float] = None,
+    local_h=None,
+) -> SolveResult:
+    """One-shot convenience: ``Session.compile(...).run(...)`` with the
+    whole ``run`` surface of this package."""
+    sess = Session.compile(problem, topology, schedule, backend=backend,
+                           device=device)
+    return sess.run(rounds, key=key, warm_start=warm_start,
+                    record_history=record_history,
+                    history_every=history_every, on_round=on_round,
+                    lam=lam, local_h=local_h)

@@ -2,19 +2,25 @@
 
 Wraps :class:`~repro_torch.core.tree.TreeNode` with builders for the
 paper's network families (star, balanced multi-level, two-level,
-imbalanced groups) and a stable dict/JSON wire format -- the same format
+imbalanced groups), a stable dict/JSON wire format -- the same format
 as the JAX package's ``Topology``, so a topology serialized by one loads
-in the other.  Round counts on the tree are defaults; a Schedule may
-override them.  Not ported yet: the delay-planner view (``sync_levels``,
-ROADMAP A6), ``from_mesh`` (A11) and the elastic membership edits (A10).
+in the other -- the delay views the eq.-(12) planner reads
+(:meth:`Topology.sync_levels`, per-leaf sync delays, leaf and aggregation
+costs) and per-edge compression stamps (:meth:`Topology.with_compression`).
+Round counts on the tree are defaults; a Schedule may override them.  Not
+ported yet: ``from_mesh`` (it needs the mesh backend) and the elastic
+membership edits ``with_leaf`` / ``without_leaf`` (they need the elastic
+runtime).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from repro_torch.core import compression as comp_mod
 from repro_torch.core import tree as tree_mod
+from repro_torch.core.delay import FixedLevel
 from repro_torch.core.tree import TreeNode
 
 
@@ -75,6 +81,124 @@ class Topology:
 
     def leaf_sizes(self) -> List[int]:
         return [l.data_size for l in self.tree.leaves()]
+
+    def sync_levels(self) -> List[FixedLevel]:
+        """The per-depth sync structure, innermost first (the order
+        ``core/delay.py::plan_hierarchical_h`` consumes).
+
+        Requires structural level-homogeneity: one fan-out per internal
+        depth and all leaves at the same depth with equal ``data_size`` and
+        ``t_lp``.  The level delay is the slowest child up-link at that
+        depth (the synchronous barrier waits for it)."""
+        by_depth: Dict[int, set] = {}
+        delays: Dict[int, float] = {}
+        leaf_info = set()
+        leaf_depths = set()
+
+        def visit(node: TreeNode, depth: int):
+            if node.is_leaf:
+                leaf_depths.add(depth)
+                leaf_info.add((node.data_size, node.t_lp))
+                return
+            by_depth.setdefault(depth, set()).add(len(node.children))
+            for c in node.children:
+                delays[depth] = max(delays.get(depth, 0.0), c.up_delay)
+                visit(c, depth + 1)
+        visit(self.tree, 0)
+
+        D = max(by_depth) + 1
+        if leaf_depths != {D}:
+            raise ValueError(
+                "sync_levels needs all leaves at one depth; got leaves at "
+                f"depths {sorted(leaf_depths)} with internal depths 0..{D-1}")
+        if len(leaf_info) != 1:
+            raise ValueError(
+                f"sync_levels needs congruent leaves, got {sorted(leaf_info)}")
+        bad = {d: ks for d, ks in by_depth.items() if len(ks) != 1}
+        if bad:
+            raise ValueError(f"sync_levels needs one fan-out per depth: {bad}")
+        return [
+            FixedLevel(name=f"depth{d}", group_size=next(iter(by_depth[d])),
+                       delay_s=delays[d])
+            for d in range(D - 1, -1, -1)
+        ]
+
+    def leaf_sync_delays(self) -> List[float]:
+        """Per-leaf nominal sync-path delay (seconds), leaf order: the sum
+        of ``up_delay`` along the leaf's path to the root -- what one root
+        round's barrier pays to hear from that leaf.  The base delays that
+        ``Session.run(straggler=...)`` hands the
+        ``StragglerModel`` sampler."""
+        out: List[float] = []
+
+        def visit(node: TreeNode, acc: float):
+            acc += node.up_delay
+            if node.is_leaf:
+                out.append(acc)
+                return
+            for c in node.children:
+                visit(c, acc)
+        visit(self.tree, -self.tree.up_delay)  # the root has no up-link
+        return out
+
+    def leaf_t_lp(self) -> float:
+        """The (homogeneous) per-coordinate-step cost at the leaves."""
+        vals = {l.t_lp for l in self.tree.leaves()}
+        if len(vals) != 1:
+            raise ValueError(f"heterogeneous leaf t_lp: {sorted(vals)}")
+        return vals.pop()
+
+    def internal_t_cp(self) -> float:
+        """The per-aggregation compute cost carried by the internal nodes
+        (the slowest one: the barrier waits for it)."""
+        def visit(node: TreeNode) -> float:
+            if node.is_leaf:
+                return 0.0
+            return max([node.t_cp] + [visit(c) for c in node.children])
+        return visit(self.tree)
+
+    def with_compression(
+        self, spec, *, names: Optional[Sequence[str]] = None,
+        min_up_delay: Optional[float] = None,
+    ) -> "Topology":
+        """A copy with ``up_compress=spec`` stamped on matching up-links.
+
+        With no filter every non-root edge gets the spec; ``names``
+        restricts it to those nodes' up-links, ``min_up_delay`` to edges at
+        least that slow -- the topological way to say "compress the
+        cross-pod hops, leave the fast intra-pod links exact".  Filters
+        compose (both must match).  Pass ``spec=""`` to clear overrides.
+        """
+        if spec:
+            comp_mod.parse_spec(spec)  # fail fast on typos
+        sel = set(names) if names is not None else None
+
+        def visit(node: TreeNode, is_root: bool) -> TreeNode:
+            kids = tuple(visit(c, False) for c in node.children)
+            node = dataclasses.replace(node, children=kids)
+            if is_root:
+                return node
+            if sel is not None and node.name not in sel:
+                return node
+            if min_up_delay is not None and node.up_delay < min_up_delay:
+                return node
+            return dataclasses.replace(node, up_compress=str(spec))
+        return Topology(tree=visit(self.tree, True))
+
+    # ---- leaf lookup ---------------------------------------------------
+    def leaf_names(self) -> List[str]:
+        return [l.name for l in self.tree.leaves()]
+
+    def leaf_span(self, name: str) -> "tuple[int, int]":
+        """``(offset, size)`` of leaf ``name``'s block in the flat dual
+        vector (leaves in tree order) -- where membership events splice
+        alpha and the stacked (X, y) rows."""
+        off = 0
+        for l in self.tree.leaves():
+            if l.name == name:
+                return off, l.data_size
+            off += l.data_size
+        raise KeyError(f"no leaf named {name!r}")
 
     # ---- serialization -------------------------------------------------
     def to_dict(self) -> dict:

@@ -22,9 +22,20 @@ Segment sums run over the contiguous leaf ranges of each group (a
 reshape-sum when the groups tile the leaves evenly), so a run is
 reproducible on the card: no atomics decide a summation order.
 
-Not ported yet: edge compression (ROADMAP A7), the state-carrying
-executor for straggler runs (A8), and the batched and accelerated
-flavors (A9); asking for them raises ``NotImplementedError``.
+Edge compression with error feedback: a compressed depth carries an
+``(n, d)`` float32 residual per leaf; at each of its sync events a leaf's
+message is ``delta_w + residual`` through its edge's roundtrip
+(``core/compression.py``; leaves grouped by (kind, frac)), and the
+residual advances to what the roundtrip dropped, for the leaves that
+attend.  The residuals outlive a root round, so compressed sessions
+thread the executor's full state (:class:`ExecState`: ``init`` ->
+``step`` per root round -> ``finalize``) instead of the flat
+``(alpha, w)`` pair.  A plan with no compressed depth runs the
+uncompressed tick, and ``forward`` is ``finalize(step(init(...)))``.
+
+Not ported yet: the batched and accelerated flavors (they need
+``api/sweep.py`` and ``core/engine/method.py``); asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import compression as comp_mod
 from repro_torch.core import prng
 from repro_torch.core.dual import Loss
 from repro_torch.core.engine.plan import (TreePlan, full_participation,
@@ -60,6 +72,20 @@ class BlockedData(NamedTuple):
     Xb: Tensor
     yb: Tensor
     sqnorm: Tensor
+
+
+class ExecState(NamedTuple):
+    """The executor's full blocked carry between root rounds: ``a`` (n,
+    m_b), ``w`` (n, d), one snapshot of each per internal depth (``snapA``
+    (n, m_b), ``snapW`` (n, d)), the per-depth group servers ``srvW`` (n,
+    d), and one float32 error-feedback residual (n, d) per compressed
+    depth, shallowest first (``res``; empty for an uncompressed plan)."""
+    a: Tensor
+    w: Tensor
+    snapA: Tuple[Tensor, ...]
+    snapW: Tuple[Tensor, ...]
+    srvW: Tuple[Tensor, ...]
+    res: Tuple[Tensor, ...] = ()
 
 
 class _Segments:
@@ -103,9 +129,6 @@ class HostExecutor(nn.Module):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
-        if plan.has_compression:
-            raise NotImplementedError(
-                "compressed plans are not ported yet (ROADMAP A7)")
         self.plan, self.loss, self.backend = plan, loss, backend
         n, m_b, m = plan.n_leaves, plan.m_b, plan.m_total
         D, h_max = plan.depth, plan.h_max
@@ -152,6 +175,27 @@ class HostExecutor(nn.Module):
         # host-side tick structure: which ticks solve, which depths sync
         self.solves = plan.solve_mask.max(axis=1) > 0            # (S,)
         self.events = plan.sync_mask.max(axis=2) > 0             # (S, D)
+        # edge compression: per compressed depth, its residual slot and
+        # its leaves grouped by (kind, frac), so each roundtrip is one
+        # call over a row block (a row = one edge's message: all leaves
+        # of a child subtree carry the child's delta)
+        self.res_slot = {}
+        self.comp_groups = {}
+        if plan.has_compression:
+            for dd in range(D):
+                kinds = plan.compress_kind[dd]
+                if not (kinds != comp_mod.KIND_NONE).any():
+                    continue
+                self.res_slot[dd] = len(self.res_slot)
+                groups = {}
+                for li in np.nonzero(kinds != comp_mod.KIND_NONE)[0]:
+                    key = (int(kinds[li]), float(plan.compress_frac[dd, li]))
+                    groups.setdefault(key, []).append(int(li))
+                self.comp_groups[dd] = [
+                    (k, f, torch.as_tensor(rows, device=dev))
+                    for (k, f), rows in sorted(groups.items())]
+                buf(f"comp_mask{dd}", (kinds != comp_mod.KIND_NONE)[:, None],
+                    torch.bool)
 
     # ------------------------------------------------------------------
     def prepare(self, X: Tensor, y: Tensor) -> BlockedData:
@@ -188,23 +232,53 @@ class HostExecutor(nn.Module):
         return sdca_steps_ref(data.Xb, data.yb, a, w, xsq, idx,
                               loss=self.loss, lm=lm, step_mask=mk)
 
+    def roundtrip(self, dd: int, target: Tensor) -> Tensor:
+        """The receiver's view of depth ``dd``'s per-edge messages: each
+        compressed leaf row through its edge's quantize + dequantize (or
+        top-k), uncompressed rows as they are."""
+        approx = target.clone()
+        for kind, frac, rows in self.comp_groups[dd]:
+            sub = target[rows]
+            if kind == comp_mod.KIND_INT8:
+                rt = comp_mod.int8_roundtrip(sub, keep_leading=1)
+            else:
+                rt = comp_mod.topk_roundtrip(
+                    sub, comp_mod.topk_count(sub.shape[-1], frac))
+            approx[rows] = rt
+        return approx
+
     # ------------------------------------------------------------------
-    def forward(self, data: BlockedData, keys: Tensor, alpha0: Tensor,
-                w0: Tensor, participation: Tensor, steps: Tensor,
-                lm: float) -> Tuple[Tensor, Tensor]:
-        """One pass over the plan's S ticks from flat (alpha0 (m,), w0
-        (d,)); ``keys`` is the (S, n, 2) per-solve key plan, ``lm`` the
-        float32 lambda*m (:func:`regularizer_scale`).  Returns the flat
-        (alpha (m,), w (d,))."""
-        plan = self.plan
-        n, m_b, D = plan.n_leaves, plan.m_b, plan.depth
-        d = data.Xb.shape[2]
-        xsq = data.sqnorm / lm
-        a = torch.zeros(n * m_b, dtype=alpha0.dtype, device=alpha0.device)
-        a[self.flat_map] = alpha0
+    def init(self, X: Tensor, alpha0: Tensor, w0: Tensor) -> ExecState:
+        """The blocked run-start state from flat (alpha0 (m,), w0 (d,)) in
+        the dtype of ``X`` (the flat (m, d) data or its blocked layout):
+        snapshots and group servers at the start state, zero residuals."""
+        n, m_b, D = self.plan.n_leaves, self.plan.m_b, self.plan.depth
+        d = X.shape[-1]
+        a = torch.zeros(n * m_b, dtype=X.dtype, device=alpha0.device)
+        a[self.flat_map] = alpha0.to(X.dtype)
         a = a.view(n, m_b)
-        w = w0.expand(n, d).contiguous()
-        snapA, snapW, srvW = [a] * D, [w] * D, [w] * D
+        w = w0.to(X.dtype).expand(n, d).contiguous()
+        res = tuple(torch.zeros((n, d), dtype=torch.float32,
+                                device=w.device) for _ in self.res_slot)
+        return ExecState(a, w, (a,) * D, (w,) * D, (w,) * D, res)
+
+    def finalize(self, state: ExecState) -> Tuple[Tensor, Tensor]:
+        """The flat (alpha (m,), w (d,)) of a state at a root-round
+        boundary (where every leaf's w is the root's)."""
+        return state.a.reshape(-1)[self.flat_map], state.w[0]
+
+    def step(self, data: BlockedData, keys: Tensor, state: ExecState,
+             participation: Tensor, steps: Tensor, lm: float) -> ExecState:
+        """One pass over the plan's S ticks from ``state``; ``keys`` is the
+        (S, n, 2) per-solve key plan, ``lm`` the float32 lambda*m
+        (:func:`regularizer_scale`)."""
+        plan = self.plan
+        D = plan.depth
+        xsq = data.sqnorm / lm
+        a, w = state.a, state.w
+        snapA, snapW, srvW = list(state.snapA), list(state.snapW), \
+            list(state.srvW)
+        res = list(state.res)
         one = torch.ones((), dtype=w.dtype, device=w.device)
         for s in range(plan.n_ticks):
             if self.solves[s]:
@@ -244,6 +318,15 @@ class HostExecutor(nn.Module):
                 corr = self.csize[dd] / torch.clamp(cnt_c, min=1.0)[
                     self.cids[dd]]
                 delta_w = w - snapW[dd]
+                ri = self.res_slot.get(dd)
+                if ri is not None:
+                    # error feedback: the message is delta + residual; the
+                    # residual advances only for leaves that deliver now
+                    target = delta_w.float() + res[ri]
+                    approx = self.roundtrip(dd, target)
+                    res[ri] = torch.where(eb, target - approx, res[ri])
+                    delta_w = torch.where(getattr(self, f"comp_mask{dd}"),
+                                          approx.to(w.dtype), delta_w)
                 contrib = (((wc * e) / denom) * corr)[:, None] * delta_w
                 srv_new = srvW[dd] + seg.sum(contrib)[gid]
                 srvW[dd] = torch.where(act[:, None], srv_new, srvW[dd])
@@ -266,7 +349,18 @@ class HostExecutor(nn.Module):
                 snapA[dd] = torch.where(r, a, snapA[dd])
                 snapW[dd] = torch.where(
                     r, w, torch.where(ffwd, srvW[dd], snapW[dd]))
-        return a.reshape(-1)[self.flat_map], w[0]
+        return ExecState(a, w, tuple(snapA), tuple(snapW), tuple(srvW),
+                         tuple(res))
+
+    def forward(self, data: BlockedData, keys: Tensor, alpha0: Tensor,
+                w0: Tensor, participation: Tensor, steps: Tensor,
+                lm: float) -> Tuple[Tensor, Tensor]:
+        """One pass over the plan's S ticks from flat (alpha0 (m,), w0
+        (d,)): ``finalize(step(init(...)))``.  Returns the flat (alpha
+        (m,), w (d,))."""
+        state = self.init(data.Xb, alpha0, w0)
+        return self.finalize(self.step(data, keys, state, participation,
+                                       steps, lm))
 
 
 def get_host_executor(plan: TreePlan, *, loss: Loss, backend: str = "cuda",
@@ -274,15 +368,21 @@ def get_host_executor(plan: TreePlan, *, loss: Loss, backend: str = "cuda",
                       batched: bool = False,
                       accelerated: bool = False) -> HostExecutor:
     """Build the executor for ``plan`` on ``device`` (see
-    :class:`HostExecutor`)."""
-    if carry_state:
+    :class:`HostExecutor`).  Every executor carries state: ``init(X,
+    alpha0, w0) -> state``, ``step(data, keys, state, participation,
+    steps, lm) -> state`` and ``finalize(state) -> (alpha, w)`` are its
+    methods, so ``carry_state`` (the reference's flag for that triple) is
+    accepted only for parity with the reference's signature and changes
+    nothing."""
+    del carry_state
+    if batched:
         raise NotImplementedError(
-            "the state-carrying executor (straggler runs) is not ported "
-            "yet (ROADMAP A8)")
-    if batched or accelerated:
+            "batched executors (a leading config axis) serve api/sweep.py, "
+            "which is not ported yet (ROADMAP A5)")
+    if accelerated:
         raise NotImplementedError(
-            "batched and accelerated executors are not ported yet "
-            "(ROADMAP A9)")
+            "accelerated executors need the sdca_acc method of "
+            "core/engine/method.py, which is not ported yet (ROADMAP A5)")
     return HostExecutor(plan, loss=loss, backend=backend, device=device)
 
 

@@ -30,9 +30,11 @@ all ones = the synchronous schedule) and a ``(S, n, h_max)`` step mask
 ``leaf_h`` is an H *capacity*: draws always cover it, so the key stream
 never depends on the runtime schedule.
 
-Edge compression is not ported yet (ROADMAP A7): the ``compress_*``
-fields exist, all "none", so every array field compares equal with the
-reference's plan.
+Edge compression: ``compress_kind`` / ``compress_frac`` hold each
+(depth, leaf) up-link's spec (``core/compression.py`` codes), from the
+per-depth default of ``compile_tree(compression=)`` or the child node's own
+``up_compress``; both are hashed into the fingerprint, so a compressed
+plan's fingerprint equals the reference's too.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import compression as comp_mod
 from repro_torch.core import prng
 from repro_torch.core.tree import TreeNode
 
@@ -117,7 +120,7 @@ class TreePlan:
     # ---- metadata ------------------------------------------------------
     weighting: str
     levels: Optional[Tuple[LevelSpec, ...]]
-    # ---- per-(depth, leaf) edge compression: all "none" in this port ---
+    # ---- per-(depth, leaf) edge compression ----------------------------
     compress_kind: Optional[np.ndarray] = None   # (D, n) int8
     compress_frac: Optional[np.ndarray] = None   # (D, n) f32
     fingerprint: str = ""
@@ -197,30 +200,19 @@ def _walk(tree: TreeNode, key, on_solve, on_sync):
     walk(tree, (), 0, 0, key)
 
 
-def _check_uncompressed(tree: TreeNode, compression) -> None:
-    specs = [compression] if compression is None or isinstance(
-        compression, str) else list(compression)
-
-    def edges(node):
-        for c in node.children:
-            yield c.up_compress
-            yield from edges(c)
-    if any(c not in (None, "", "none") for c in specs + list(edges(tree))):
-        raise NotImplementedError(
-            "edge compression is not ported yet (ROADMAP A7); compile "
-            "with compression=None and no per-edge up_compress")
-
-
 # ---------------------------------------------------------------------------
 # plan compilation
 # ---------------------------------------------------------------------------
 def compile_tree(tree: TreeNode, *, weighting: str = "uniform",
                  compression=None) -> TreePlan:
-    """Lower ``tree`` into a :class:`TreePlan` (``compression`` must be
-    ``None`` or ``"none"`` in this port)."""
+    """Lower ``tree`` into a :class:`TreePlan`.
+
+    ``compression`` sets the per-depth edge-compression default: ``None``,
+    one spec string for every depth, or a top-down per-depth sequence
+    (entry ``d`` compresses the up-links INTO depth-``d`` nodes); a child
+    node's own ``up_compress`` overrides it for that edge."""
     if tree.is_leaf:
         raise ValueError("the root must be an internal node")
-    _check_uncompressed(tree, compression)
     leaves = tree.leaves()
     names = tuple(l.name for l in leaves)
     if len(set(names)) != len(names):
@@ -261,6 +253,20 @@ def compile_tree(tree: TreeNode, *, weighting: str = "uniform",
     gid_of: List[Dict[tuple, int]] = [dict() for _ in range(D)]
     cid_count = [0] * D
 
+    if compression is None:
+        level_spec: List = [None] * D
+    elif isinstance(compression, str):
+        level_spec = [compression] * D
+    else:
+        level_spec = [None if c in (None, "") else str(c)
+                      for c in compression]
+        if len(level_spec) != D:
+            raise ValueError(
+                f"per-depth compression must list all {D} internal depths "
+                f"top-down, got {len(level_spec)} entries")
+    compress_kind = np.zeros((D, n), np.int8)
+    compress_frac = np.zeros((D, n), np.float32)
+
     for path, (node, depth, lo, hi) in node_info.items():
         if path not in gid_of[depth]:
             gid_of[depth][path] = len(gid_of[depth])
@@ -278,6 +284,9 @@ def compile_tree(tree: TreeNode, *, weighting: str = "uniform",
             child_ids[depth, clo:chi] = cid_count[depth]
             child_sizes[depth, clo:chi] = chi - clo
             cid_count[depth] += 1
+            ck, cf = comp_mod.parse_spec(c.up_compress or level_spec[depth])
+            compress_kind[depth, clo:chi] = ck
+            compress_frac[depth, clo:chi] = cf
 
     def on_solve(tick, path, _key):
         solve_mask[tick, leaf_of_path[path]] = 1.0
@@ -302,6 +311,7 @@ def compile_tree(tree: TreeNode, *, weighting: str = "uniform",
         child_ids=child_ids, child_sizes=child_sizes,
         n_children=tuple(max(c, 1) for c in cid_count),
         weighting=weighting, levels=_detect_levels(tree, leaves, D),
+        compress_kind=compress_kind, compress_frac=compress_frac,
     )
 
 
@@ -449,3 +459,32 @@ def steps_for_h(plan: TreePlan, h) -> np.ndarray:
     h_eff = np.minimum(np.maximum(h, 0), plan.leaf_h[None, :])
     j = np.arange(h_max)
     return (j[None, None, :] < h_eff[:, :, None]).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# simulated communication accounting
+# ---------------------------------------------------------------------------
+def plan_bytes_per_round(plan: TreePlan, d_feat: int, *,
+                         dtype_bytes: int = 4) -> float:
+    """Simulated UPLINK bytes one root round ships: every sync event in
+    the plan delivers one ``d``-vector delta per distinct child edge,
+    scaled by that edge's compression wire ratio
+    (``core/compression.py::wire_ratio``); the plan's total is normalized
+    by its root-round count."""
+    total = 0.0
+    for s in range(plan.n_ticks):
+        for dd in range(plan.depth):
+            ev = plan.sync_mask[s, dd] > 0
+            if not ev.any():
+                continue
+            seen = set()
+            for li in np.nonzero(ev)[0]:
+                cid = int(plan.child_ids[dd, li])
+                if cid in seen:
+                    continue
+                seen.add(cid)
+                ratio = comp_mod.wire_ratio(
+                    int(plan.compress_kind[dd, li]),
+                    float(plan.compress_frac[dd, li]))
+                total += float(d_feat) * dtype_bytes * ratio
+    return total / max(int(plan.root_sync.sum()), 1)

@@ -12,7 +12,15 @@ on, the default there):
     iota(prod(s)).reshape(s)), the two output words XOR-ed;
   * ``randint``: ``k1, k2 = split(key)``, two 32-bit draws ``hi``, ``lo``
     and ``(hi % span * (2**32 % span) + lo % span) % span`` in uint32
-    arithmetic (jax's ``_randint``).
+    arithmetic (jax's ``_randint``);
+  * ``uniform``: the top 23 bits of one draw as the mantissa of a float32
+    in [1, 2), minus 1, scaled to [minval, maxval) by one fused
+    multiply-add and floored at minval (jax's ``_uniform`` as XLA
+    compiles it) -- bit-exact;
+  * ``normal``: ``sqrt(2) * erfinv(u)`` over u uniform in the open
+    interval (-1, 1) (jax's ``_normal_real``).  ``torch.erfinv`` is not
+    XLA's polynomial, so the normals agree to a few float32 ulp, not
+    bit for bit.
 
 uint32 arithmetic is done on int64 tensors masked with ``0xFFFFFFFF``, so
 the same code runs on the CPU and on the card.  A key is an int64 tensor
@@ -118,3 +126,34 @@ def randint(keys: Tensor, shape: Sequence[int], minval: int,
     off = ((higher % span) * mult) & _M32
     off = ((off + lower % span) & _M32) % span
     return (int(minval) + off).to(torch.int32)
+
+
+def uniform(key: Tensor, shape: Sequence[int] = (), minval: float = 0.0,
+            maxval: float = 1.0) -> Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` for one
+    key (``(2,)``) or a batch (``(..., 2)``; output ``keys.shape[:-1] +
+    shape``), bit for bit."""
+    shape = tuple(int(s) for s in shape)
+    bits = _bits(key, shape)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # XLA contracts floats * (hi - lo) + lo into one fused multiply-add;
+    # the float64 product of two float32 values is exact, so the float64
+    # sum rounded to float32 reproduces it (tests/test_torch_prng.py holds
+    # it bit for bit)
+    span = (hi - lo).double()
+    scaled = (floats.double() * span + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def normal(key: Tensor, shape: Sequence[int] = ()) -> Tensor:
+    """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) *
+    erfinv(u)`` with u uniform over (nextafter(-1, 0), 1), as jax draws
+    it.  The uniforms are exact; the result differs from jax's by the two
+    erfinv implementations, a few ulp."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
+                                          device=key.device)

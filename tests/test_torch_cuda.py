@@ -195,3 +195,64 @@ def test_session_cuda_backend_matches_the_cpu_run(cuda_device):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(res.gaps, cpu.gaps, rtol=1e-4, atol=1e-5)
     assert torch.equal(res.next_key, cpu.next_key)
+
+
+def test_compression_on_the_card_matches_the_cpu(cuda_device):
+    """int8 codes, scales and roundtrips and top-k selections (ties
+    included) on the card equal the CPU's for the same tensors."""
+    from repro_torch.core import compression as comp
+    rng = np.random.default_rng(4)
+    tied = (rng.integers(0, 4, (8, 96)) * 0.5
+            * rng.choice([-1.0, 1.0], (8, 96))).astype(np.float32)
+    for x in (rng.standard_normal((128, 512)).astype(np.float32) * 1e-3,
+              rng.standard_normal((6, 45)).astype(np.float32), tied):
+        host = torch.from_numpy(x)
+        dev = host.to(cuda_device)
+        for a, b in zip(comp.quantize_int8(dev, keep_leading=1),
+                        comp.quantize_int8(host, keep_leading=1),
+                        strict=True):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(comp.int8_roundtrip(dev, 1).cpu(),
+                           comp.int8_roundtrip(host, 1))
+        for k in (1, 5, x.shape[1] // 4):
+            assert torch.equal(comp.topk_indices(dev, k).cpu(),
+                               comp.topk_indices(host, k))
+            assert torch.equal(comp.topk_roundtrip(dev, k).cpu(),
+                               comp.topk_roundtrip(host, k))
+
+
+def test_compressed_and_auto_planned_sessions_match_the_cpu(cuda_device):
+    """A top-k compressed session through the kernel on the card against
+    the plain path on the CPU (state threaded across root rounds), and
+    the C pilot of an auto-planned schedule run on the card."""
+    from repro_torch.api import Schedule
+    topo = Topology.two_level(2, 2, 32, root_rounds=4, group_rounds=3,
+                              local_steps=16, t_lp=1e-6, root_delay=5e-2,
+                              group_delay=1e-4)
+    rng = np.random.default_rng(10)
+    X = rng.standard_normal((topo.m_total, 24)).astype(np.float32)
+    y = rng.standard_normal(topo.m_total).astype(np.float32)
+    sched = Schedule(rounds=4, compression=["topk_0.25", "topk_0.5"])
+    before = kernel.LAUNCHES
+    sess = Session.compile(Problem(X, y, lam=0.1), topo, sched,
+                           backend="cuda", device=cuda_device)
+    res = sess.run(key=prng.PRNGKey(5))
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES - before == int(sess.executor.solves.sum()) * 4
+    cpu = Session.compile(Problem(X, y, lam=0.1), topo, sched,
+                          backend="torch", device="cpu").run(
+        key=prng.PRNGKey(5))
+    np.testing.assert_allclose(res.alpha.cpu().numpy(), cpu.alpha.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(res.w.cpu().numpy(), cpu.w.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    auto = Schedule.auto(t_total=0.5, C="auto", compression="auto",
+                         pilot_rounds=4)
+    on_card = Session.compile(Problem(X, y, lam=0.1), topo, auto,
+                              backend="cuda", device=cuda_device)
+    on_cpu = Session.compile(Problem(X, y, lam=0.1), topo, auto,
+                             backend="torch", device="cpu")
+    assert on_card.fitted_C == pytest.approx(on_cpu.fitted_C, rel=1e-3)
+    assert [r["H"] for r in on_card.level_plan] == \
+        [r["H"] for r in on_cpu.level_plan]
+    assert on_card.resolved.compression == on_cpu.resolved.compression

@@ -93,12 +93,49 @@ def test_runtime_masks_match():
                                       jplan.steps_for_h(a, h))
 
 
-def test_compression_is_refused_until_ported():
-    tree = to_port(CASES["star"]())
-    assert not tplan.compile_tree(tree, compression="none").has_compression
-    with pytest.raises(NotImplementedError):
-        tplan.compile_tree(tree, compression="int8")
+def _compressed_variants(tree):
+    """(tree, compression) pairs: level defaults (one spec, a per-depth
+    list with a gap), and per-edge up_compress overrides beating them."""
+    D = tree.depth()
+    first = tree.children[0]
     edge = dataclasses.replace(tree, children=(dataclasses.replace(
-        tree.children[0], up_compress="topk"),) + tree.children[1:])
-    with pytest.raises(NotImplementedError):
-        tplan.compile_tree(edge)
+        first, up_compress="topk_0.2"),) + tree.children[1:])
+    yield tree, "int8"
+    yield tree, "topk_0.25"
+    yield tree, ["topk_0.5"] + [None] * (D - 1)
+    yield tree, ["int8"] * (D - 1) + ["topk"]
+    yield edge, None
+    yield edge, "int8"
+
+
+def test_compression_is_refused_until_ported():
+    """Compressed plans are no longer refused (the test keeps its name):
+    on every engine tree, level defaults, per-depth lists and per-edge
+    up_compress overrides give the reference's compress_kind /
+    compress_frac, fingerprint and plan_bytes_per_round, and "none" is
+    the uncompressed plan."""
+    for case in sorted(CASES):
+        tree = CASES[case]()
+        plain = tplan.compile_tree(to_port(tree))
+        none = tplan.compile_tree(to_port(tree), compression="none")
+        assert not none.has_compression
+        assert none.fingerprint == plain.fingerprint
+        for variant, comp in _compressed_variants(tree):
+            a = jplan.compile_tree(variant, compression=comp)
+            b = tplan.compile_tree(to_port(variant), compression=comp)
+            assert a.has_compression and b.has_compression
+            for name in ("compress_kind", "compress_frac"):
+                x, y = getattr(a, name), getattr(b, name)
+                assert x.dtype == y.dtype, name
+                np.testing.assert_array_equal(y, x, err_msg=name)
+            assert b.fingerprint == a.fingerprint != plain.fingerprint
+            for d in (24, 33, 512):
+                assert tplan.plan_bytes_per_round(b, d) == \
+                    jplan.plan_bytes_per_round(a, d)
+                assert tplan.plan_bytes_per_round(b, d, dtype_bytes=2) == \
+                    jplan.plan_bytes_per_round(a, d, dtype_bytes=2)
+        with pytest.raises(ValueError, match="internal depths"):
+            tplan.compile_tree(to_port(tree),
+                               compression=["int8"] * (tree.depth() + 1))
+        with pytest.raises(ValueError):
+            tplan.compile_tree(to_port(tree), compression="gzip")

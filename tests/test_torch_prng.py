@@ -65,3 +65,42 @@ def test_chained_split_replays_the_legacy_chain():
         sj, st = jax.random.split(kj, 5), prng.split(kt, 5)
         np.testing.assert_array_equal(st.numpy(), _np(sj))
         kj, kt = sj[0], st[0]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 11, 17, 2**31 - 1])
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((5,), 0.0, 1.0), ((1000,), 0.0, 1.0), ((37, 13), -2.5, 3.0),
+    ((4096,), float(np.nextafter(np.float32(-1), np.float32(0))), 1.0)])
+def test_uniform_matches_jax_bitwise(seed, shape, lo, hi):
+    got = prng.uniform(prng.PRNGKey(seed), shape, lo, hi).numpy()
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape,
+                                         minval=lo, maxval=hi))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def normal_tolerance(z: np.ndarray) -> np.ndarray:
+    """The normals' tolerance: 4 float32 ulp of the (exact) uniform u,
+    carried through d/du sqrt(2) erfinv(u) = sqrt(pi/2) exp(z^2 / 2),
+    plus 4 ulp of z.  torch.erfinv and XLA's erfinv are different
+    polynomials; in the tails erfinv's own conditioning sets the error."""
+    z = np.abs(z.astype(np.float64))
+    return 4.0 * (2.0 ** -24 * np.sqrt(np.pi / 2) * np.exp(z * z / 2)
+                  + np.spacing(z.astype(np.float32)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 11, 17, 123])
+@pytest.mark.parametrize("shape", [(5,), (4000,), (37, 13)])
+def test_normal_matches_jax_within_erfinv_ulps(seed, shape):
+    got = prng.normal(prng.PRNGKey(seed), shape).numpy()
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    assert got.dtype == want.dtype == np.float32 and got.shape == shape
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= normal_tolerance(want)).all(), err.max()
+
+
+def test_batched_uniform_is_one_draw_per_key():
+    keys = jax.random.split(jax.random.PRNGKey(3), 4)
+    want = np.stack([np.asarray(jax.random.uniform(k, (9,))) for k in keys])
+    got = prng.uniform(prng.as_key(np.asarray(keys)), (9,)).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -216,18 +216,20 @@ def test_topology_json_round_trips_with_the_reference():
 
 
 def test_unported_options_raise():
+    """What the port still refuses, each naming the module it waits for:
+    server momentum, the straggler-aware planner and the batched executor
+    flavor."""
+    from repro_torch.core.delay import StragglerModel
     topo = port_topology("star")
     X, y = data(topo.m_total)
-    with pytest.raises(NotImplementedError):
-        Schedule(rounds="auto")
-    with pytest.raises(NotImplementedError):
-        Schedule(compression="int8")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="method"):
         Schedule(acceleration=0.5)
+    with pytest.raises(NotImplementedError, match="straggler"):
+        Schedule.auto(t_total=1.0, straggler=StragglerModel())
     plan = tplan.compile_tree(topo.tree)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="sweep"):
         thost.get_host_executor(plan, loss=Problem(X, y).loss,
-                                device="cpu", carry_state=True)
+                                device="cpu", batched=True)
     with pytest.raises(ValueError):
         Session.compile(Problem(X[:-1], y[:-1]), topo, device="cpu")
     with pytest.raises(ValueError):
