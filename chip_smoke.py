@@ -48,6 +48,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      compressed run at 16 leaves x 1024 examples, d = 512, H = 1024
      agrees between backend="cuda" and backend="torch" within ROUTE_TOL
      plus the last messages' quanta;
+ 3c. batched sweeps on phase 3's problem under Schedule(rounds=5,
+     level_rounds=[2], local_steps=8192, h_cap=8192): Session.sweep(lams=
+     [1e-3, 3e-4, 1e-4, 3e-5], seeds=[0, 1]) (B = 8), then a local_hs=
+     [2048, 8192] sweep at lambda = 1e-4.  The launch and leaf counts are
+     zeroed before and read after each sweep: exactly one sdca_block launch
+     per solve tick, each of B x 128 leaves.  Every member must equal its
+     standalone Session.run(lam=, key=, local_h=) (torch.equal on alpha and
+     w), its gap must fall and its w match X^T alpha / (lambda m) within
+     1e-3 of the max.  Prints the seconds per root round of each sweep and
+     of the standalone runs, the peak memory, one root round of the
+     8-config sweep under torch.profiler, and the batched launch on
+     the 8-config sweep's first tick: every config torch.equal to its
+     one-config launch, config 0 held against the plain version, its ms
+     (CUDA events) and its bound;
+ 3d. stragglers and acceleration.  Phase 3b's 16 x 8 tree and delays under
+     Schedule.auto(t_total=60.0, C=<phase 3b's fitted C>,
+     straggler=StragglerModel(slow_prob=0.1, slow_factor=20.0),
+     h_max=8192) (the joint (H, skip) planner runs on the host), run 6
+     root rounds with Session.straggler_policy(seed=0): some chunk drops a
+     leaf, the last keeps all 128, the simulated async time is at most the
+     synchronous one, the gap falls and w matches X^T alpha / (lambda m)
+     within 1e-3; an always-participate policy (slow_prob=0) equals the
+     synchronous run (torch.equal).  Then Schedule(rounds=5,
+     level_rounds=[2], local_steps=8192, acceleration=0.5) on phase 3's
+     problem: run(acceleration=0.0) equals phase 3's run (torch.equal),
+     and the 0.5 run's gaps are printed and checked.  One launch per solve
+     tick in each run;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
      the kernel's bound from that tick's inputs; time it for every loss at
@@ -86,9 +113,11 @@ Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
 serving path's prefill seconds, decode tokens/s and peak memory, the
 script's own seconds, then one JSON line describing each kernel (the
-sdca_block row's launches are phase 3's run; its launches_by_path also
-gives phase 3b's pilot and run) and, last, the device line.  Needs one
-CUDA device; exits non-zero without one.
+sdca_block row's launches are phase 3's run; its launches_by_path gives
+every path's launches and leaves per launch -- phase 3b's pilot and run,
+3c's two sweeps, 3d's straggler and accelerated runs -- and "batched" the
+batched launch's ms, bound and error) and, last, the device line.  Needs
+one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -493,7 +522,284 @@ def compressed_path(problem, dev, card: str) -> dict:
                                  f"{label}: {err} > {allow}")
         worst = max(worst, err)
     return {"pilot_launches": pilot_launches, "launches": launches,
-            "route_err": worst}
+            "route_err": worst, "fitted_C": sess.fitted_C}
+
+
+def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
+    """Phase 3c: batched sweeps through Session.sweep on phase 3's problem
+    (see the module docstring; ``h`` is the leaves' H).  Returns each
+    sweep's launches and leaves per launch, and the batched launch's
+    timing, error and bound."""
+    import torch
+    from repro_torch.api import Schedule, Session
+    from repro_torch.core import dual
+    from repro_torch.core.engine import host as host_mod
+    from repro_torch.kernels.sdca import kernel, ref
+    rounds = 5
+    sched = Schedule(rounds=rounds, level_rounds=[2], local_steps=h,
+                     h_cap=h)
+    sess = Session.compile(problem, topo, sched, backend="cuda", device=dev)
+    n, solves = topo.n_leaves, int(sess.executor.solves.sum())
+    grids = {"sweep": dict(lams=[1e-3, 3e-4, 1e-4, 3e-5], seeds=[0, 1]),
+             "sweep_local_hs": dict(lams=[1e-4], local_hs=[h // 4, h])}
+    out, sets = {}, {}
+    for name, grid in grids.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.LAUNCHES = kernel.LEAVES = 0
+        t0 = time.perf_counter()
+        rs = sess.sweep(**grid)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+        peak = torch.cuda.max_memory_allocated()
+        B = len(rs)
+        print(f"sweep path: Session.sweep({', '.join(f'{k}={v}' for k, v in grid.items())}) "
+              f"on {topo.n_leaves} leaves, m={problem.m} d={problem.d}: "
+              f"B={B}, {launches} sdca_block launches for {solves * rounds} "
+              f"solve ticks, {leaves} leaves ({leaves // max(launches, 1)} "
+              f"a launch); {secs / rounds:.4f} s per root round for all "
+              f"{B} configs; peak device memory {peak / 2**30:.3f} GiB  "
+              f"[{card}]")
+        if launches != solves * rounds or leaves != launches * B * n:
+            raise AssertionError(f"{name}: {launches} launches of {leaves} "
+                                 f"leaves, expected {solves * rounds} of "
+                                 f"{B * n} leaves each")
+        single_s = []
+        for pt in rs.points:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = sess.run(key=pt.key(), lam=pt.lam, local_h=pt.local_h)
+            torch.cuda.synchronize()
+            single_s.append((time.perf_counter() - t0) / rounds)
+            mem = rs[pt.index]
+            if not (torch.equal(mem.alpha, single.alpha)
+                    and torch.equal(mem.w, single.w)):
+                raise AssertionError(f"{name} member {pt.to_dict()} differs "
+                                     f"from its standalone Session.run")
+            gaps = mem.gaps
+            if not (all(math.isfinite(g) for g in gaps)
+                    and gaps[-1] < gaps[0]):
+                raise AssertionError(f"{name} member {pt.to_dict()}: the "
+                                     f"gap did not fall: {list(gaps)}")
+            w_ref = dual.w_of_alpha(mem.alpha, problem.X, pt.lam)
+            w_err = float((mem.w - w_ref).abs().max())
+            w_scale = float(w_ref.abs().max())
+            print(f"sweep path: {name} {pt.to_dict()}: gaps "
+                  f"{gaps[0]:.6e} -> {gaps[-1]:.6e}, max|w - X^T "
+                  f"alpha/(lam m)| {w_err:.3e} of {w_scale:.3e}, torch.equal "
+                  f"to its standalone run")
+            if not w_err <= 1e-3 * w_scale:
+                raise AssertionError(f"{name}: w drifted from X^T alpha / "
+                                     f"(lam m)")
+        print(f"sweep path: {name}: standalone runs {single_s[0]:.4f} s per "
+              f"root round (first), {min(single_s):.4f} (fastest) against "
+              f"{secs / rounds:.4f} for the batch of {B}  [{card}]")
+        out[name] = {"launches": launches, "leaves_per_launch": leaves //
+                     launches, "s_per_round": secs / rounds,
+                     "single_s_per_round": min(single_s), "peak": peak}
+        sets[name] = rs
+
+    # one more root round of the 8-config sweep under the profiler (its
+    # launches come after the counts were read)
+    n0 = (kernel.LAUNCHES, kernel.LEAVES)
+    profile_window(lambda: sess.sweep(rounds=1, record_history=False,
+                                      **grids["sweep"]),
+                   "one root round of the 8-config sweep", card)
+    kernel.LAUNCHES, kernel.LEAVES = n0
+
+    # ---- the batched launch on the 8-config sweep's first tick ----------
+    rs = sets["sweep"]
+    ex, data = sess.executor, sess.data
+    B, K, m_b, d = len(rs), n, sess.plan.m_b, problem.d
+    keys = prng_first_tick(sess, rs)
+    idx = ex.draw_idx(keys.to(dev))
+    mk = torch.ones((B, K, sess.plan.h_max), device=dev)
+    a = torch.zeros((B, K * m_b), device=dev)
+    a[:, ex.flat_map] = rs.alphas
+    a = a.view(B, K, m_b)
+    w = rs.ws[:, None, :].expand(B, K, d).contiguous()
+    lms = [host_mod.regularizer_scale(pt.lam, problem.m) for pt in rs.points]
+    xsq = torch.stack([data.sqnorm / v for v in lms])
+    args = (data.Xb, data.yb, a, w, xsq, idx)
+    n0 = (kernel.LAUNCHES, kernel.LEAVES)
+    got = kernel.sdca_block_launch_batched(*args, loss=problem.loss, lms=lms,
+                                           step_mask=mk)
+    for b in range(B):
+        one = kernel.sdca_block_launch(
+            data.Xb, data.yb, a[b], w[b], xsq[b], idx[b], loss=problem.loss,
+            lm=lms[b], step_mask=mk[b])
+        if not (torch.equal(got[0][b], one[0])
+                and torch.equal(got[1][b], one[1])):
+            raise AssertionError(f"config {b} of the batched launch differs "
+                                 f"from its one-config launch")
+    t0 = time.perf_counter()
+    want = ref.sdca_steps_ref_batched(
+        data.Xb, data.yb, a[:1], w[:1], xsq[:1], idx[:1], loss=problem.loss,
+        lms=lms[:1], step_mask=mk[:1])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err((got[0][:1], got[1][:1]), want)
+    ms = time_ms(lambda: kernel.sdca_block_launch_batched(
+        *args, loss=problem.loss, lms=lms, step_mask=mk), 3)
+    kernel.LAUNCHES, kernel.LEAVES = n0
+    H = idx.shape[2]
+    # the least work: each distinct sampled row of a leaf (over all
+    # configs) read once, y once, each config's vectors read and written
+    # once; 4 flops per row element per step
+    rows = sum(int(torch.unique(idx[:, k]).numel()) for k in range(K))
+    nbytes = rows * d * 4 + K * m_b * 4 + B * K * (3 * m_b + 2 * d) * 4 + \
+        B * K * H * 8
+    flops = 4 * B * K * H * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    print(f"sdca_block batched launch, the 8-config sweep's first tick (B={B} "
+          f"K={K} m_b={m_b} d={d} H={H}, {B * K} blocks): kernel {ms:.4f} "
+          f"ms/launch ({ms / B:.4f} ms a config), every config torch.equal "
+          f"to its one-config launch, config 0 against the plain version "
+          f"max_abs_err {err:.3e} (plain {plain_ms:.1f} ms for that one "
+          f"config), bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, "
+          f"{flops} flop)  [{card}]")
+    out["batched"] = {"B": B, "ms": ms, "max_abs_err": err,
+                      "bound_ms": max(t_bytes, t_ops)}
+    return out
+
+
+def prng_first_tick(sess, rs):
+    """The (B, n, 2) keys of the first solve tick of each sweep member."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.engine import plan as plan_mod
+    return torch.stack([prng.as_key(plan_mod.chunked_key_plan(
+        sess.resolved.chunk_tree, sess.plan, pt.key(), 1))[0, 0]
+        for pt in rs.points])
+
+
+def straggler_accel_path(problem, topo, plain_run, fitted_C, dev, card,
+                         h: int = 8192) -> dict:
+    """Phase 3d: a straggler-planned session on phase 3b's 16 x 8 tree and
+    an accelerated session on phase 3's tree (see the module docstring;
+    ``h`` is the leaves' H and their examples).  Returns the launches of
+    each run."""
+    import torch
+    from repro_torch.api import Schedule, Session, Topology
+    from repro_torch.core import dual, prng
+    from repro_torch.core.delay import StragglerModel
+    from repro_torch.kernels.sdca import kernel
+    from repro_torch.runtime.straggler import StragglerPolicy
+    out = {}
+    model = StragglerModel(slow_prob=0.1, slow_factor=20.0)
+    topo_s = Topology.two_level(16, 8, h, t_lp=1e-6, group_delay=1e-4,
+                                root_delay=5e-2)
+    sched = Schedule.auto(t_total=60.0, C=fitted_C, straggler=model,
+                          h_max=h)
+    t0 = time.perf_counter()
+    sess = Session.compile(problem, topo_s, sched, backend="cuda",
+                           device=dev)
+    plan_s = time.perf_counter() - t0
+    r = sess.resolved
+    print(f"straggler path: Topology.two_level(16, 8, {h}, t_lp=1e-6, "
+          f"group_delay=1e-4, root_delay=5e-2), Schedule.auto(t_total=60.0, "
+          f"C={fitted_C!r}, straggler={model}, h_max={h}): planned in "
+          f"{plan_s:.2f} s (host), skip={r.skip}, level plan "
+          f"{r.level_plan}, {r.rounds} root rounds in 60 s")
+    n, solves, rounds = topo_s.n_leaves, int(sess.executor.solves.sum()), 6
+    pol = sess.straggler_policy(seed=0)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    t0 = time.perf_counter()
+    res = sess.run(rounds=rounds, key=prng.PRNGKey(0), straggler=pol)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    parts = [h["participants"] for h in res.history[1:]]
+    last = res.history[-1]
+    w_ref = dual.w_of_alpha(res.alpha, problem.X, problem.lam)
+    w_err = float((res.w - w_ref).abs().max())
+    w_scale = float(w_ref.abs().max())
+    print(f"straggler path: {rounds} root rounds, participants per chunk "
+          f"{parts}, simulated time {last['time']!r} s against "
+          f"{last['time_sync']!r} s synchronous, gaps "
+          f"{[f'{g:.6e}' for g in res.gaps]}, max|w - X^T alpha/(lam m)| "
+          f"{w_err:.3e} of {w_scale:.3e}; {launches} launches of "
+          f"{leaves // max(launches, 1)} leaves for {solves * rounds} solve "
+          f"ticks; {secs / rounds:.4f} s per root round  [{card}]")
+    if launches != solves * rounds or leaves != launches * n:
+        raise AssertionError(f"straggler run: {launches} launches of "
+                             f"{leaves} leaves for {solves * rounds} ticks")
+    if not (min(parts) < n and parts[-1] == n):
+        raise AssertionError(f"straggler run dropped no leaf or ended "
+                             f"without a full barrier: {parts}")
+    if not last["time"] <= last["time_sync"]:
+        raise AssertionError("simulated async time exceeds the sync time")
+    gaps = res.gaps
+    if not (all(math.isfinite(g) for g in gaps) and gaps[-1] < gaps[0]):
+        raise AssertionError(f"straggler run: the gap did not fall: {gaps}")
+    if not w_err <= 1e-3 * w_scale:
+        raise AssertionError("straggler run: w drifted from X^T alpha / "
+                             "(lam m)")
+    out["straggler"] = {"launches": launches, "leaves_per_launch":
+                        leaves // launches}
+    n0 = (kernel.LAUNCHES, kernel.LEAVES)
+    calm = StragglerPolicy(model=StragglerModel(slow_prob=0.0,
+                                                slow_factor=20.0),
+                           max_consecutive=int(r.skip), seed=0)
+    res_calm = sess.run(rounds=rounds, key=prng.PRNGKey(0), straggler=calm)
+    sync = sess.run(rounds=rounds, key=prng.PRNGKey(0))
+    kernel.LAUNCHES, kernel.LEAVES = n0
+    calm_parts = [h["participants"] for h in res_calm.history[1:]]
+    if not (calm_parts == [n] * rounds
+            and torch.equal(res_calm.alpha, sync.alpha)
+            and torch.equal(res_calm.w, sync.w)):
+        raise AssertionError(f"the always-participate policy differs from "
+                             f"the synchronous run (participants "
+                             f"{calm_parts})")
+    print(f"straggler path: an always-participate policy (slow_prob=0) kept "
+          f"all {n} leaves in every chunk and equals the synchronous run "
+          f"(torch.equal); sync gaps {[f'{g:.6e}' for g in sync.gaps]}")
+
+    # ---- acceleration on phase 3's tree ---------------------------------
+    acc_sched = Schedule(rounds=5, level_rounds=[2], local_steps=h,
+                         acceleration=0.5)
+    acc = Session.compile(problem, topo, acc_sched, backend="cuda",
+                          device=dev)
+    solves = int(acc.executor.solves.sum())
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    r0 = acc.run(key=prng.PRNGKey(0), acceleration=0.0)
+    t0 = time.perf_counter()
+    r5 = acc.run(key=prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    if not (torch.equal(r0.alpha, plain_run.alpha)
+            and torch.equal(r0.w, plain_run.w)):
+        raise AssertionError("run(acceleration=0.0) differs from the plain "
+                             "session's run")
+    if launches != 2 * 5 * solves or leaves != launches * topo.n_leaves:
+        raise AssertionError(f"accelerated runs: {launches} launches of "
+                             f"{leaves} leaves for {2 * 5 * solves} ticks")
+    w_ref = dual.w_of_alpha(r5.alpha, problem.X, problem.lam)
+    w_err = float((r5.w - w_ref).abs().max())
+    w_scale = float(w_ref.abs().max())
+    gaps = r5.gaps
+    print(f"accelerated path: Schedule(rounds=5, level_rounds=[2], "
+          f"local_steps={h}, acceleration=0.5) on phase 3's problem: "
+          f"run(acceleration=0.0) equals the plain run (torch.equal), gap "
+          f"after 5 rounds {r0.gaps[-1]:.6e}; acceleration 0.5: gaps "
+          f"{[f'{g:.6e}' for g in gaps]}, max|w - X^T alpha/(lam m)| "
+          f"{w_err:.3e} of {w_scale:.3e}; {launches} launches of "
+          f"{leaves // launches} leaves; {secs / 5:.4f} s per root round  "
+          f"[{card}]")
+    if not (all(math.isfinite(g) for g in gaps) and gaps[-1] < gaps[0]):
+        raise AssertionError(f"accelerated run: the gap did not fall: {gaps}")
+    if not w_err <= 1e-3 * w_scale:
+        raise AssertionError("accelerated run: w drifted from X^T alpha / "
+                             "(lam m)")
+    out["accelerated"] = {"launches": launches, "leaves_per_launch":
+                          leaves // launches}
+    return out
 
 
 def check_flash(dev) -> float:
@@ -936,6 +1242,11 @@ def main() -> int:
     # ---- 3b. the compressed, delay-planned main path --------------------
     compressed = compressed_path(problem, dev, card)
 
+    # ---- 3c. batched sweeps; 3d. stragglers and acceleration ------------
+    swept = sweep_path(problem, topo, dev, card)
+    strag = straggler_accel_path(problem, topo, res, compressed["fitted_C"],
+                                 dev, card)
+
     # ---- 4. the kernel on one of the main path's ticks -----------------------
     ex, data = sess.executor, sess.data
     K, m_b = sess.plan.n_leaves, sess.plan.m_b
@@ -1020,11 +1331,18 @@ def main() -> int:
         "source": "src/repro_torch/kernels/sdca/csrc/sdca_block.cu",
         "replaces": "src/repro/kernels/sdca/kernel.py:79",
         "launches": launches,
-        "launches_by_path": {"main": launches,
-                             "compressed_pilot":
-                                 compressed["pilot_launches"],
-                             "compressed_run": compressed["launches"]},
-        "max_abs_err": worst,
+        "launches_by_path": {
+            "main": {"launches": launches, "leaves_per_launch": K},
+            "compressed_pilot": {"launches": compressed["pilot_launches"],
+                                 "leaves_per_launch": K},
+            "compressed_run": {"launches": compressed["launches"],
+                               "leaves_per_launch": K},
+            **{name: {k: swept[name][k]
+                      for k in ("launches", "leaves_per_launch")}
+               for name in ("sweep", "sweep_local_hs")},
+            **strag},
+        "batched": swept["batched"],
+        "max_abs_err": max(worst, swept["batched"]["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

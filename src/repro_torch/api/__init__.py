@@ -13,15 +13,26 @@ The same objects as the JAX package's ``repro.api``, with ``backend=``
 ``"cuda"`` (the hand-written leaf kernel) or ``"torch"`` (its plain
 version) and an explicit ``device=``; ``Schedule(rounds="auto",
 delay=DelayModel(...))`` / ``Schedule.auto`` plan H by the paper's eq.
-(12), and ``compression=`` ships compressed deltas with error feedback.
-Sweeps, stragglers, checkpoints and LM training are not ported yet (see
-ROADMAP).
+(12), and ``compression=`` ships compressed deltas with error feedback;
+``Schedule(acceleration=)`` adds server momentum.  Grids are first-class:
+``Session.sweep`` / :func:`sweep` run a :class:`Sweep` over (lambda, seed,
+schedule, local-H) axes through one batched executor (one kernel launch
+per solve tick for all configs) and return a :class:`RunSet`::
+
+    rs = sess.sweep(lams=[1e-3, 1e-4], seeds=[0, 1])
+    rs.best().w
+
+``Session.run(straggler=StragglerPolicy(...))`` (``runtime/
+straggler.py``, with ``core/delay.py::StragglerModel``) runs the paper's
+straggler-adaptive async rounds.  Checkpoints and the elastic runtime,
+the mesh backend and LM training are not ported yet (see ROADMAP).
 """
 from repro_torch.api.problem import Problem                   # noqa: F401
 from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401
 from repro_torch.api.session import Session, solve            # noqa: F401
+from repro_torch.api.sweep import RunSet, Sweep, sweep        # noqa: F401
 from repro_torch.api.topology import Topology                 # noqa: F401
 from repro_torch.core.instrument import SolveResult           # noqa: F401
 
 __all__ = ["Problem", "Topology", "Schedule", "DelayModel", "Session",
-           "SolveResult", "solve"]
+           "SolveResult", "Sweep", "RunSet", "solve", "sweep"]

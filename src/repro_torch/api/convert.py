@@ -56,18 +56,31 @@ def to_reference(res: SolveResult) -> dict:
 def exec_state_from_reference(carry, device="cuda") -> ExecState:
     """The port's executor state from a reference ``StateExecutor`` carry
     as numpy arrays (``jax.tree.map(np.asarray, state)``): ``(a (n, m_b),
-    w (n, d), snapA (D, n, m_b), snapW (D, n, d), srvW (D, n, d)[,
-    residuals])``, the residuals one (n, d) array per compressed depth."""
+    w (n, d), snapA (D, n, m_b), snapW (D, n, d), srvW (D, n, d)[, srvP
+    (D, n, d), srvA (D, n, m_b)][, residuals])`` -- the momentum anchors
+    of an accelerated executor, the residuals one (n, d) array per
+    compressed depth.  A batched executor's carry (a leading config axis
+    B on every array: ``a`` (B, n, m_b), ``snapA`` (B, D, n, m_b), ...)
+    gives the batched state."""
     a, w, snapA, snapW, srvW = (np.array(c) for c in carry[:5])
-    res = tuple(carry[5]) if len(carry) > 5 else ()
+    rest = list(carry[5:])
+    anchors = ((), ())
+    if len(rest) >= 2 and not isinstance(rest[0], (tuple, list)):
+        anchors, rest = (np.array(rest[0]), np.array(rest[1])), rest[2:]
+    res = tuple(rest[0]) if rest else ()
+    batched = a.ndim == 3
 
     def t(x):
         return torch.as_tensor(np.array(x), device=device)
 
     def per_depth(x):
+        if isinstance(x, tuple):
+            return x
+        x = np.moveaxis(x, 1, 0) if batched else x   # depth first
         return tuple(t(x[d]) for d in range(x.shape[0]))
     return ExecState(t(a), t(w), per_depth(snapA), per_depth(snapW),
-                     per_depth(srvW), tuple(t(r) for r in res))
+                     per_depth(srvW), tuple(t(r) for r in res),
+                     per_depth(anchors[0]), per_depth(anchors[1]))
 
 
 def problem_from_numpy(X, y, loss="squared", lam: float = 0.1,

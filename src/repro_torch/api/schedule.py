@@ -19,15 +19,18 @@ simulated-time budget.
 * ``compression=`` compresses the up-link syncs (one spec, a per-depth
   list, or ``"auto"`` under ``rounds="auto"``, where the eq.-(12)
   machinery picks per level), and the simulated clocks charge the
-  compressed link delays.
+  compressed link delays;
+* ``DelayModel(straggler=StragglerModel(...))`` makes ``rounds="auto"``
+  plan H jointly with the ``BoundedSkip`` threshold over the topology's
+  per-leaf delays (``core/delay.py::optimal_h_bounded_skip``); the
+  threshold is ``resolved.skip`` and ``Session.straggler_policy()``
+  builds the policy that runs it;
+* ``acceleration=`` selects the accelerated ``sdca_acc`` method (server
+  momentum, the coefficient a runtime scalar of the executor).
 
-The JAX package's ``api/schedule.py``, with two knobs refused with
-``NotImplementedError`` until their modules are ported:
-``DelayModel(straggler=)`` (the bounded-skip planner replays
-``runtime/straggler.py``) and ``acceleration=`` (the ``sdca_acc`` method
-of ``core/engine/method.py``).  ``resolved.ckpt_every`` is computed; the
-``CheckpointPolicy`` that executes it belongs to the elastic runtime,
-not ported yet.
+The JAX package's ``api/schedule.py``.  ``resolved.ckpt_every`` is
+computed; the ``CheckpointPolicy`` that executes it belongs to the
+elastic runtime, not ported yet (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -60,9 +63,13 @@ class DelayModel:
     per-round gap contractions (``core/delay.py::fit_C``), and plans with
     the fitted value (inspectable as ``session.fitted_C``).
 
-    ``straggler`` (the straggler-aware joint (H, skip) planner) is not
-    ported yet: it needs ``runtime/straggler.py``, and a DelayModel that
-    carries one raises ``NotImplementedError``.
+    ``straggler`` (a ``core/delay.py::StragglerModel``) switches the
+    planner to the straggler-aware variant: the innermost level's H is
+    optimized jointly with the bounded-skip threshold (``0..skip_max``)
+    over the topology's per-leaf sync delays
+    (``core/delay.py::optimal_h_bounded_skip``) -- dropping stragglers
+    shrinks the effective barrier delay but dilutes eq. (11)'s per-round
+    improvement by the participation fraction.
 
     ``mtbf`` (mean time between failures, simulated seconds) together
     with ``ckpt_write`` (the cost of one checkpoint write) makes the
@@ -83,11 +90,6 @@ class DelayModel:
     mtbf: Optional[float] = None
 
     def __post_init__(self):
-        if self.straggler is not None:
-            raise NotImplementedError(
-                "DelayModel(straggler=) plans with the bounded-skip "
-                "simulation of runtime/straggler.py, which is not ported "
-                "yet (ROADMAP A4)")
         if isinstance(self.C, str) and self.C != "auto":
             raise ValueError(
                 f"C must be a float or the string 'auto', got {self.C!r}")
@@ -117,9 +119,9 @@ class ResolvedSchedule:
     ``runtime_h`` (set iff the schedule declared an ``h_cap``) is the
     per-leaf local-H the session should EXECUTE at runtime via step masks;
     the ``chunk_tree`` leaves then carry the (larger) compiled H capacity.
-    ``skip`` / ``straggler_model`` would carry the straggler-aware
-    planner's bounded-skip threshold; both stay ``None`` until that
-    planner is ported.
+    ``skip`` / ``straggler_model`` carry the straggler-aware planner's
+    jointly optimized bounded-skip threshold (``rounds="auto"`` with
+    ``DelayModel(straggler=...)``).
 
     ``compression`` is the resolved TOP-DOWN per-depth edge-compression
     spec tuple (entry ``d`` compresses the up-links into depth-``d``
@@ -286,10 +288,13 @@ class Schedule:
       compress, fast ones stay exact).  The resolved specs ride on
       ``ResolvedSchedule.compression`` into plan compilation, and the
       simulated clocks charge the compressed link delays.
-    * ``acceleration``: the reference's server-momentum coefficient; not
-      ported yet (it needs the ``sdca_acc`` method of
-      ``core/engine/method.py``), so anything but ``None`` raises
-      ``NotImplementedError``.
+    * ``acceleration``: Nesterov-style momentum coefficient on the server
+      combine (Ma et al., arXiv 1711.05305) in ``[0, 1]``.  ``None``
+      (default) runs the plain ``"sdca"`` method; any float -- ``0.0``
+      included, which is bit-identical to plain -- selects
+      ``get_method("sdca_acc")``, with the coefficient a runtime scalar
+      of the executor.  ``rounds="auto"`` plans under the accelerated
+      per-round factor.
     """
     rounds: Union[int, str, None] = None
     local_steps: Union[int, Sequence[int], Dict[str, int], None] = None
@@ -301,10 +306,11 @@ class Schedule:
     acceleration: Optional[float] = None
 
     def __post_init__(self):
-        if self.acceleration is not None:
-            raise NotImplementedError(
-                "accelerated server momentum needs the sdca_acc method of "
-                "core/engine/method.py, which is not ported yet (ROADMAP A5)")
+        if self.acceleration is not None \
+                and not 0.0 <= float(self.acceleration) <= 1.0:
+            raise ValueError(
+                f"acceleration must be in [0, 1] (0 = plain SDCA, 1 = full "
+                f"Nesterov rate); got {self.acceleration}")
 
     @classmethod
     def auto(cls, t_total: float, *, C: Union[float, str] = 0.5,
@@ -317,10 +323,12 @@ class Schedule:
              acceleration: Optional[float] = None) -> "Schedule":
         """Shorthand for ``Schedule(rounds="auto", delay=DelayModel(...))``
         (``C="auto"`` calibrates C from a pilot run at compile time;
-        ``h_cap=`` keeps the planned H a runtime input;
+        ``straggler=`` switches to the straggler-aware joint (H, skip)
+        planner; ``h_cap=`` keeps the planned H a runtime input so
+        adaptive sessions can replan it;
         ``compression="auto"`` lets the same eq.-(12) machinery choose
-        per-level delta compression; ``straggler=`` and ``acceleration=``
-        are not ported yet and raise)."""
+        per-level delta compression; ``acceleration=`` runs and plans the
+        accelerated server-momentum flavor)."""
         return cls(rounds="auto", weighting=weighting, h_cap=h_cap,
                    compression=compression, acceleration=acceleration,
                    delay=DelayModel(t_total=t_total, C=C, delta=delta,

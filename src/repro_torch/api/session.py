@@ -10,35 +10,53 @@ lays it out in the executor's blocked form and builds the executor.
     pair) that reproduce one longer run bit for bit when continued with
     the returned ``next_key``, the history's round/time axes continuing
     where the previous run stopped;
-  * streamed history (``on_round=`` fires after every recorded round).
+  * streamed history (``on_round=`` fires after every recorded round);
+  * straggler-adaptive async execution (``straggler=`` a
+    ``runtime/straggler.py::StragglerPolicy``): per chunk, sampled per-leaf
+    link delays decide which leaves the barrier drops; dropped leaves keep
+    solving on stale snapshots and re-join later (participation masks),
+    and the history records the simulated async wall-clock next to the
+    synchronous one;
+  * server momentum (``Schedule(acceleration=)``, the ``sdca_acc``
+    method; ``run(acceleration=)`` overrides the coefficient per run);
+  * sweeps (:meth:`Session.sweep`, ``api/sweep.py``): a lambda x seed x
+    local-H grid through one batched executor, one kernel launch per
+    solve tick for every config.
 
 A run threads the executor's full state (``init`` once, ``step`` per
 root round, ``finalize`` where it records): compressed plans carry their
-error-feedback residuals across root rounds, and for an uncompressed
-plan, whose root sync refreshes every snapshot, the threaded state equals
-a restart from (alpha, w), so (alpha, w, RNG chain) is a complete carry
-between runs.  ``Schedule(rounds="auto")`` plans the
+error-feedback residuals across root rounds, accelerated ones their
+momentum anchors, straggler runs their absent leaves' stale replicas; for
+an uncompressed plan, whose root sync refreshes every snapshot, the
+threaded state equals a restart from (alpha, w), so (alpha, w, RNG chain)
+is a complete carry between runs.  ``Schedule(rounds="auto")`` plans the
 per-level H with the paper's eq. (12) at compile time, and
 ``DelayModel(C="auto")`` first fits the improvement constant from a
 pilot run on the session's own backend and device.  Backends: ``"cuda"``
 (the ``sdca_block`` kernel, the default) and ``"torch"`` (its plain
-version).
+version).  History values are recorded as device scalars and pulled to
+the host in one transfer (:func:`materialize_history`) at stream points
+and at the end of a run.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.api.problem import Problem
-from repro_torch.api.schedule import ResolvedSchedule, Schedule
+from repro_torch.api.schedule import (ResolvedSchedule, Schedule,
+                                      leaf_h_spec, runtime_tree)
 from repro_torch.api.topology import Topology
 from repro_torch.core import dual as dual_mod
 from repro_torch.core import prng
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.delay import fit_C
 from repro_torch.core.engine import host as host_mod
 from repro_torch.core.engine import plan as plan_mod
+from repro_torch.core.engine.method import get_method
 from repro_torch.core.instrument import SolveResult, record_round
 
 Tensor = torch.Tensor
@@ -47,10 +65,26 @@ BACKENDS = host_mod.BACKENDS
 
 
 def _objective(alpha: Tensor, X: Tensor, y: Tensor, loss, lam: float):
-    """(dual, primal) of ``alpha`` as host floats."""
+    """(dual, primal) of ``alpha`` as device scalars (no host sync)."""
     w = dual_mod.w_of_alpha(alpha, X, lam)
-    return (float(dual_mod.dual_value(alpha, X, y, loss, lam)),
-            float(dual_mod.primal_value(w, X, y, loss, lam)))
+    return (dual_mod.dual_value(alpha, X, y, loss, lam),
+            dual_mod.primal_value(w, X, y, loss, lam))
+
+
+def materialize_history(history) -> None:
+    """Pull a deferred history's objective values to the host in ONE
+    transfer: ``Session.run`` records device scalars and calls this at
+    stream points and at the end of a run; the sweep layer defers further
+    and materializes every member's history together."""
+    pending = [e for e in history if not isinstance(e["dual"], float)]
+    if not pending:
+        return
+    vals = torch.stack([torch.stack([e["dual"], e["primal"]])
+                        for e in pending]).tolist()
+    for e, (dv, pv) in zip(pending, vals, strict=True):
+        # the gap as a host float64 subtraction, as record_round takes it
+        e["dual"], e["primal"] = float(dv), float(pv)
+        e["gap"] = e["primal"] - e["dual"]
 
 
 class Session:
@@ -59,7 +93,8 @@ class Session:
 
     def __init__(self, problem: Problem, topology: Topology,
                  resolved: ResolvedSchedule, backend: str, plan,
-                 executor: host_mod.HostExecutor):
+                 executor: host_mod.HostExecutor,
+                 acceleration: Optional[float] = None):
         self.problem = problem
         self.topology = topology
         self.resolved = resolved
@@ -68,6 +103,9 @@ class Session:
         self.executor = executor
         self.device = problem.device
         self.fitted_C = None        # set when DelayModel(C="auto") calibrated
+        # None = the plain "sdca" method; a float (0.0 included) = the
+        # "sdca_acc" method with this default momentum coefficient
+        self.acceleration = acceleration
         # the problem in the executor's blocked layout (a view of X when
         # every leaf holds m_b rows)
         self.data = executor.prepare(problem.X, problem.y)
@@ -79,7 +117,8 @@ class Session:
         """Lower ``topology`` under ``schedule`` and bind the ``backend``
         executor on ``device``.  A ``rounds="auto"`` schedule whose
         DelayModel has ``C="auto"`` first runs the calibration pilot
-        (:func:`_calibrate_C`) on the same backend and device."""
+        (:func:`_calibrate_C`) on the same backend and device;
+        ``Schedule(acceleration=)`` binds the accelerated executor."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         schedule = schedule or Schedule()
@@ -96,13 +135,16 @@ class Session:
             schedule, fitted_C = _calibrate_C(problem, topology, schedule,
                                               backend)
         resolved = schedule.resolve(topology)
+        acceleration = schedule.acceleration
+        method = get_method("sdca_acc" if acceleration is not None
+                            else "sdca")
         plan = plan_mod.compile_tree(resolved.chunk_tree,
                                      weighting=resolved.weighting,
                                      compression=resolved.compression)
-        ex = host_mod.get_host_executor(plan, loss=problem.loss,
-                                        backend=backend,
-                                        device=problem.device)
-        sess = cls(problem, topology, resolved, backend, plan, ex)
+        ex = method.executor(plan=plan, loss=problem.loss, backend=backend,
+                             device=problem.device)
+        sess = cls(problem, topology, resolved, backend, plan, ex,
+                   acceleration=acceleration)
         sess.fitted_C = fitted_C
         return sess
 
@@ -136,8 +178,12 @@ class Session:
         record_history: bool = True,
         history_every: int = 1,
         on_round: Optional[Callable[[dict], None]] = None,
+        straggler=None,
         lam: Optional[float] = None,
         local_h=None,
+        acceleration: Optional[float] = None,
+        checkpoint=None,
+        _defer_history: bool = False,
     ) -> SolveResult:
         """Run ``rounds`` root rounds (default: the schedule's).
 
@@ -149,7 +195,31 @@ class Session:
         regularization for this run; a warm start from a result under
         another lambda rebuilds ``w = X^T alpha / (lam m)``.  ``local_h``
         (scalar or per-leaf) runs that many local steps through the step
-        mask, clamped to the compiled capacity (``Schedule(h_cap=)``)."""
+        mask, clamped to the compiled capacity (``Schedule(h_cap=)``).
+
+        ``straggler`` (a ``runtime/straggler.py::StragglerPolicy``)
+        switches the run to straggler-adaptive async execution: each
+        chunk, the policy samples per-leaf sync delays around the
+        topology's nominal ones and drops straggling leaves from the
+        barrier (bounded consecutive skips; dropped leaves keep solving on
+        stale snapshots and re-join with renormalized weights).  The
+        history's ``time`` accrues the simulated async wall-clock, with
+        the synchronous one in ``time_sync`` and the participant count in
+        ``participants``; the final chunk runs a full barrier, so the
+        returned iterates satisfy ``w = A alpha``, and an
+        always-participate policy gives the synchronous run bit for bit.
+        An ``adaptive=AdaptiveSchedule`` policy's replanned H feeds the
+        NEXT chunk's step mask (clamped to the compiled capacity), each
+        chunk's H recorded as ``"h"``.
+
+        ``acceleration`` overrides the momentum coefficient for this run
+        (sessions compiled with ``Schedule(acceleration=...)`` only; a
+        value in [0, 1], 0 giving plain SDCA bit for bit); accelerated
+        runs do not compose with ``straggler=`` or ``checkpoint=``.
+        ``checkpoint`` needs the elastic runtime, which is not ported yet
+        (ROADMAP A6).  ``_defer_history`` leaves the recorded objective
+        values as device scalars for the caller to pull in one batch
+        (:func:`materialize_history`; the sweep layer's path)."""
         T = self.resolved.rounds if rounds is None else int(rounds)
         if T < 0:
             raise ValueError(f"rounds must be >= 0, got {T}")
@@ -161,6 +231,45 @@ class Session:
         m, plan, dev = self.problem.m, self.plan, self.device
         lm = host_mod.regularizer_scale(lam, m)
 
+        accelerated = self.acceleration is not None
+        if acceleration is not None and not accelerated:
+            raise ValueError(
+                "this session runs the plain 'sdca' method; compile with "
+                "Schedule(acceleration=...) to bind the accelerated "
+                "executors (the coefficient itself is then a runtime "
+                "operand)")
+        acc_run = self.acceleration if acceleration is None \
+            else float(acceleration)
+        if accelerated and not 0.0 <= float(acc_run) <= 1.0:
+            raise ValueError(
+                f"acceleration must be in [0, 1], got {acc_run}")
+        if accelerated and straggler is not None:
+            raise ValueError(
+                "acceleration does not compose with straggler=: a skipped "
+                "sync leaves the momentum anchors extrapolating against "
+                "stale combination states, which breaks the paired "
+                "primal-dual consistency; run accelerated sessions "
+                "synchronously")
+        if accelerated and checkpoint is not None:
+            raise ValueError(
+                "acceleration does not compose with checkpoint=: the "
+                "per-depth momentum anchors are part of the chunk carry "
+                "but not of the flat (alpha, w, residuals) snapshot "
+                "payload, so a resumed run would diverge")
+        if checkpoint is not None:
+            if straggler is not None:
+                raise ValueError(
+                    "checkpoint= does not compose with straggler=: a "
+                    "mid-run blocked state under skipped syncs holds "
+                    "divergent per-leaf replicas and stale snapshots the "
+                    "flat chunk-carry payload cannot represent; checkpoint "
+                    "synchronous (or compressed) runs only")
+            raise NotImplementedError(
+                "run(checkpoint=) needs runtime/checkpoint.py and "
+                "runtime/fault.py (CheckpointPolicy), which are not ported "
+                "yet (ROADMAP A6)")
+        acc_args = (float(acc_run),) if accelerated else ()
+
         alpha, w, k = self._start_state(warm_start, key, lam)
         chunk_tree = self.resolved.chunk_tree
         K_root = len(chunk_tree.children)
@@ -171,23 +280,52 @@ class Session:
             t0_round = int(warm_start.history[-1]["round"])
             t0_time = float(warm_start.history[-1]["time"])
             record_initial = False
+        if straggler is not None:
+            t_compute = tree_mod.strip_delays(
+                runtime_tree(chunk_tree, h_run)).solve_time()
+            t_lp = max(leaf.t_lp for leaf in chunk_tree.leaves())
+            straggler.bind(self.topology.leaf_sync_delays(), t_compute,
+                           t_lp=t_lp)
 
         history: list = []
+        clock = {"async": t0_time, "sync": t0_time}
         ex = self.executor
         state = ex.init(X, alpha, w)
 
-        def record(t: int, a_flat: Tensor):
+        def record(t: int, a_flat: Tensor, extra: Optional[dict] = None):
             if not record_history:
                 return
             dv, pv = _objective(a_flat, X, y, loss, lam)
-            record_round(history, t0_round + t, t0_time + t * dt, dv, pv)
+            time = clock["async"] if straggler is not None else \
+                t0_time + t * dt
+            record_round(history, t0_round + t, time, dv, pv)
+            if extra:
+                history[-1].update(extra)
             if on_round is not None:
+                materialize_history(history)     # streaming needs floats
                 on_round(history[-1])
 
-        part = torch.as_tensor(plan_mod.full_participation(plan), device=dev)
-        steps = plan_mod.full_steps(plan) if h_run is None else \
-            plan_mod.steps_for_h(plan, h_run)
-        steps = torch.as_tensor(steps, device=dev)
+        part_ones = torch.as_tensor(plan_mod.full_participation(plan),
+                                    device=dev)
+
+        def steps_dev(h):
+            arr = plan_mod.full_steps(plan) if h is None else \
+                plan_mod.steps_for_h(plan, h)
+            return torch.as_tensor(arr, device=dev)
+
+        def h_effective(h):
+            """Per-leaf step counts a chunk actually runs (clamped to the
+            compiled capacity, per-slot specs reduced to their max)."""
+            if h is None:
+                return plan.leaf_h.astype(np.int64)
+            return np.minimum(leaf_h_spec(h, plan.n_leaves), plan.leaf_h)
+
+        steps_now = steps_dev(h_run)
+        h_eff_now = h_effective(h_run)
+        h_now = int(h_eff_now.max())
+        adaptive = straggler is not None and \
+            getattr(straggler, "adaptive", None) is not None
+        next_h = None
         # every round's keys from one walk of the equivalent monolithic
         # tree (the legacy chain), moved to the device once
         keys_all = prng.as_key(
@@ -195,14 +333,105 @@ class Session:
         if record_initial:
             record(0, alpha)
         for t in range(1, T + 1):
-            state = ex.step(self.data, keys_all[t - 1], state, part, steps,
-                            lm)
+            prt, extra = part_ones, None
+            # the last chunk's adaptive H suggestion feeds this chunk (a new
+            # step mask only), compared on the effective per-leaf counts,
+            # and the policy's compute clock is retimed to it
+            if next_h is not None:
+                eff_next = h_effective(next_h)
+                if not np.array_equal(eff_next, h_eff_now):
+                    h_eff_now = eff_next
+                    h_now = int(eff_next.max())
+                    steps_now = steps_dev(next_h)
+                    straggler.retime(tree_mod.strip_delays(
+                        runtime_tree(chunk_tree, next_h)).solve_time())
+                next_h = None
+            if straggler is not None:
+                st = straggler.step(final=(t == T))
+                prt = torch.as_tensor(
+                    plan_mod.chunk_participation(plan, st.mask), device=dev)
+                clock["async"] += st.dt_async
+                clock["sync"] += st.dt_sync
+                extra = {"time_sync": clock["sync"],
+                         "participants": int(st.mask.sum())}
+                if adaptive:
+                    extra["h"] = h_now
+                    if st.h_suggest is not None:
+                        next_h = int(min(max(st.h_suggest, 1), plan.h_max))
+            state = ex.step(self.data, keys_all[t - 1], state, prt,
+                            steps_now, lm, *acc_args)
             if record_history and (t % every == 0 or t == T):
-                record(t, ex.finalize(state)[0])
+                record(t, ex.finalize(state)[0], extra)
         alpha, w = ex.finalize(state)
         next_key = plan_mod.advance_root_key(k, T, K_root)
+        if not _defer_history:
+            materialize_history(history)
         return SolveResult(alpha=alpha, w=w, history=history,
                            next_key=next_key, lam=lam)
+
+    # ------------------------------------------------------------------
+    def straggler_policy(self, *, seed: int = 0, adaptive=None, **kw):
+        """The ``runtime/straggler.py::StragglerPolicy`` this session's
+        straggler-aware auto-schedule planned: the jointly optimized
+        ``BoundedSkip`` threshold (``resolved.skip``) with the
+        ``StragglerModel`` the planner was given.  Needs a schedule
+        compiled with ``DelayModel(straggler=...)``; other keyword
+        arguments go to the policy (``warmup=``, ``k_mad=``, ...)."""
+        from repro_torch.runtime.straggler import StragglerPolicy
+        r = self.resolved
+        if r.skip is None or r.straggler_model is None:
+            raise ValueError(
+                "this session's schedule was not planned with "
+                "DelayModel(straggler=StragglerModel(...)); construct a "
+                "StragglerPolicy explicitly instead")
+        return StragglerPolicy(model=r.straggler_model,
+                               max_consecutive=int(r.skip), seed=seed,
+                               adaptive=adaptive, **kw)
+
+    # ------------------------------------------------------------------
+    def sweep(
+        self,
+        spec=None,
+        *,
+        lams=None,
+        seeds=None,
+        schedules=None,
+        local_hs=None,
+        mode: str = "grid",
+        continuation: bool = False,
+        rounds: Optional[int] = None,
+        record_history: bool = True,
+        history_every: int = 1,
+        checkpoint=None,
+    ):
+        """Run a config grid through this session and return an
+        ``api/sweep.py::RunSet``.
+
+        Pass a ``Sweep`` as ``spec``, or build one inline from ``lams=`` /
+        ``seeds=`` / ``schedules=`` / ``local_hs=`` (``mode`` is
+        ``"grid"`` -- the cartesian product -- or ``"zip"``;
+        ``continuation=True`` warm-starts a regularization path over the
+        lambda axis, solved in descending-lambda order).  A (lambda x
+        local-H x seed) grid within one schedule runs through ONE batched
+        executor: one ``sdca_block`` launch per solve tick for all its
+        configs.  Each member equals the corresponding standalone
+        :meth:`run` bit for bit."""
+        from repro_torch.api.sweep import Sweep, run_sweep
+        if spec is None:
+            spec = Sweep(lams=lams, seeds=seeds, schedules=schedules,
+                         local_hs=local_hs, mode=mode,
+                         continuation=continuation)
+        elif (any(a is not None for a in (lams, seeds, schedules,
+                                          local_hs))
+              or mode != "grid" or continuation):
+            raise ValueError(
+                "pass either a Sweep spec or inline axes/options (lams=/"
+                "seeds=/schedules=/local_hs=/mode=/continuation=), not "
+                "both")
+        return run_sweep(self, spec, rounds=rounds,
+                         record_history=record_history,
+                         history_every=history_every,
+                         checkpoint=checkpoint)
 
     # ------------------------------------------------------------------
     def _start_state(self, warm_start, key, lam_run):
@@ -278,14 +507,16 @@ def solve(
     record_history: bool = True,
     history_every: int = 1,
     on_round: Optional[Callable[[dict], None]] = None,
+    straggler=None,
     lam: Optional[float] = None,
     local_h=None,
 ) -> SolveResult:
     """One-shot convenience: ``Session.compile(...).run(...)`` with the
-    whole ``run`` surface of this package."""
+    ``run`` surface of this package (``warm_start``, ``straggler`` and the
+    ``lam`` / ``local_h`` overrides)."""
     sess = Session.compile(problem, topology, schedule, backend=backend,
                            device=device)
     return sess.run(rounds, key=key, warm_start=warm_start,
                     record_history=record_history,
                     history_every=history_every, on_round=on_round,
-                    lam=lam, local_h=local_h)
+                    straggler=straggler, lam=lam, local_h=local_h)

@@ -10,11 +10,9 @@ All bound evaluations are done in log-space for numerical stability
 (H up to 1e6 and T up to 1e9 appear in the paper's sweeps).
 
 Pure numpy, the JAX package's ``core/delay.py`` function for function
-(this package keeps its own copy).  Not ported yet: the bounded-skip
-straggler pair (:func:`simulate_bounded_skip`,
-:func:`optimal_h_bounded_skip`), which replays ``runtime/straggler.py``'s
-decision classes; both raise ``NotImplementedError`` until that module is
-ported (ROADMAP A4).
+(this package keeps its own copy).  The bounded-skip straggler pair
+(:func:`simulate_bounded_skip`, :func:`optimal_h_bounded_skip`) replays
+``runtime/straggler.py``'s decision classes.
 """
 from __future__ import annotations
 
@@ -210,12 +208,43 @@ def simulate_bounded_skip(
     n_rounds: int = 512,
     seed: int = 0,
 ) -> Tuple[float, float]:
-    """Monte-carlo the bounded-skip barrier over sampled per-leaf delays
-    (the reference replays ``runtime/straggler.py``'s ``StepTimer`` and
-    ``BoundedSkip``).  Not ported yet: raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "the bounded-skip planner replays runtime/straggler.py's "
-        "StepTimer and BoundedSkip, which are not ported yet (ROADMAP A4)")
+    """Monte-carlo the bounded-skip barrier over sampled per-leaf delays.
+
+    Replays the ACTUAL runtime decision machinery of
+    ``runtime/straggler.py`` -- the fleet :class:`StepTimer` window
+    (median + ``k_mad`` MAD, ``rel_floor`` relative slowdown, ``warmup``
+    rounds before skips kick in) and one :class:`BoundedSkip` per leaf --
+    over delays drawn from ``model`` around ``base_delays``, so the
+    planner optimizes the same policy the session will execute.  Returns
+    ``(mean per-round barrier delay -- the max over PARTICIPATING leaves
+    --, mean participation fraction)``; ``max_consecutive=0`` never skips
+    and reproduces the synchronous barrier (mean max over ALL leaves)."""
+    # runtime decision classes; imported lazily (runtime.straggler imports
+    # this module for its model/planner types)
+    from repro_torch.runtime.straggler import BoundedSkip, StepTimer
+    base = np.atleast_1d(np.asarray(base_delays, np.float64))
+    n = base.size
+    rng = np.random.default_rng(seed)
+    timer = StepTimer()
+    skips = [BoundedSkip(max_consecutive=max_consecutive)
+             for _ in range(n)]
+    delay_sum = 0.0
+    part_sum = 0
+    for r in range(int(n_rounds)):
+        d = model.sample(base, rng)
+        warm = r >= warmup
+        skip = np.array([
+            skips[i].decide(warm and timer.is_straggling(
+                float(d[i]), k=k_mad, rel_floor=rel_floor))
+            for i in range(n)
+        ])
+        for i in range(n):
+            timer.observe(float(d[i]))
+        part = ~skip
+        if part.any():
+            delay_sum += float(d[part].max())
+        part_sum += int(part.sum())
+    return delay_sum / n_rounds, part_sum / (n_rounds * n)
 
 
 def optimal_h_bounded_skip(
@@ -235,12 +264,35 @@ def optimal_h_bounded_skip(
     seed: int = 0,
     acceleration: float = 0.0,
 ) -> dict:
-    """The straggler-aware eq. (12): H jointly with the ``BoundedSkip``
-    threshold, over :func:`simulate_bounded_skip`.  Not ported yet:
-    raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "the bounded-skip planner replays runtime/straggler.py's "
-        "StepTimer and BoundedSkip, which are not ported yet (ROADMAP A4)")
+    """The straggler-aware eq. (12): jointly optimize the local iteration
+    count H and the ``runtime/straggler.py::BoundedSkip``
+    threshold ``s``.
+
+    For each candidate ``s in 0..skip_max`` the bounded-skip barrier is
+    simulated over the observed/nominal per-leaf delays
+    (:func:`simulate_bounded_skip`), which yields the *effective* per-round
+    delay (the straggler's uplink no longer gates the round) and the mean
+    participation fraction ``rho``; a dropped leaf contributes no work to
+    the round, so eq. (11)'s improvement constant dilutes to ``C * rho``.
+    Each ``s`` then gets its own eq.-(12) optimal H, and the (H, s) pair
+    with the best log-bound wins.  Returns ``{H, skip, t_delay,
+    participation, log_bound}``."""
+    _check_improvement_constant(C, K)
+    if skip_max < 0:
+        raise ValueError(f"skip_max must be >= 0, got {skip_max}")
+    best: Optional[dict] = None
+    for s in range(int(skip_max) + 1):
+        t_delay, rho = simulate_bounded_skip(
+            base_delays, model, max_consecutive=s, rel_floor=rel_floor,
+            n_rounds=n_rounds, seed=seed)
+        c_eff = max(C * rho, 1e-12)
+        h, v = optimal_h(C=c_eff, K=K, delta=delta, t_total=t_total,
+                         t_lp=t_lp, t_delay=t_delay, t_cp=t_cp, h_max=h_max,
+                         acceleration=acceleration)
+        if best is None or v < best["log_bound"]:
+            best = {"H": h, "skip": s, "t_delay": t_delay,
+                    "participation": rho, "log_bound": v}
+    return best
 
 
 def _compression_mods(spec) -> Tuple[float, float]:

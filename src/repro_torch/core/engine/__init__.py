@@ -8,18 +8,26 @@ static plan (``plan``) and run tick by tick on one device (``host``)::
                   regularizer_scale(lam, m))
 
 Backends: ``"cuda"`` (the hand-written ``sdca_block`` leaf kernel) and
-``"torch"`` (its plain version).
+``"torch"`` (its plain version).  ``get_host_executor(batched=True)``
+adds a leading config axis (one kernel launch per tick for every config)
+and ``accelerated=True`` the ``sdca_acc`` server momentum; ``method``
+registers the two methods (``get_method("sdca" | "sdca_acc")``).
 """
 from repro_torch.core.engine.host import (  # noqa: F401
     BACKENDS, HostExecutor, execute_plan, get_host_executor,
     regularizer_scale)
+from repro_torch.core.engine.method import (  # noqa: F401
+    Method, get_method, register_method)
 from repro_torch.core.engine.plan import (  # noqa: F401
-    LevelSpec, TreePlan, chunked_key_plan,
-    compile_tree, full_participation, full_steps, index_plan, key_plan,
-    steps_for_h)
+    LevelSpec, SchedulePlan, TreePlan, balanced_tree, chunk_participation,
+    chunked_key_plan, compile_tree, full_participation, full_steps,
+    index_plan, key_plan, plan_diff, schedule_view, steps_for_h,
+    tree_from_level_plan)
 
 __all__ = ["BACKENDS", "HostExecutor", "execute_plan", "get_host_executor",
-           "regularizer_scale", "LevelSpec", "TreePlan",
-           "chunked_key_plan", "compile_tree",
+           "regularizer_scale", "Method", "get_method", "register_method",
+           "LevelSpec", "SchedulePlan", "TreePlan", "balanced_tree",
+           "chunk_participation", "chunked_key_plan", "compile_tree",
            "full_participation", "full_steps", "index_plan", "key_plan",
-           "steps_for_h"]
+           "plan_diff", "schedule_view", "steps_for_h",
+           "tree_from_level_plan"]

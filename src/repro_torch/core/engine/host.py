@@ -33,9 +33,22 @@ thread the executor's full state (:class:`ExecState`: ``init`` ->
 ``(alpha, w)`` pair.  A plan with no compressed depth runs the
 uncompressed tick, and ``forward`` is ``finalize(step(init(...)))``.
 
-Not ported yet: the batched and accelerated flavors (they need
-``api/sweep.py`` and ``core/engine/method.py``); asking for them raises
-``NotImplementedError``.
+Flavors (``get_host_executor(batched=, accelerated=)``):
+
+* ``batched=True`` puts a leading config axis B on the state, the keys,
+  the step masks and ``lm`` (a sweep's lambda x local-H x seed grid);
+  X, y and the participation mask are shared.  Each solve tick is ONE
+  ``sdca_block`` launch over all B x n leaves (the ``"torch"`` backend
+  runs its plain version config by config); the syncs then run config
+  by config on that config's slice, the same ops on the same shapes as
+  an unbatched run, so every member equals its standalone run bit for
+  bit (a reduction over a batched shape may sum in another order).
+* ``accelerated=True`` (the ``sdca_acc`` method) adds per-depth momentum
+  anchors (``srvP`` for the server w, ``srvA`` for alpha) and
+  extrapolates both sides of the primal-dual pair at every sync, ``x =
+  base + acceleration * (base - prev)``; ``acceleration`` is a runtime
+  float of ``step``, and a zero coefficient selects the base out of a
+  ``torch.where`` (not a multiply), so it is plain SDCA bit for bit.
 """
 from __future__ import annotations
 
@@ -51,7 +64,7 @@ from repro_torch.core.dual import Loss
 from repro_torch.core.engine.plan import (TreePlan, full_participation,
                                           full_steps)
 from repro_torch.kernels.sdca import kernel as sdca_kernel
-from repro_torch.kernels.sdca.ref import sdca_steps_ref
+from repro_torch.kernels.sdca.ref import sdca_steps_ref_batched
 
 Tensor = torch.Tensor
 
@@ -78,14 +91,19 @@ class ExecState(NamedTuple):
     """The executor's full blocked carry between root rounds: ``a`` (n,
     m_b), ``w`` (n, d), one snapshot of each per internal depth (``snapA``
     (n, m_b), ``snapW`` (n, d)), the per-depth group servers ``srvW`` (n,
-    d), and one float32 error-feedback residual (n, d) per compressed
-    depth, shallowest first (``res``; empty for an uncompressed plan)."""
+    d), one float32 error-feedback residual (n, d) per compressed depth,
+    shallowest first (``res``; empty for an uncompressed plan), and, for
+    an accelerated executor, the per-depth momentum anchors ``srvP`` (n,
+    d) and ``srvA`` (n, m_b) (empty otherwise).  A batched executor's
+    state carries a leading config axis B on every tensor."""
     a: Tensor
     w: Tensor
     snapA: Tuple[Tensor, ...]
     snapW: Tuple[Tensor, ...]
     srvW: Tuple[Tensor, ...]
     res: Tuple[Tensor, ...] = ()
+    srvP: Tuple[Tensor, ...] = ()
+    srvA: Tuple[Tensor, ...] = ()
 
 
 class _Segments:
@@ -116,20 +134,50 @@ class _Segments:
         return torch.stack([v[lo:hi].sum(0) for lo, hi in self.ranges])
 
 
+class _Carry:
+    """One config's mutable view of the state inside :meth:`HostExecutor.
+    step`: ``a``, ``w`` and per-depth lists of the other fields."""
+
+    def __init__(self, state: ExecState, b: int):
+        self.a, self.w = state.a[b], state.w[b]
+        self.snapA = [t[b] for t in state.snapA]
+        self.snapW = [t[b] for t in state.snapW]
+        self.srvW = [t[b] for t in state.srvW]
+        self.res = [t[b] for t in state.res]
+        self.srvP = [t[b] for t in state.srvP]
+        self.srvA = [t[b] for t in state.srvA]
+
+
+def _stack_carries(a: Tensor, w: Tensor, carries: List[_Carry]) -> ExecState:
+    def stack(field):
+        return tuple(torch.stack([getattr(c, field)[i] for c in carries])
+                     for i in range(len(getattr(carries[0], field))))
+    return ExecState(a, w, stack("snapA"), stack("snapW"), stack("srvW"),
+                     stack("res"), stack("srvP"), stack("srvA"))
+
+
+def _map_state(state: ExecState, fn) -> ExecState:
+    return ExecState(fn(state.a), fn(state.w),
+                     *(tuple(fn(t) for t in field) for field in state[2:]))
+
+
 class HostExecutor(nn.Module):
     """The compiled form of one plan on one device: static layout maps and
-    per-tick masks as buffers, the tick loop in :meth:`forward`.
+    per-tick masks as buffers, the tick loop in :meth:`step`.
 
     ``backend="cuda"`` solves leaves with the ``sdca_block`` kernel
     (CPU tensors take its plain version, as every kernel wrapper does),
-    ``backend="torch"`` with the plain version everywhere."""
+    ``backend="torch"`` with the plain version everywhere.  ``batched``
+    and ``accelerated`` select the flavors of the module docstring."""
 
     def __init__(self, plan: TreePlan, *, loss: Loss, backend: str = "cuda",
-                 device="cuda"):
+                 device="cuda", batched: bool = False,
+                 accelerated: bool = False):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         self.plan, self.loss, self.backend = plan, loss, backend
+        self.batched, self.accelerated = bool(batched), bool(accelerated)
         n, m_b, m = plan.n_leaves, plan.m_b, plan.m_total
         D, h_max = plan.depth, plan.h_max
         dev = torch.device(device)
@@ -213,24 +261,33 @@ class HostExecutor(nn.Module):
         return BlockedData(Xb, yb, sqnorm)
 
     def draw_idx(self, keys_s: Tensor) -> Tensor:
-        """The tick's (n, h_max) coordinate draws: ``randint(key_l,
-        (H_l,), 0, m_b_l)`` per leaf, exactly as the legacy recursion."""
+        """A tick's coordinate draws from its (..., n, 2) keys: ``randint(
+        key_l, (H_l,), 0, m_b_l)`` per leaf, exactly as the legacy
+        recursion, as (..., n, h_max) int32 (one batch of integer ops for
+        any leading config axes)."""
+        lead = tuple(keys_s.shape[:-2])
         if len(self.h_groups) == 1:
             h, _, mb = self.h_groups[0]
-            return prng.randint(keys_s, (h,), 0, mb)
-        idx = torch.zeros((self.plan.n_leaves, self.plan.h_max),
+            return prng.randint(keys_s, (h,), 0,
+                                mb.expand(lead + tuple(mb.shape)))
+        idx = torch.zeros(lead + (self.plan.n_leaves, self.plan.h_max),
                           dtype=torch.int32, device=keys_s.device)
         for h, rows, mb in self.h_groups:
-            idx[rows, :h] = prng.randint(keys_s[rows], (h,), 0, mb)
+            idx[..., rows, :h] = prng.randint(
+                keys_s[..., rows, :], (h,), 0,
+                mb.expand(lead + tuple(mb.shape)))
         return idx
 
-    def leaf_solve(self, data: BlockedData, a, w, xsq, idx, mk, lm):
+    def leaf_solve(self, data: BlockedData, a, w, xsq, idx, mk, lms):
+        """One solve tick for B configs: ``a`` (B, n, m_b), ``w`` (B, n,
+        d), ``xsq`` (B, n, m_b), ``idx`` / ``mk`` (B, n, h_max), ``lms``
+        the B values of lambda * m; returns (delta_a, delta_w)."""
         if self.backend == "cuda":
-            return sdca_kernel.sdca_block_launch(
-                data.Xb, data.yb, a, w, xsq, idx, loss=self.loss, lm=lm,
+            return sdca_kernel.sdca_block_launch_batched(
+                data.Xb, data.yb, a, w, xsq, idx, loss=self.loss, lms=lms,
                 step_mask=mk)
-        return sdca_steps_ref(data.Xb, data.yb, a, w, xsq, idx,
-                              loss=self.loss, lm=lm, step_mask=mk)
+        return sdca_steps_ref_batched(data.Xb, data.yb, a, w, xsq, idx,
+                                      loss=self.loss, lms=lms, step_mask=mk)
 
     def roundtrip(self, dd: int, target: Tensor) -> Tensor:
         """The receiver's view of depth ``dd``'s per-edge messages: each
@@ -248,10 +305,7 @@ class HostExecutor(nn.Module):
         return approx
 
     # ------------------------------------------------------------------
-    def init(self, X: Tensor, alpha0: Tensor, w0: Tensor) -> ExecState:
-        """The blocked run-start state from flat (alpha0 (m,), w0 (d,)) in
-        the dtype of ``X`` (the flat (m, d) data or its blocked layout):
-        snapshots and group servers at the start state, zero residuals."""
+    def _init_one(self, X: Tensor, alpha0: Tensor, w0: Tensor) -> ExecState:
         n, m_b, D = self.plan.n_leaves, self.plan.m_b, self.plan.depth
         d = X.shape[-1]
         a = torch.zeros(n * m_b, dtype=X.dtype, device=alpha0.device)
@@ -260,107 +314,210 @@ class HostExecutor(nn.Module):
         w = w0.to(X.dtype).expand(n, d).contiguous()
         res = tuple(torch.zeros((n, d), dtype=torch.float32,
                                 device=w.device) for _ in self.res_slot)
-        return ExecState(a, w, (a,) * D, (w,) * D, (w,) * D, res)
+        # the momentum anchors start at the run-start state: a run's first
+        # sync extrapolates along its own first combination delta
+        anchors = ((w,) * D, (a,) * D) if self.accelerated else ((), ())
+        return ExecState(a, w, (a,) * D, (w,) * D, (w,) * D, res, *anchors)
+
+    def init(self, X: Tensor, alpha0: Tensor, w0: Tensor) -> ExecState:
+        """The blocked run-start state from flat ``alpha0`` (m,) and ``w0``
+        (d,) -- (B, m) and (B, d) for a batched executor -- in the dtype of
+        ``X`` (the flat (m, d) data or its blocked layout): snapshots,
+        group servers and momentum anchors at the start state, zero
+        residuals."""
+        if not self.batched:
+            return self._init_one(X, alpha0, w0)
+        one = [self._init_one(X, alpha0[b], w0[b])
+               for b in range(alpha0.shape[0])]
+        return ExecState(*(
+            torch.stack([s[i] for s in one]) if i < 2 else
+            tuple(torch.stack([s[i][j] for s in one])
+                  for j in range(len(one[0][i])))
+            for i in range(len(ExecState._fields))))
 
     def finalize(self, state: ExecState) -> Tuple[Tensor, Tensor]:
         """The flat (alpha (m,), w (d,)) of a state at a root-round
-        boundary (where every leaf's w is the root's)."""
+        boundary (where every leaf's w is the root's); (B, m) and (B, d)
+        for a batched executor."""
+        if self.batched:
+            B = state.a.shape[0]
+            return state.a.reshape(B, -1)[:, self.flat_map], state.w[:, 0]
         return state.a.reshape(-1)[self.flat_map], state.w[0]
 
     def step(self, data: BlockedData, keys: Tensor, state: ExecState,
-             participation: Tensor, steps: Tensor, lm: float) -> ExecState:
-        """One pass over the plan's S ticks from ``state``; ``keys`` is the
-        (S, n, 2) per-solve key plan, ``lm`` the float32 lambda*m
-        (:func:`regularizer_scale`)."""
+             participation: Tensor, steps: Tensor, lm,
+             acceleration: Optional[float] = None) -> ExecState:
+        """One pass over the plan's S ticks from ``state``.  ``keys`` is
+        the (S, n, 2) per-solve key plan, ``steps`` the (S, n, h_max) step
+        mask and ``lm`` the float32 lambda*m (:func:`regularizer_scale`);
+        a batched executor takes (B, S, n, 2) keys, (B, S, n, h_max) steps
+        and B values of ``lm``.  ``participation`` (S, n) is shared.  An
+        accelerated executor needs the momentum coefficient
+        ``acceleration`` (a runtime float), and no other takes one."""
+        if self.accelerated:
+            if acceleration is None:
+                raise ValueError("an accelerated executor's step needs "
+                                 "acceleration=")
+            acc = float(np.float32(acceleration))
+        elif acceleration is not None:
+            raise ValueError("acceleration= needs an accelerated executor "
+                             "(get_host_executor(accelerated=True))")
+        else:
+            acc = None
+        if self.batched:
+            lms = lm.tolist() if isinstance(lm, Tensor) else lm
+            return self._run(data, keys, state, participation, steps,
+                             [float(v) for v in lms], acc)
+        out = self._run(data, keys[None], _map_state(state, lambda t: t[None]),
+                        participation, steps[None], [float(lm)], acc)
+        return _map_state(out, lambda t: t[0])
+
+    def _run(self, data: BlockedData, keys: Tensor, state: ExecState,
+             participation: Tensor, steps: Tensor, lm_host: List[float],
+             acc: Optional[float]) -> ExecState:
+        """:meth:`step` over a leading config axis (B = 1 unbatched)."""
         plan = self.plan
-        D = plan.depth
-        xsq = data.sqnorm / lm
+        B = len(lm_host)
+        dev = state.a.device
+        # each config's ||x||^2 / lm, divided as a one-config run divides
+        xsq = torch.stack([data.sqnorm / v for v in lm_host])
+        lms = lm_host if self.backend == "torch" else \
+            sdca_kernel.lm_array(lm_host, data.Xb.device)
         a, w = state.a, state.w
-        snapA, snapW, srvW = list(state.snapA), list(state.snapW), \
-            list(state.srvW)
-        res = list(state.res)
-        one = torch.ones((), dtype=w.dtype, device=w.device)
+        carries = [_Carry(state, b) for b in range(B)]
+        one = torch.ones((), dtype=w.dtype, device=dev)
+        acc_on = None if acc is None else torch.full(
+            (), acc != 0.0, dtype=torch.bool, device=dev)
         for s in range(plan.n_ticks):
             if self.solves[s]:
-                idx = self.draw_idx(keys[s])
+                idx = self.draw_idx(keys[:, s].contiguous())
                 # the static per-leaf H gate x the solve slot x the runtime
                 # step mask; all-ones steps multiply by exactly 1.0
-                mk = self.hmask * self.solve_mask[s][:, None] * steps[s]
-                da, dw = self.leaf_solve(data, a, w, xsq, idx, mk, lm)
+                mk = self.hmask * self.solve_mask[s][:, None] * steps[:, s]
+                da, dw = self.leaf_solve(data, a, w, xsq, idx, mk, lms)
                 a = a + da
                 w = w + dw
             if not self.events[s].any():
                 continue
-            part = participation[s]
-            act_of: List[Optional[Tensor]] = [None] * D
-            for dd in range(D - 1, -1, -1):
-                if not self.events[s, dd]:
-                    continue
-                ev = self.sync_mask[s, dd]
-                e = ev * part                                 # participants
-                wc = self.wcoef[dd]
-                seg, gid = self.groups[dd], self.gids[dd]
-                absent_g = seg.sum((ev - e) * wc)
-                present_g = seg.sum(e * wc)
-                # exactly 1.0 under full participation: x / 1.0 == x
-                denom_g = torch.where(
-                    absent_g == 0, one,
-                    torch.where(present_g > 0, present_g, one))
-                denom = denom_g[gid]
-                act = (ev > 0) & (present_g > 0)[gid]         # group live
-                eb = (e > 0)[:, None]                         # leaf attends
-                base_a = (snapA[dd] + (self.ascale[dd] / denom)[:, None]
-                          * (a - snapA[dd]))
+            # the syncs config by config, on each config's own slice
+            for b, c in enumerate(carries):
+                c.a, c.w = a[b], w[b]
+                self._sync(s, c, participation[s], one, acc, acc_on)
+            a = torch.stack([c.a for c in carries])
+            w = torch.stack([c.w for c in carries])
+        return _stack_carries(a, w, carries)
+
+    def _sync(self, s: int, c: _Carry, part: Tensor, one: Tensor,
+              acc: Optional[float], acc_on: Optional[Tensor]) -> None:
+        """Tick ``s``'s sync events bottom-up, the server rebase and the
+        snapshot refresh, for one config (``c``, updated in place)."""
+        D = self.plan.depth
+        a, w = c.a, c.w
+        act_of: List[Optional[Tensor]] = [None] * D
+        # leaves that attended a deeper sync earlier in this tick: they now
+        # hold that group's server state, whose baseline at this depth is
+        # this depth's server, not a snapshot from before an absence
+        deeper: Optional[Tensor] = None
+        for dd in range(D - 1, -1, -1):
+            if not self.events[s, dd]:
+                continue
+            ev = self.sync_mask[s, dd]
+            e = ev * part                                 # participants
+            wc = self.wcoef[dd]
+            seg, gid = self.groups[dd], self.gids[dd]
+            absent_g = seg.sum((ev - e) * wc)
+            present_g = seg.sum(e * wc)
+            # exactly 1.0 under full participation: x / 1.0 == x
+            denom_g = torch.where(
+                absent_g == 0, one,
+                torch.where(present_g > 0, present_g, one))
+            denom = denom_g[gid]
+            act = (ev > 0) & (present_g > 0)[gid]         # group live
+            eb = (e > 0)[:, None]                         # leaf attends
+            base_a = (c.snapA[dd] + (self.ascale[dd] / denom)[:, None]
+                      * (a - c.snapA[dd]))
+            if acc is not None:
+                # extrapolate alpha along its own combined sequence with
+                # the coefficient of the server w below: w is the linear
+                # image X^T alpha / (lambda m) of alpha, so one shared
+                # extrapolation keeps the primal-dual pair consistent
+                ext_a = base_a + acc * (base_a - c.srvA[dd])
+                new_a = torch.where(acc_on, ext_a, base_a)
+                c.srvA[dd] = torch.where(eb, base_a, c.srvA[dd])
+                a = torch.where(eb, new_a, a)
+            else:
                 a = torch.where(eb, base_a, a)
-                # a partially present child is represented by its surviving
-                # leaves: their weights scale by |child| / |present|
-                cnt_c = self.children[dd].sum(e)
-                corr = self.csize[dd] / torch.clamp(cnt_c, min=1.0)[
-                    self.cids[dd]]
-                delta_w = w - snapW[dd]
-                ri = self.res_slot.get(dd)
-                if ri is not None:
-                    # error feedback: the message is delta + residual; the
-                    # residual advances only for leaves that deliver now
-                    target = delta_w.float() + res[ri]
-                    approx = self.roundtrip(dd, target)
-                    res[ri] = torch.where(eb, target - approx, res[ri])
-                    delta_w = torch.where(getattr(self, f"comp_mask{dd}"),
-                                          approx.to(w.dtype), delta_w)
-                contrib = (((wc * e) / denom) * corr)[:, None] * delta_w
-                srv_new = srvW[dd] + seg.sum(contrib)[gid]
-                srvW[dd] = torch.where(act[:, None], srv_new, srvW[dd])
-                w = torch.where(eb, srv_new, w)
-                act_of[dd] = act
-            # deeper servers restart from the shallowest live sync's result
-            for dd in range(D - 1, -1, -1):
-                if act_of[dd] is None:
-                    continue
-                for d2 in range(dd + 1, D):
-                    srvW[d2] = torch.where(act_of[dd][:, None], srvW[dd],
-                                           srvW[d2])
-            # snapshot refresh for participants; depths above a leaf's
-            # shallowest attended sync fast-forward to the server state
-            refb = (self.refresh_mask[s] * part[None, :]) > 0     # (D, n)
-            attended = (self.sync_mask[s].amax(dim=0) * part) > 0
-            for dd in range(D):
-                r = refb[dd][:, None]
-                ffwd = (~refb[dd] & attended)[:, None]
-                snapA[dd] = torch.where(r, a, snapA[dd])
-                snapW[dd] = torch.where(
-                    r, w, torch.where(ffwd, srvW[dd], snapW[dd]))
-        return ExecState(a, w, tuple(snapA), tuple(snapW), tuple(srvW),
-                         tuple(res))
+            # a partially present child is represented by its surviving
+            # leaves: their weights scale by |child| / |present|
+            cnt_c = self.children[dd].sum(e)
+            corr = self.csize[dd] / torch.clamp(cnt_c, min=1.0)[
+                self.cids[dd]]
+            # the fast-forward the snapshot refresh applies after a tick
+            # whose shallower depths do not sync, applied here before a
+            # shallower sync of the same tick: a leaf re-joining after an
+            # absence would otherwise re-deliver the server progress it
+            # missed (the reference uses the stale snapshot here, see
+            # ROADMAP queue C).  Every other leaf's snapshot equals its
+            # server row at this point, so the select changes no bit.
+            snap_w = c.snapW[dd] if deeper is None else torch.where(
+                deeper[:, None], c.srvW[dd], c.snapW[dd])
+            delta_w = w - snap_w
+            ri = self.res_slot.get(dd)
+            if ri is not None:
+                # error feedback: the message is delta + residual; the
+                # residual advances only for leaves that deliver now
+                target = delta_w.float() + c.res[ri]
+                approx = self.roundtrip(dd, target)
+                c.res[ri] = torch.where(eb, target - approx, c.res[ri])
+                delta_w = torch.where(getattr(self, f"comp_mask{dd}"),
+                                      approx.to(w.dtype), delta_w)
+            contrib = (((wc * e) / denom) * corr)[:, None] * delta_w
+            srv_base = c.srvW[dd] + seg.sum(contrib)[gid]
+            if acc is not None:
+                # server momentum along the un-extrapolated combination
+                # sequence (kept in srvP); a zero coefficient selects
+                # srv_base itself (a where, not a multiply)
+                srv_ext = srv_base + acc * (srv_base - c.srvP[dd])
+                srv_new = torch.where(acc_on, srv_ext, srv_base)
+                c.srvP[dd] = torch.where(act[:, None], srv_base, c.srvP[dd])
+            else:
+                srv_new = srv_base
+            c.srvW[dd] = torch.where(act[:, None], srv_new, c.srvW[dd])
+            w = torch.where(eb, srv_new, w)
+            act_of[dd] = act
+            deeper = eb[:, 0] if deeper is None else deeper | eb[:, 0]
+        # deeper servers (and momentum anchors: zero velocity after a
+        # rebase) restart from the shallowest live sync's result
+        for dd in range(D - 1, -1, -1):
+            if act_of[dd] is None:
+                continue
+            live = act_of[dd][:, None]
+            for d2 in range(dd + 1, D):
+                c.srvW[d2] = torch.where(live, c.srvW[dd], c.srvW[d2])
+                if acc is not None:
+                    c.srvP[d2] = torch.where(live, c.srvW[dd], c.srvP[d2])
+                    c.srvA[d2] = torch.where(live, a, c.srvA[d2])
+        # snapshot refresh for participants; depths above a leaf's
+        # shallowest attended sync fast-forward to the server state
+        refb = (self.refresh_mask[s] * part[None, :]) > 0     # (D, n)
+        attended = (self.sync_mask[s].amax(dim=0) * part) > 0
+        for dd in range(D):
+            r = refb[dd][:, None]
+            ffwd = (~refb[dd] & attended)[:, None]
+            c.snapA[dd] = torch.where(r, a, c.snapA[dd])
+            c.snapW[dd] = torch.where(
+                r, w, torch.where(ffwd, c.srvW[dd], c.snapW[dd]))
+        c.a, c.w = a, w
 
     def forward(self, data: BlockedData, keys: Tensor, alpha0: Tensor,
                 w0: Tensor, participation: Tensor, steps: Tensor,
-                lm: float) -> Tuple[Tensor, Tensor]:
-        """One pass over the plan's S ticks from flat (alpha0 (m,), w0
-        (d,)): ``finalize(step(init(...)))``.  Returns the flat (alpha
-        (m,), w (d,))."""
+                lm, acceleration: Optional[float] = None
+                ) -> Tuple[Tensor, Tensor]:
+        """One pass over the plan's S ticks from flat (alpha0, w0):
+        ``finalize(step(init(...)))``.  Returns the flat (alpha, w)."""
         state = self.init(data.Xb, alpha0, w0)
         return self.finalize(self.step(data, keys, state, participation,
-                                       steps, lm))
+                                       steps, lm, acceleration))
 
 
 def get_host_executor(plan: TreePlan, *, loss: Loss, backend: str = "cuda",
@@ -368,22 +525,16 @@ def get_host_executor(plan: TreePlan, *, loss: Loss, backend: str = "cuda",
                       batched: bool = False,
                       accelerated: bool = False) -> HostExecutor:
     """Build the executor for ``plan`` on ``device`` (see
-    :class:`HostExecutor`).  Every executor carries state: ``init(X,
+    :class:`HostExecutor`), batched over a leading config axis and / or
+    accelerated as asked.  Every executor carries state: ``init(X,
     alpha0, w0) -> state``, ``step(data, keys, state, participation,
-    steps, lm) -> state`` and ``finalize(state) -> (alpha, w)`` are its
-    methods, so ``carry_state`` (the reference's flag for that triple) is
-    accepted only for parity with the reference's signature and changes
-    nothing."""
+    steps, lm[, acceleration]) -> state`` and ``finalize(state) ->
+    (alpha, w)`` are its methods, so ``carry_state`` (the reference's flag
+    for that triple) is accepted only for parity with the reference's
+    signature and changes nothing."""
     del carry_state
-    if batched:
-        raise NotImplementedError(
-            "batched executors (a leading config axis) serve api/sweep.py, "
-            "which is not ported yet (ROADMAP A5)")
-    if accelerated:
-        raise NotImplementedError(
-            "accelerated executors need the sdca_acc method of "
-            "core/engine/method.py, which is not ported yet (ROADMAP A5)")
-    return HostExecutor(plan, loss=loss, backend=backend, device=device)
+    return HostExecutor(plan, loss=loss, backend=backend, device=device,
+                        batched=batched, accelerated=accelerated)
 
 
 def execute_plan(

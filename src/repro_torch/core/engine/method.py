@@ -1,0 +1,92 @@
+"""The Method protocol: what a workload plugs into the schedule IR.
+
+The plan IR (``core/engine/plan.py``) is method-agnostic -- tree shape,
+per-level rounds, step masks, participation, compression specs, RNG
+chaining.  A *Method* supplies the two method-specific pieces the paper's
+TreeDualMethod leaves open: the **local step** a leaf runs H times
+between syncs, and the **per-level combine** a tree level applies to its
+children.  Registered here:
+
+  ``"sdca"``      -- the paper's dual coordinate ascent: local step =
+                     Procedure P over a coordinate block, combine =
+                     (dalpha keep-own, dw sum/average); the executors of
+                     ``core/engine/host.py``.
+  ``"sdca_acc"``  -- the accelerated primal-dual flavor (Ma et al., arXiv
+                     1711.05305): the same local step, but every server
+                     combine extrapolates BOTH sides of the primal-dual
+                     pair with one momentum coefficient (a runtime scalar
+                     of the executor; ``acceleration=0`` is bit-identical
+                     to ``"sdca"``).  The same executors, built with
+                     ``accelerated=True``.
+
+The JAX package also registers ``"lm_treesync"`` (LM training); it comes
+with ``core/engine/lm.py`` (ROADMAP A9.6), and until then
+``get_method("lm_treesync")`` raises as for any unknown method.  The port
+builds its executors per session and keeps no executor cache, so a
+Method here has no ``cache_stats``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.core.engine import host as host_mod
+
+
+class Method:
+    """A workload on the schedule IR: ``executor(**kw)`` returns the
+    executor for one (plan, backend, variant) tuple."""
+
+    name: str = "?"
+
+    def executor(self, **kw):
+        raise NotImplementedError
+
+
+class SDCAMethod(Method):
+    """The paper's tree-DCA on the host executor (backends ``"cuda"`` and
+    ``"torch"``, see ``core/engine/host.py``)."""
+
+    name = "sdca"
+
+    def executor(self, *, plan, backend="cuda", **kw):
+        if backend in host_mod.BACKENDS:
+            return host_mod.get_host_executor(plan, backend=backend, **kw)
+        if backend == "mesh":
+            raise NotImplementedError(
+                "the mesh backend (core/engine/mesh.py on torch.distributed) "
+                "is not ported yet (ROADMAP A7)")
+        raise ValueError(f"sdca: unknown backend {backend!r}")
+
+
+class SDCAAccMethod(SDCAMethod):
+    """Accelerated tree-DCA: the ``"sdca"`` executors built with
+    ``accelerated=True`` (``step`` gains a trailing runtime
+    ``acceleration`` scalar, the state the per-depth momentum anchors).
+    Selected by ``Schedule(acceleration=...)``."""
+
+    name = "sdca_acc"
+
+    def executor(self, *, plan, backend="cuda", **kw):
+        kw["accelerated"] = True
+        return super().executor(plan=plan, backend=backend, **kw)
+
+
+_REGISTRY: Dict[str, Method] = {}
+
+
+def register_method(method: Method) -> Method:
+    _REGISTRY[method.name] = method
+    return method
+
+
+register_method(SDCAMethod())
+register_method(SDCAAccMethod())
+
+
+def get_method(name: str) -> Method:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown method {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -437,6 +437,16 @@ def full_participation(plan: TreePlan) -> np.ndarray:
     return np.ones((plan.n_ticks, plan.n_leaves), np.float32)
 
 
+def chunk_participation(plan: TreePlan, leaf_mask) -> np.ndarray:
+    """Broadcast a per-leaf ``(n,)`` 0/1 decision over every tick of one
+    chunk: the whole-chunk granularity under which masked syncs preserve
+    ``w = A alpha`` exactly on any tree (a leaf absent for the whole chunk
+    never delivers work that a participant's delta could double-carry)."""
+    leaf_mask = np.asarray(leaf_mask, np.float32).reshape(plan.n_leaves)
+    return np.broadcast_to(
+        leaf_mask[None, :], (plan.n_ticks, plan.n_leaves)).copy()
+
+
 def full_steps(plan: TreePlan) -> np.ndarray:
     """The all-ones ``(S, n, h_max)`` step mask: the static-H schedule."""
     return np.ones((plan.n_ticks, plan.n_leaves, plan.h_max), np.float32)
@@ -488,3 +498,165 @@ def plan_bytes_per_round(plan: TreePlan, d_feat: int, *,
                     float(plan.compress_frac[dd, li]))
                 total += float(d_feat) * dtype_bytes * ratio
     return total / max(int(plan.root_sync.sum()), 1)
+
+
+# ---------------------------------------------------------------------------
+# plan diffing (elastic membership: recompile bookkeeping)
+# ---------------------------------------------------------------------------
+def plan_diff(old: TreePlan, new: TreePlan) -> Dict[str, object]:
+    """Structural diff between two compiled plans, keyed by leaf NAME (the
+    stable identity across membership events: leaf indices shift when
+    leaves leave or join).  ``fingerprint_changed`` says whether the
+    executor must be rebuilt; ``weights_changed`` lists surviving leaves
+    whose aggregation column (alpha_scale / w_coeff / compression / size /
+    H capacity) was re-weighted."""
+    old_idx = {nm: i for i, nm in enumerate(old.leaf_names)}
+    new_idx = {nm: i for i, nm in enumerate(new.leaf_names)}
+    added = [nm for nm in new.leaf_names if nm not in old_idx]
+    removed = [nm for nm in old.leaf_names if nm not in new_idx]
+    structure_changed = (old.depth != new.depth
+                         or old.n_ticks != new.n_ticks
+                         or old.n_groups != new.n_groups
+                         or old.n_children != new.n_children)
+    weights_changed = []
+    for nm in new.leaf_names:
+        if nm not in old_idx:
+            continue
+        oi, ni = old_idx[nm], new_idx[nm]
+        same = (old.depth == new.depth
+                and int(old.leaf_sizes[oi]) == int(new.leaf_sizes[ni])
+                and int(old.leaf_h[oi]) == int(new.leaf_h[ni])
+                and np.array_equal(old.alpha_scale[:, oi],
+                                   new.alpha_scale[:, ni])
+                and np.array_equal(old.w_coeff[:, oi], new.w_coeff[:, ni])
+                and np.array_equal(old.compress_kind[:, oi],
+                                   new.compress_kind[:, ni])
+                and np.array_equal(old.compress_frac[:, oi],
+                                   new.compress_frac[:, ni]))
+        if not same:
+            weights_changed.append(nm)
+    return {
+        "fingerprint_changed": old.fingerprint != new.fingerprint,
+        "leaves_added": added,
+        "leaves_removed": removed,
+        "weights_changed": weights_changed,
+        "structure_changed": structure_changed,
+        "unchanged": (not added and not removed and not weights_changed
+                      and not structure_changed),
+    }
+
+
+# ---------------------------------------------------------------------------
+# tree constructors for plan-driven workflows
+# ---------------------------------------------------------------------------
+def balanced_tree(
+    branching: Sequence[int],
+    rounds: Sequence[int],
+    *,
+    local_steps: int,
+    m_leaf: int,
+    t_lp: float = 0.0,
+) -> TreeNode:
+    """A level-homogeneous tree, top-down: ``branching[0]`` children at the
+    root running ``rounds[0]`` rounds, and so on; leaves run ``local_steps``
+    coordinate steps over ``m_leaf`` examples each."""
+    assert len(branching) == len(rounds) and len(branching) >= 1
+
+    def build(d, path):
+        tag = "-".join(str(p) for p in path)  # separator: fan-out >= 10 safe
+        if d == len(branching):
+            return TreeNode(name=f"L{tag}", rounds=local_steps,
+                            data_size=m_leaf, t_lp=t_lp)
+        kids = tuple(build(d + 1, path + (k,))
+                     for k in range(branching[d]))
+        name = "root" if d == 0 else f"N{tag}"
+        return TreeNode(name=name, children=kids, rounds=rounds[d])
+    return build(0, ())
+
+
+def tree_from_level_plan(
+    level_plan: Sequence[dict],
+    branching: Sequence[int],
+    *,
+    m_leaf: int,
+    root_rounds: int,
+    t_lp: float = 0.0,
+) -> TreeNode:
+    """Bridge from ``core/delay.py::plan_hierarchical_h`` (eq. (12) per
+    level, innermost first) to an engine-runnable tree: ``level_plan[0]
+    ["H"]`` becomes the leaf local-step count, higher levels' H the
+    per-depth round counts, and the root runs ``root_rounds``.
+    ``branching`` is top-down (root fan-out first)."""
+    hs = [int(row["H"]) for row in level_plan]
+    assert len(branching) == len(hs), (len(branching), len(hs))
+    # top-down internal rounds: root, then H of the outer levels inward
+    rounds = [root_rounds] + list(reversed(hs[1:]))
+    return balanced_tree(branching, rounds, local_steps=hs[0],
+                         m_leaf=m_leaf, t_lp=t_lp)
+
+
+# ---------------------------------------------------------------------------
+# the method-agnostic schedule view
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SchedulePlan:
+    """What a Method (``core/engine/method.py``) reads from a
+    level-homogeneous :class:`TreePlan`: tree shape and per-level
+    periods, bottom-up (level 0 = the leaves):
+
+      * ``periods[0]``      local steps per level-1 sync (leaf H),
+      * ``periods[i]``      level-(i-1) rounds per level-i sync,
+      * ``group_sizes[i]``  fan-out of the level-(i+1) node over its
+        level-i children,
+      * ``compression[i]``  codec spec of the up-link into level i+1.
+    """
+    periods: Tuple[int, ...]
+    group_sizes: Tuple[int, ...]
+    compression: Tuple[str, ...]
+    fingerprint: str
+
+    @property
+    def depth(self) -> int:
+        return len(self.group_sizes)
+
+    def cum_periods(self) -> Tuple[int, ...]:
+        out, p = [], 1
+        for h in self.periods:
+            p *= h
+            out.append(p)
+        return tuple(out)
+
+
+def schedule_view(plan: TreePlan) -> SchedulePlan:
+    """The method-agnostic schedule layer of a lowered plan; needs a
+    level-homogeneous plan (``plan.levels`` set) with uniform leaf H."""
+    if plan.levels is None:
+        raise ValueError(
+            "schedule_view needs a level-homogeneous plan (uniform "
+            "per-depth fan-out/rounds, congruent leaves)")
+    leaf_h = np.asarray(plan.leaf_h)
+    if plan.n_leaves and not (leaf_h == leaf_h[0]).all():
+        raise ValueError(
+            "schedule_view needs uniform leaf H (per-leaf heterogeneous H "
+            "is a runtime step-mask input, not part of the static view)")
+    D = plan.depth
+    # bottom-up: leaf H, then the rounds of each internal depth from the
+    # innermost (depth D-1) up to just below the root (depth 1); the
+    # root's own rounds are the run length, not a period
+    periods = [int(leaf_h[0]) if plan.n_leaves else 1]
+    periods += [int(plan.levels[d].rounds) for d in range(D - 1, 0, -1)]
+    group_sizes = [int(plan.levels[d].group_size)
+                   for d in range(D - 1, -1, -1)]
+    # the codec of the up-link into bottom-up level i+1 is the edge into
+    # top-down depth D-1-i; uniform per depth in a level-homogeneous plan,
+    # so leaf 0's column stands for it
+    comp = []
+    for i in range(D):
+        d = D - 1 - i
+        kind = int(plan.compress_kind[d, 0]) if plan.n_leaves else 0
+        frac = float(plan.compress_frac[d, 0]) if plan.n_leaves else 0.0
+        comp.append(comp_mod.spec_name(kind, frac))
+    return SchedulePlan(periods=tuple(periods),
+                        group_sizes=tuple(group_sizes),
+                        compression=tuple(comp),
+                        fingerprint=plan.fingerprint)

@@ -5,12 +5,16 @@ delay model and the per-root-round history, as in the JAX package's
 * simulated wall-clock: ``TreeNode.solve_time`` (the generalization of
   paper eq. (9)) gives the per-root-round time;
 * history: a list of ``{round, time, dual, primal, gap}`` dicts wrapped in
-  :class:`SolveResult`, with array accessors.
+  :class:`SolveResult`, with array accessors;
+* batched histories: the sweep layer (``api/sweep.py``) stores a config
+  batch's series as ``(B, T)`` arrays -- :func:`stack_histories` /
+  :func:`history_row` convert between that schema and the per-run dict
+  lists (NaN-padded where members recorded fewer rounds).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,3 +97,39 @@ def record_round(history: List[dict], t: int, time: float, dual: float,
     difference)."""
     history.append({"round": t, "time": time, "dual": dual,
                     "primal": primal, "gap": primal - dual})
+
+
+# ---------------------------------------------------------------------------
+# batched-history schema (the sweep layer's (B, T) representation)
+# ---------------------------------------------------------------------------
+def stack_histories(histories: Sequence[List[dict]]) -> Dict[str, np.ndarray]:
+    """Stack B per-run history dict-lists into ``{field: (B, T_max)}``
+    float arrays (one per :data:`HISTORY_FIELDS`), NaN-padding members that
+    recorded fewer rounds -- the ``api/sweep.py::RunSet`` history
+    schema.  Extra per-entry keys (async instrumentation) are dropped."""
+    B = len(histories)
+    t_max = max((len(h) for h in histories), default=0)
+    out = {f: np.full((B, t_max), np.nan) for f in HISTORY_FIELDS}
+    for b, hist in enumerate(histories):
+        for t, entry in enumerate(hist):
+            for f in HISTORY_FIELDS:
+                out[f][b, t] = float(entry[f])
+    return out
+
+
+def history_row(stacked: Dict[str, np.ndarray], b: int) -> List[dict]:
+    """Reconstruct member ``b``'s history dict-list from a
+    :func:`stack_histories` batch (NaN padding rows are dropped)."""
+    out: List[dict] = []
+    rounds = stacked["round"]
+    for t in range(rounds.shape[1]):
+        if not np.isfinite(rounds[b, t]):
+            continue
+        out.append({
+            "round": int(rounds[b, t]),
+            "time": float(stacked["time"][b, t]),
+            "dual": float(stacked["dual"][b, t]),
+            "primal": float(stacked["primal"][b, t]),
+            "gap": float(stacked["gap"][b, t]),
+        })
+    return out

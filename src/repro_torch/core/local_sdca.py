@@ -44,3 +44,20 @@ def local_sdca(
         a_c[i] = a_c[i] + d
         w_c = w_c + (d / lm) * x_i
     return a_c - alpha, w_c - w
+
+
+def local_sdca_epochs(
+    X: Tensor,
+    y: Tensor,
+    alpha: Tensor,
+    w: Tensor,
+    key: Tensor,
+    *,
+    loss: Loss,
+    lam: float,
+    m_total: int,
+    epochs: int,
+) -> Tuple[Tensor, Tensor]:
+    """Convenience: H = epochs * m_b coordinate steps."""
+    return local_sdca(X, y, alpha, w, key, loss=loss, lam=lam,
+                      m_total=m_total, num_steps=epochs * X.shape[0])

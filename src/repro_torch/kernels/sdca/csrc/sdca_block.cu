@@ -8,6 +8,17 @@
 // and writes (a_end - a0, w_end - w0).  xsq = sum(X^2) / lm is computed by
 // the caller, as on the TPU.
 //
+// A leading config axis B (the reference vmaps the Pallas call over a
+// sweep's configs, which adds a grid axis): the grid has B * K blocks, and
+// block (b, k) solves leaf k of config b.  X and y are shared by the
+// configs (config stride 0, read at leaf k); alpha, xsq, idx, the step
+// mask, delta alpha and delta w are config b's, at row b * K + k; w is at
+// b * w_cfg_stride + k * w_stride (w_stride 0 for one w per config); lm is
+// a device array of B floats, lm[b] read once into a register, so
+// c = dl / lm is the same float operation for every B.  B = 1 is the
+// single-config launch: a config's blocks compute exactly what they
+// compute alone.
+//
 // What bounds it on this card: the chain of H dependent steps per leaf,
 // not bytes and not operations (a leaf's block X[k], 16 MiB at m_b = 8192,
 // d = 512, cannot stay on chip, but a step reads one 2 KiB row).  So the
@@ -351,8 +362,9 @@ sdca_block_kernel(const float* __restrict__ X, const float* __restrict__ y,
                   const float* __restrict__ w, const float* __restrict__ xsq,
                   const int32_t* __restrict__ idx,
                   const float* __restrict__ mask, float* __restrict__ da,
-                  float* __restrict__ dw, int m_b, int d, int H,
-                  int w_stride, float lm, float g, int bulk) {
+                  float* __restrict__ dw, int K, int m_b, int d, int H,
+                  int w_stride, long long w_cfg_stride,
+                  const float* __restrict__ lm, float g, int bulk) {
   extern __shared__ __align__(16) float smem[];
   const int P = ring_depth(d);
   const int groups = P / kGroup;
@@ -365,16 +377,20 @@ sdca_block_kernel(const float* __restrict__ X, const float* __restrict__ y,
   const uint32_t bars = smem_u32(smem + smem_floats(m_b, d));
 
   const int tid = threadIdx.x;
-  const int k = blockIdx.x;
-  const size_t kb = static_cast<size_t>(k) * m_b;
-  const float* wk = w + static_cast<size_t>(k) * w_stride;
-  const int32_t* idxk = idx + static_cast<size_t>(k) * H;
+  const int b = blockIdx.x / K;    // config
+  const int k = blockIdx.x % K;    // leaf
+  const size_t row = static_cast<size_t>(blockIdx.x);   // b * K + k
+  const size_t xb = static_cast<size_t>(k) * m_b;       // shared X, y
+  const size_t kb = row * m_b;                          // config b's leaf k
+  const float* wk = w + static_cast<size_t>(b) * w_cfg_stride +
+                    static_cast<size_t>(k) * w_stride;
+  const int32_t* idxk = idx + row * H;
 
   if (NC == 0)
     for (int j = tid; j < d; j += kThreads) w_s[j] = wk[j];
   for (int i = tid; i < m_b; i += kThreads) {
     a_s[i] = alpha[kb + i];
-    y_s[i] = y[kb + i];
+    y_s[i] = y[xb + i];
     q_s[i] = xsq[kb + i];
   }
   if (tid == 0) {
@@ -387,25 +403,24 @@ sdca_block_kernel(const float* __restrict__ X, const float* __restrict__ y,
   __syncthreads();
 
   if (tid < 32)
-    leaf_chain<L, NC>(wk, idxk,
-                      mask ? mask + static_cast<size_t>(k) * H : nullptr,
-                      dw + static_cast<size_t>(k) * d, ring, w_s, a_s, y_s,
-                      q_s, bars, m_b, d, H, lm, g, tid);
+    leaf_chain<L, NC>(wk, idxk, mask ? mask + row * H : nullptr,
+                      dw + row * d, ring, w_s, a_s, y_s, q_s, bars, m_b, d,
+                      H, lm[b], g, tid);
   else if (tid < 64)
-    fill_ring(X + kb * d, idxk, ring, bars, m_b, d, H, bulk != 0, tid - 32);
+    fill_ring(X + xb * d, idxk, ring, bars, m_b, d, H, bulk != 0, tid - 32);
   __syncthreads();
 
   if (NC == 0)
-    for (int j = tid; j < d; j += kThreads)
-      dw[static_cast<size_t>(k) * d + j] = w_s[j] - wk[j];
+    for (int j = tid; j < d; j += kThreads) dw[row * d + j] = w_s[j] - wk[j];
   for (int i = tid; i < m_b; i += kThreads) da[kb + i] = a_s[i] - alpha[kb + i];
 }
 
 template <int L, int NC>
 cudaError_t launch_path(const float* X, const float* y, const float* alpha,
                         const float* w, const float* xsq, const int32_t* idx,
-                        const float* mask, float* da, float* dw, int K,
-                        int m_b, int d, int H, int w_stride, float lm, float g,
+                        const float* mask, float* da, float* dw, int B,
+                        int K, int m_b, int d, int H, int w_stride,
+                        long long w_cfg_stride, const float* lm, float g,
                         int bulk, cudaStream_t stream) {
   const size_t smem = smem_floats(m_b, d) * sizeof(float) +
                       16 * (ring_depth(d) / kGroup);
@@ -413,17 +428,18 @@ cudaError_t launch_path(const float* X, const float* y, const float* alpha,
       sdca_block_kernel<L, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sdca_block_kernel<L, NC><<<K, kThreads, smem, stream>>>(
-      X, y, alpha, w, xsq, idx, mask, da, dw, m_b, d, H, w_stride, lm, g,
-      bulk);
+  sdca_block_kernel<L, NC><<<B * K, kThreads, smem, stream>>>(
+      X, y, alpha, w, xsq, idx, mask, da, dw, K, m_b, d, H, w_stride,
+      w_cfg_stride, lm, g, bulk);
   return cudaGetLastError();
 }
 
 template <int L>
 cudaError_t launch(const float* X, const float* y, const float* alpha,
                    const float* w, const float* xsq, const int32_t* idx,
-                   const float* mask, float* da, float* dw, int K, int m_b,
-                   int d, int H, int w_stride, float lm, float g,
+                   const float* mask, float* da, float* dw, int B, int K,
+                   int m_b, int d, int H, int w_stride,
+                   long long w_cfg_stride, const float* lm, float g,
                    cudaStream_t stream) {
   // bulk copies need 16-byte aligned rows of a multiple of 16 bytes; w in
   // registers needs float4 access to w and dw and d <= 1024
@@ -431,10 +447,10 @@ cudaError_t launch(const float* X, const float* y, const float* alpha,
   const bool reg_w = d % 4 == 0 && d <= 1024 &&
                      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(dw) % 16 == 0;
-  const int b = bulk ? 1 : 0;
+  const int bulk_i = bulk ? 1 : 0;
 #define SDCA_PATH(NC)                                                       \
-  launch_path<L, NC>(X, y, alpha, w, xsq, idx, mask, da, dw, K, m_b, d, H, \
-                     w_stride, lm, g, b, stream)
+  launch_path<L, NC>(X, y, alpha, w, xsq, idx, mask, da, dw, B, K, m_b, d, \
+                     H, w_stride, w_cfg_stride, lm, g, bulk_i, stream)
   if (!reg_w) return SDCA_PATH(0);
   if (d <= 128) return SDCA_PATH(1);
   if (d <= 256) return SDCA_PATH(2);
@@ -464,31 +480,36 @@ int sdca_block_smem_limit(int device) {
   return optin;
 }
 
+// B configs x K leaves in one launch: X (K, m_b, d) and y (K, m_b) shared;
+// alpha, xsq (B, K, m_b); idx, mask (B, K, H); da (B, K, m_b); dw (B, K, d);
+// lm (B,) on the device.  w_stride: 0 for one w per config, d for
+// per-leaf rows; w_cfg_stride: the floats between two configs' w.
 // loss: 0 squared, 1 hinge, 2 smoothed hinge (smoothing g), 3 logistic.
-// w_stride: 0 for one w shared by all leaves, d for per-leaf rows.
 // mask may be null (no step gating).  Returns a cudaError_t.
 int sdca_block_launch(const float* X, const float* y, const float* alpha,
                       const float* w, const float* xsq, const int32_t* idx,
-                      const float* mask, float* da, float* dw, int K, int m_b,
-                      int d, int H, int w_stride, float lm, int loss, float g,
-                      void* stream) {
+                      const float* mask, float* da, float* dw, int B, int K,
+                      int m_b, int d, int H, int w_stride,
+                      long long w_cfg_stride, const float* lm, int loss,
+                      float g, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define SDCA_LOSS(L)                                                      \
+  launch<L>(X, y, alpha, w, xsq, idx, mask, da, dw, B, K, m_b, d, H,      \
+            w_stride, w_cfg_stride, lm, g, s)
   switch (loss) {
     case kSquared:
-      return launch<kSquared>(X, y, alpha, w, xsq, idx, mask, da, dw, K, m_b,
-                              d, H, w_stride, lm, g, s);
+      return SDCA_LOSS(kSquared);
     case kHinge:
-      return launch<kHinge>(X, y, alpha, w, xsq, idx, mask, da, dw, K, m_b,
-                            d, H, w_stride, lm, g, s);
+      return SDCA_LOSS(kHinge);
     case kSmoothHinge:
-      return launch<kSmoothHinge>(X, y, alpha, w, xsq, idx, mask, da, dw, K,
-                                  m_b, d, H, w_stride, lm, g, s);
+      return SDCA_LOSS(kSmoothHinge);
     case kLogistic:
-      return launch<kLogistic>(X, y, alpha, w, xsq, idx, mask, da, dw, K,
-                               m_b, d, H, w_stride, lm, g, s);
+      return SDCA_LOSS(kLogistic);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SDCA_LOSS
 }
 
 }  // extern "C"

@@ -5,7 +5,9 @@ data block (Procedure P / Algorithm 1's inner parallel loop).
 The K workers advance together, one coordinate step per Python iteration
 (a batch dimension in place of the reference's ``vmap``), so this is the
 oracle the CUDA kernel is held against and the path every CPU tensor
-takes; it is no yardstick of speed.
+takes; it is no yardstick of speed.  :func:`sdca_steps_ref_batched` is
+the same for a leading config axis over shared data (the batched launch's
+plain version), one config after another.
 """
 from __future__ import annotations
 
@@ -49,6 +51,31 @@ def sdca_steps_ref(
         a_c[rows, i] = a_c[rows, i] + dlt
         w_c = w_c + (dlt / lm)[:, None] * x_i
     return a_c - alpha, w_c - w0
+
+
+def sdca_steps_ref_batched(
+    X: Tensor,          # (K, m_b, d), shared by the configs
+    y: Tensor,          # (K, m_b), shared
+    alpha: Tensor,      # (B, K, m_b)
+    w: Tensor,          # (B, d) one per config or (B, K, d) per worker
+    xsq: Tensor,        # (B, K, m_b): ||x_i||^2 / lms[b]
+    idx: Tensor,        # (B, K, H)
+    *,
+    loss: Loss,
+    lms,                # B floats (or a (B,) tensor): lambda * m per config
+    step_mask: Optional[Tensor] = None,  # (B, K, H)
+) -> Tuple[Tensor, Tensor]:
+    """:func:`sdca_steps_ref` for B configs over shared data, config by
+    config (the batched kernel's plain version); returns (delta_alpha (B,
+    K, m_b), delta_w (B, K, d))."""
+    lm_host = [float(v) for v in (lms.tolist() if isinstance(lms, Tensor)
+                                  else lms)]
+    outs = [sdca_steps_ref(
+        X, y, alpha[b], w[b], xsq[b], idx[b], loss=loss, lm=lm_host[b],
+        step_mask=None if step_mask is None else step_mask[b])
+        for b in range(alpha.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
 
 
 def sdca_block_ref(

@@ -256,3 +256,155 @@ def test_compressed_and_auto_planned_sessions_match_the_cpu(cuda_device):
     assert [r["H"] for r in on_card.level_plan] == \
         [r["H"] for r in on_cpu.level_plan]
     assert on_card.resolved.compression == on_cpu.resolved.compression
+
+
+# ---------------------------------------------------------------------------
+# the batched launch: B configs x K leaves in one launch
+# ---------------------------------------------------------------------------
+def _batched(loss_name, B, K, m_b, d, H, seed, per_leaf, masked, device):
+    """Shared X, y; per-config alpha, w, idx, mask and lm."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((K, m_b, d)).astype(np.float32)
+    y = rng.standard_normal((K, m_b)).astype(np.float32)
+    if loss_name != "squared":
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+    alpha = (0.1 * rng.standard_normal((B, K, m_b))).astype(np.float32)
+    if loss_name != "squared":
+        alpha = np.abs(alpha) * y[None]
+    w = (0.1 * rng.standard_normal((B, K, d) if per_leaf else (B, d))
+         ).astype(np.float32)
+    idx = rng.integers(0, m_b, (B, K, H)).astype(np.int32)
+    mask = (rng.uniform(size=(B, K, H)) < 0.7).astype(np.float32) \
+        if masked else None
+    lms = [float(np.float32(v)) for v in 0.1 * K * m_b * (1.0 + np.arange(B))]
+    t = [None if a is None else torch.from_numpy(a).to(device)
+         for a in (X, y, alpha, w, idx, mask)]
+    X_t = t[0]
+    sq = torch.sum(X_t * X_t, dim=2)
+    xsq = torch.stack([sq / v for v in lms])
+    return t + [xsq, lms]
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+@pytest.mark.parametrize("loss_name", LOSSES)
+@pytest.mark.parametrize("B", [1, 3])
+def test_batched_launch_matches_plain_version(B, loss_name, per_leaf,
+                                              cuda_device):
+    X, y, alpha, w, idx, mask, xsq, lms = _batched(
+        loss_name, B, 6, 256, 128, 400, 11, per_leaf, per_leaf, cuda_device)
+    loss = dual.get_loss(loss_name)
+    n0, l0 = kernel.LAUNCHES, kernel.LEAVES
+    got = kernel.sdca_block_launch_batched(X, y, alpha, w, xsq, idx,
+                                           loss=loss, lms=lms,
+                                           step_mask=mask)
+    want = ref.sdca_steps_ref_batched(X, y, alpha, w, xsq, idx, loss=loss,
+                                      lms=lms, step_mask=mask)
+    torch.cuda.synchronize()
+    assert (kernel.LAUNCHES - n0, kernel.LEAVES - l0) == (1, B * 6)
+    for g, r in zip(got, want, strict=True):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_batched_config_equals_its_single_launch(loss_name, per_leaf,
+                                                 cuda_device):
+    """Each config's slice of a B = 3 launch is bit for bit the B = 1
+    launch on that config's inputs (shared w; per-leaf w with a mask)."""
+    X, y, alpha, w, idx, mask, xsq, lms = _batched(
+        loss_name, 3, 5, 200, 96, 300, 12, per_leaf, per_leaf, cuda_device)
+    loss = dual.get_loss(loss_name)
+    da, dw = kernel.sdca_block_launch_batched(X, y, alpha, w, xsq, idx,
+                                              loss=loss, lms=lms,
+                                              step_mask=mask)
+    for b in range(3):
+        one = kernel.sdca_block_launch(
+            X, y, alpha[b], w[b], xsq[b], idx[b], loss=loss, lm=lms[b],
+            step_mask=None if mask is None else mask[b])
+        torch.cuda.synchronize()
+        assert torch.equal(da[b], one[0]) and torch.equal(dw[b], one[1])
+
+
+def test_batched_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    X, y, alpha, w, idx, _, xsq, lms = _batched(
+        "squared", 2, 3, 32, 8, 16, 0, False, False, cuda_device)
+    sq = dual.squared
+    with pytest.raises(ValueError, match="lm"):
+        kernel.sdca_block_launch_batched(X, y, alpha, w, xsq, idx, loss=sq,
+                                         lms=lms[:1])
+    with pytest.raises(ValueError, match="w"):
+        kernel.sdca_block_launch_batched(X, y, alpha, w[:1], xsq, idx,
+                                         loss=sq, lms=lms)
+    with pytest.raises(TypeError, match="idx"):
+        kernel.sdca_block_launch_batched(X, y, alpha, w, xsq, idx.long(),
+                                         loss=sq, lms=lms)
+
+
+def test_sweep_on_the_card_is_one_launch_a_tick_and_bit_equal(cuda_device):
+    """A lambda x seed sweep: one launch per solve tick covering B x n
+    leaves, every member torch.equal to its standalone run on the card,
+    and close to the CPU's plain run."""
+    topo = Topology.two_level(2, 3, 40, root_rounds=3, group_rounds=2,
+                              local_steps=24)
+    rng = np.random.default_rng(13)
+    X = rng.standard_normal((topo.m_total, 16)).astype(np.float32)
+    y = rng.standard_normal(topo.m_total).astype(np.float32)
+    sess = Session.compile(Problem(X, y, lam=0.1), topo, backend="cuda",
+                           device=cuda_device)
+    n0, l0 = kernel.LAUNCHES, kernel.LEAVES
+    rs = sess.sweep(lams=[0.05, 0.2], seeds=[0, 3])
+    torch.cuda.synchronize()
+    ticks = int(sess.executor.solves.sum()) * sess.default_rounds
+    assert kernel.LAUNCHES - n0 == ticks
+    assert kernel.LEAVES - l0 == ticks * 4 * topo.n_leaves
+    cpu = Session.compile(Problem(X, y, lam=0.1), topo, backend="torch",
+                          device="cpu")
+    for pt in rs.points:
+        single = sess.run(key=prng.PRNGKey(pt.seed), lam=pt.lam)
+        mem = rs[pt.index]
+        assert torch.equal(mem.alpha, single.alpha)
+        assert torch.equal(mem.w, single.w)
+        assert mem.gaps.tolist() == single.gaps.tolist()
+        plain = cpu.run(key=prng.PRNGKey(pt.seed), lam=pt.lam)
+        np.testing.assert_allclose(mem.alpha.cpu().numpy(),
+                                   plain.alpha.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_straggler_and_acceleration_on_the_card(cuda_device):
+    """Acceleration 0 is the plain run bit for bit on the card; a
+    straggler run drops leaves, ends on a full barrier and stays close to
+    the CPU's run of the same policy seed."""
+    from repro_torch.api import Schedule
+    from repro_torch.core.delay import StragglerModel
+    from repro_torch.runtime.straggler import StragglerPolicy
+    topo = Topology.two_level(2, 2, 32, root_rounds=8, group_rounds=2,
+                              local_steps=32, t_lp=1e-5, root_delay=0.02,
+                              group_delay=1e-3)
+    rng = np.random.default_rng(14)
+    X = rng.standard_normal((topo.m_total, 10)).astype(np.float32)
+    y = rng.standard_normal(topo.m_total).astype(np.float32)
+    prob = Problem(X, y, lam=0.1)
+    plain = Session.compile(prob, topo, backend="cuda",
+                            device=cuda_device).run(key=prng.PRNGKey(0))
+    acc = Session.compile(prob, topo, Schedule(acceleration=0.5),
+                          backend="cuda", device=cuda_device)
+    acc0 = acc.run(key=prng.PRNGKey(0), acceleration=0.0)
+    assert torch.equal(acc0.alpha, plain.alpha)
+    assert torch.equal(acc0.w, plain.w)
+
+    def policy():
+        return StragglerPolicy(model=StragglerModel(slow_prob=0.3,
+                                                    slow_factor=30.0),
+                               max_consecutive=2, seed=1)
+    on_card = Session.compile(prob, topo, backend="cuda",
+                              device=cuda_device).run(
+        key=prng.PRNGKey(0), straggler=policy())
+    on_cpu = Session.compile(prob, topo, backend="torch", device="cpu").run(
+        key=prng.PRNGKey(0), straggler=policy())
+    parts = [h["participants"] for h in on_card.history[1:]]
+    assert min(parts) < topo.n_leaves and parts[-1] == topo.n_leaves
+    assert parts == [h["participants"] for h in on_cpu.history[1:]]
+    np.testing.assert_allclose(on_card.alpha.cpu().numpy(),
+                               on_cpu.alpha.numpy(), rtol=1e-4, atol=1e-5)

@@ -1,7 +1,9 @@
 """The pure-Python parts of the port's kernel wrappers, without a card: the
 flash-attention kernel each (dtype, head dim) goes to; the shared memory
 the sdca_block wrapper reckons for a leaf (the row ring, w, alpha, y, xsq
-and the ring's mbarriers) with its refusal above a limit passed in; and
+and the ring's mbarriers) with its refusal above a limit passed in, and
+the batched launch's layout and checks of its config axis (and its CPU
+route, the plain version config by config); and
 the RG-LRU scan's route (TMA or cp.async copies, by W and alignment), its
 time ring and its shared memory.  The card tests
 (tests/test_torch_cuda*.py) hold the kernels' own reckoning to these
@@ -99,6 +101,98 @@ def test_sdca_cpu_tensors_run_the_plain_version():
                                   loss=dual.squared, lm=1.6)
     assert sk.LAUNCHES == before
     assert da.shape == (2, 8) and dw.shape == (2, 12)
+
+
+def _batched_operands(B=3, K=2, m_b=8, d=12, H=5, per_leaf=False):
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(K, m_b, d, generator=g)
+    y = torch.randn(K, m_b, generator=g)
+    alpha = 0.1 * torch.randn(B, K, m_b, generator=g)
+    w = 0.1 * torch.randn(*((B, K, d) if per_leaf else (B, d)), generator=g)
+    lms = [1.6 * (b + 1) for b in range(B)]
+    xsq = torch.stack([torch.sum(X * X, dim=2) / v for v in lms])
+    idx = torch.randint(0, m_b, (B, K, H), generator=g, dtype=torch.int32)
+    mask = (torch.rand(B, K, H, generator=g) < 0.7).float()
+    return X, y, alpha, w, xsq, idx, lms, mask
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+def test_sdca_batched_layout_of_the_config_axis(per_leaf):
+    """B configs over shared X and y: w one row a config (config stride
+    d, leaf stride 0) or one a leaf (K d and d)."""
+    X, y, alpha, w, xsq, idx, lms, mask = _batched_operands(
+        per_leaf=per_leaf)
+    got = sk.batched_layout(X, y, alpha, w, xsq, idx, sk.lm_array(lms, "cpu"),
+                            mask)
+    assert got == (3, 2, 8, 12, 5, 12 if per_leaf else 0,
+                   24 if per_leaf else 12)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("X 2-D", ValueError, "X must be"),
+    ("alpha of another B", ValueError, "xsq must have shape"),
+    ("w of another B", ValueError, "w must have shape"),
+    ("idx int64", TypeError, "idx must be torch.int32"),
+    ("lm of another B", ValueError, "lm must have shape"),
+    ("mask of another H", ValueError, "step_mask must have shape"),
+    ("alpha not contiguous", ValueError, "alpha must be contiguous"),
+    ("y float64", TypeError, "y must be torch.float32"),
+    ("no config", ValueError, "B >= 1 configs"),
+])
+def test_sdca_batched_wrapper_refuses_what_the_kernel_does_not_take(
+        case, error, match):
+    X, y, alpha, w, xsq, idx, lms, mask = _batched_operands()
+    if case == "X 2-D":
+        X = X[0]
+    elif case == "alpha of another B":
+        alpha = alpha[:2]
+    elif case == "w of another B":
+        w = w[:2]
+    elif case == "idx int64":
+        idx = idx.long()
+    elif case == "lm of another B":
+        lms = lms[:2]
+    elif case == "mask of another H":
+        mask = mask[..., :4]
+    elif case == "alpha not contiguous":
+        alpha = alpha.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "y float64":
+        y = y.double()
+    elif case == "no config":
+        alpha, w, xsq, idx, mask = (t[:0] for t in (alpha, w, xsq, idx,
+                                                     mask))
+        lms = []
+    with pytest.raises(error, match=match):
+        sk.sdca_block_launch_batched(X, y, alpha, w, xsq, idx,
+                                     loss=dual.squared, lms=lms,
+                                     step_mask=mask)
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+def test_sdca_batched_cpu_tensors_run_the_plain_version_config_by_config(
+        per_leaf):
+    from repro_torch.kernels.sdca.ref import sdca_steps_ref
+    X, y, alpha, w, xsq, idx, lms, mask = _batched_operands(
+        per_leaf=per_leaf)
+    before = (sk.LAUNCHES, sk.LEAVES)
+    da, dw = sk.sdca_block_launch_batched(X, y, alpha, w, xsq, idx,
+                                          loss=dual.squared, lms=lms,
+                                          step_mask=mask)
+    assert (sk.LAUNCHES, sk.LEAVES) == before
+    assert da.shape == (3, 2, 8) and dw.shape == (3, 2, 12)
+    for b in range(3):
+        one = sdca_steps_ref(X, y, alpha[b], w[b], xsq[b], idx[b],
+                             loss=dual.squared, lm=lms[b],
+                             step_mask=mask[b])
+        assert torch.equal(da[b], one[0]) and torch.equal(dw[b], one[1])
+
+
+def test_sdca_lm_array_takes_floats_sequences_and_tensors():
+    assert torch.equal(sk.lm_array(1.5, "cpu"), torch.tensor([1.5]))
+    assert torch.equal(sk.lm_array([1.5, 2.5], "cpu"),
+                       torch.tensor([1.5, 2.5]))
+    t = sk.lm_array(torch.tensor([[3.0, 4.0]], dtype=torch.float64), "cpu")
+    assert t.dtype == torch.float32 and t.shape == (2,)
 
 
 def _views(W, a_offset, b_offset, B=2, S=3):

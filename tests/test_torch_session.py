@@ -216,20 +216,24 @@ def test_topology_json_round_trips_with_the_reference():
 
 
 def test_unported_options_raise():
-    """What the port still refuses, each naming the module it waits for:
-    server momentum, the straggler-aware planner and the batched executor
-    flavor."""
-    from repro_torch.core.delay import StragglerModel
+    """What the port still refuses, each naming the ROADMAP item it waits
+    for: checkpoints (A6, the elastic runtime), the mesh backend (A7) and
+    the LM method (A9.6); and what it refuses as the reference does."""
+    from repro_torch.core.engine.method import get_method
     topo = port_topology("star")
     X, y = data(topo.m_total)
-    with pytest.raises(NotImplementedError, match="method"):
-        Schedule(acceleration=0.5)
-    with pytest.raises(NotImplementedError, match="straggler"):
-        Schedule.auto(t_total=1.0, straggler=StragglerModel())
+    sess = Session.compile(Problem(X, y), topo, backend="torch",
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        sess.run(rounds=1, checkpoint="ckpt")
+    with pytest.raises(NotImplementedError, match="A6"):
+        sess.sweep(lams=[0.1, 0.2], checkpoint="ckpt")
     plan = tplan.compile_tree(topo.tree)
-    with pytest.raises(NotImplementedError, match="sweep"):
-        thost.get_host_executor(plan, loss=Problem(X, y).loss,
-                                device="cpu", batched=True)
+    with pytest.raises(NotImplementedError, match="A7"):
+        get_method("sdca").executor(plan=plan, backend="mesh",
+                                    loss=Problem(X, y).loss)
+    with pytest.raises(ValueError, match="unknown method 'lm_treesync'"):
+        get_method("lm_treesync")
     with pytest.raises(ValueError):
         Session.compile(Problem(X[:-1], y[:-1]), topo, device="cpu")
     with pytest.raises(ValueError):
