@@ -75,6 +75,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      problem: run(acceleration=0.0) equals phase 3's run (torch.equal),
      and the 0.5 run's gaps are printed and checked.  One launch per solve
      tick in each run;
+ 3e. checkpoints, kill and resume, elastic membership and fleets, on phase
+     3's problem and tree.  (a) 5 rounds without a checkpoint, with
+     CheckpointPolicy(every=1) and with async_save=True (seconds per root
+     round of each, bytes per snapshot): each run torch.equal to phase 3's
+     run on alpha, w, next_key and history; the snapshots past round 2 are
+     deleted (the crash) and a freshly compiled session's resume equals it
+     too.  (b) run_with_faults on phase 3b's compressed 16 x 8 session
+     (int8 root, one (128, 512) residual): 6 rounds, every=2,
+     FaultModel(crash_prob=0.5) at the first seed with a crash; the result
+     equals the uninterrupted run.  (c) ElasticSession, 4 rounds: two
+     leaves of the first group leave at round 1, an 8192-row leaf drawn on
+     the card joins the last group at round 2; plan_diffs, leaves per
+     launch (128, 126, 127) and peak memory printed; w within 1e-3 of
+     X^T alpha / (lambda m), and the last round's gap below the first
+     after the last boundary (round 2's is the old membership's).  (d)
+     phase 3c's 8-config sweep with CheckpointPolicy(every=1) (one stacked
+     group_base snapshot a round), the snapshots past round 3 deleted,
+     Sweep(resume=) continues: every member torch.equal to 3c's sweep.
+     Also verify_plan's time on the 128-leaf plan against
+     Session.compile's.  The counts are zeroed and read around each leg;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
      the kernel's bound from that tick's inputs; time it for every loss at
@@ -115,8 +135,9 @@ serving path's prefill seconds, decode tokens/s and peak memory, the
 script's own seconds, then one JSON line describing each kernel (the
 sdca_block row's launches are phase 3's run; its launches_by_path gives
 every path's launches and leaves per launch -- phase 3b's pilot and run,
-3c's two sweeps, 3d's straggler and accelerated runs -- and "batched" the
-batched launch's ms, bound and error) and, last, the device line.  Needs
+3c's two sweeps, 3d's straggler and accelerated runs, 3e's checkpoint,
+kill-and-resume, elastic and fleet legs -- and "batched" the batched
+launch's ms, bound and error) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -522,7 +543,7 @@ def compressed_path(problem, dev, card: str) -> dict:
                                  f"{label}: {err} > {allow}")
         worst = max(worst, err)
     return {"pilot_launches": pilot_launches, "launches": launches,
-            "route_err": worst, "fitted_C": sess.fitted_C}
+            "route_err": worst, "fitted_C": sess.fitted_C, "session": sess}
 
 
 def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
@@ -663,6 +684,7 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
           f"{flops} flop)  [{card}]")
     out["batched"] = {"B": B, "ms": ms, "max_abs_err": err,
                       "bound_ms": max(t_bytes, t_ops)}
+    out["session"], out["sweep_set"] = sess, sets["sweep"]
     return out
 
 
@@ -799,6 +821,256 @@ def straggler_accel_path(problem, topo, plain_run, fitted_C, dev, card,
                              "(lam m)")
     out["accelerated"] = {"launches": launches, "leaves_per_launch":
                           leaves // launches}
+    return out
+
+
+def _crash_after(root, step: int) -> None:
+    """Delete every snapshot after ``step`` under ``root``: the crash."""
+    for f in Path(root).rglob("step_*.*"):
+        if int(f.name.split(".")[0].split("_")[1]) > step:
+            f.unlink()
+
+
+def _same_run(a, b) -> bool:
+    import torch
+    return (torch.equal(a.alpha, b.alpha) and torch.equal(a.w, b.w)
+            and torch.equal(a.next_key, b.next_key)
+            and a.history == b.history)
+
+
+def elastic_path(problem, topo, sched, sess, plain_run, compressed, swept,
+                 dev, card) -> dict:
+    """Phase 3e: checkpoints and resume, kill and resume, an elastic
+    session and a resumed fleet on phase 3's problem (see the module
+    docstring).  ``sched`` / ``sess`` / ``plain_run`` are phase 3's
+    schedule, session and 5-round run, ``compressed`` / ``swept`` what
+    phases 3b / 3c returned.  Returns each leg's launches and leaves per
+    launch."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.analysis import verify_plan
+    from repro_torch.api import (CheckpointPolicy, ElasticSession,
+                                 FaultModel, MembershipLog, Schedule,
+                                 Session, Sweep, run_with_faults)
+    from repro_torch.core import dual, prng
+    from repro_torch.data.synthetic import gaussian_regression
+    from repro_torch.kernels.sdca import kernel
+    out = {}
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "checkpoints"
+    scratch.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=scratch))
+    n, rounds = topo.n_leaves, 5
+    solves = int(sess.executor.solves.sum())
+
+    # ---- verify_plan on every compile: its share of Session.compile -----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = Session.compile(problem, topo, sched, backend="cuda",
+                            device=dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_plan(fresh.plan)
+    verify_s = time.perf_counter() - t0
+    print(f"elastic path: verify_plan on the {n}-leaf plan "
+          f"{verify_s * 1e3:.3f} ms against Session.compile's "
+          f"{compile_s * 1e3:.3f} ms (which runs it)")
+
+    # ---- (a) checkpoint and resume ---------------------------------------
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    secs = {}
+    runs = {}
+    for label, policy in (
+            ("none", None),
+            ("every=1", CheckpointPolicy(work / "sync", every=1, keep=5)),
+            ("every=1 async", CheckpointPolicy(work / "async", every=1,
+                                               keep=5, async_save=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = sess.run(key=prng.PRNGKey(0), checkpoint=policy)
+        torch.cuda.synchronize()
+        secs[label] = (time.perf_counter() - t0) / rounds
+    for label, r in runs.items():
+        if not _same_run(r, plain_run):
+            raise AssertionError(f"the {label} run differs from phase 3's "
+                                 f"uncheckpointed run")
+    snap = work / "sync" / "step_0000000001.npz"
+    snap_bytes = snap.stat().st_size + snap.with_suffix(".json").stat(
+        ).st_size
+    _crash_after(work / "sync", 2)
+    again = Session.compile(problem, topo, sched, backend="cuda",
+                            device=dev)
+    resumed = again.resume(work / "sync")
+    torch.cuda.synchronize()
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    if not _same_run(resumed, plain_run):
+        raise AssertionError("the run resumed after round 2 differs from "
+                             "the uncheckpointed run")
+    want = solves * (3 * rounds + (rounds - 2))
+    if launches != want or leaves != launches * n:
+        raise AssertionError(f"checkpoint leg: {launches} launches of "
+                             f"{leaves} leaves, expected {want} of {n}")
+    print(f"elastic path: 5 root rounds on {n} leaves, seconds per root "
+          f"round: {secs['none']:.4f} without a checkpoint, "
+          f"{secs['every=1']:.4f} with CheckpointPolicy(every=1), "
+          f"{secs['every=1 async']:.4f} with async_save=True; "
+          f"{snap_bytes} bytes per snapshot; both runs and a fresh "
+          f"session's resume after the snapshots past round 2 were "
+          f"deleted torch.equal to the uncheckpointed run (alpha, w, "
+          f"next_key, history); {launches} launches of {n} leaves  [{card}]")
+    out["checkpoint"] = {"launches": launches, "leaves_per_launch": n}
+    # two checkpointed root rounds under the profiler (after the count)
+    profile_window(lambda: sess.run(rounds=2, key=prng.PRNGKey(0),
+                                    checkpoint=CheckpointPolicy(
+                                        work / "profiled", every=1)),
+                   "two root rounds with CheckpointPolicy(every=1)", card)
+    kernel.LAUNCHES, kernel.LEAVES = launches, leaves
+
+    # ---- (b) kill and resume on phase 3b's compressed session -----------
+    sess_c = compressed["session"]
+    fm = FaultModel(crash_prob=0.5)
+    seed = next(s for s in range(100) if fm.sample_crashes(6, s))
+    ref_c = sess_c.run(6, key=prng.PRNGKey(0))
+    solves_c = int(sess_c.executor.solves.sum())
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    t0 = time.perf_counter()
+    res_c, report = run_with_faults(
+        sess_c, 6, checkpoint=CheckpointPolicy(work / "faults", every=2),
+        fault=fm, key=prng.PRNGKey(0), seed=seed)
+    torch.cuda.synchronize()
+    fault_s = time.perf_counter() - t0
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    legs = report["crashes"][0] + sum(
+        r["ran_to"] - r["resumed_from"] for r in report["restarts"])
+    print(f"elastic path: run_with_faults on the compressed 16 x 8 session "
+          f"(specs {sess_c.resolved.compression}, {len(sess_c.executor.res_slot)} "
+          f"residual of ({sess_c.plan.n_leaves}, {problem.d})): 6 rounds, "
+          f"every=2, FaultModel(crash_prob=0.5), seed {seed}, crashes "
+          f"{report['crashes']}, restarts {report['restarts']}; "
+          f"{legs} root rounds run in {fault_s:.3f} s; {launches} launches "
+          f"of {leaves // max(launches, 1)} leaves  [{card}]")
+    if not report["crashes"]:
+        raise AssertionError("the fault model sampled no crash")
+    if not _same_run(res_c, ref_c):
+        raise AssertionError("the killed-and-resumed compressed run differs "
+                             "from the uninterrupted run")
+    if launches != solves_c * legs or leaves != launches * n:
+        raise AssertionError(f"kill-and-resume leg: {launches} launches of "
+                             f"{leaves} leaves for {solves_c * legs} ticks")
+    out["kill_resume"] = {"launches": launches, "leaves_per_launch": n}
+
+    # ---- (c) elastic: two leaves leave, one joins ------------------------
+    first, last = topo.tree.children[0], topo.tree.children[-1]
+    m_leaf = first.children[0].data_size
+    Xj, yj = gaussian_regression(m=m_leaf, d=problem.d, seed=1, device=dev)
+    gone = [first.children[0].name, first.children[1].name]
+    log = (MembershipLog().leave(gone[0], at_round=1)
+           .leave(gone[1], at_round=1)
+           .join("J0", Xj, yj, at_round=2, parent=last.name))
+    es = ElasticSession(problem, topo, Schedule(level_rounds=[2],
+                                                local_steps=8192,
+                                                weighting="size"),
+                        backend="cuda", device=dev)
+    per_launch = []
+    launch = kernel.sdca_block_launch_batched
+
+    def logged(*a, **k):
+        n0 = kernel.LEAVES
+        got = launch(*a, **k)
+        per_launch.append(kernel.LEAVES - n0)
+        return got
+    kernel.sdca_block_launch_batched = logged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    t0 = time.perf_counter()
+    try:
+        res_e = es.run(4, membership=log, key=prng.PRNGKey(0))
+        torch.cuda.synchronize()
+    finally:
+        kernel.sdca_block_launch_batched = launch
+    elastic_s = time.perf_counter() - t0
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    peak = torch.cuda.max_memory_allocated()
+    cur = es.current_problem
+    w_ref = dual.w_of_alpha(res_e.alpha, cur.X, cur.lam)
+    w_err = float((res_e.w - w_ref).abs().max())
+    w_scale = float(w_ref.abs().max())
+    gaps = {h["round"]: h["gap"] for h in res_e.history}
+    diffs = [{k: v for k, v in d.items() if k != "weights_changed"}
+             | {"weights_changed": len(d["weights_changed"])}
+             for d in es.plan_diffs]
+    print(f"elastic path: ElasticSession on {n} leaves, 4 rounds, "
+          f"{gone} leave at round 1, J0 ({m_leaf} rows) joins {last.name} at "
+          f"round 2: m {problem.m} -> {cur.m}, plan_diffs {diffs}; "
+          f"leaves per launch {per_launch}; gaps "
+          f"{[f'{g:.6e}' for g in res_e.gaps]}; max|w - X^T alpha/(lam m)| "
+          f"{w_err:.3e} of {w_scale:.3e}; {elastic_s:.3f} s; peak device "
+          f"memory {peak / 2**30:.3f} GiB  [{card}]")
+    want = [n] * solves + [n - 2] * solves + [n - 1] * 2 * solves
+    if per_launch != want or launches != len(want):
+        raise AssertionError(f"elastic run: leaves per launch {per_launch}, "
+                             f"expected {want}")
+    if cur.m != problem.m - m_leaf or \
+            tuple(res_e.alpha.shape) != (cur.m,):
+        raise AssertionError("elastic run: the spliced problem's size")
+    if not w_err <= 1e-3 * w_scale:
+        raise AssertionError("elastic run: w drifted from X^T alpha / "
+                             "(lam m)")
+    # the history's round-2 gap is the old membership's; the new one's
+    # first is round 3's, and the solve must go on closing it
+    if not (all(math.isfinite(g) for g in res_e.gaps)
+            and gaps[4] < gaps[3]):
+        raise AssertionError(f"elastic run: the gap did not fall after the "
+                             f"last boundary: {gaps}")
+    out["elastic"] = {"launches": launches,
+                      "leaves_per_launch": list(dict.fromkeys(per_launch))}
+    del es, res_e, cur, Xj, yj
+
+    # ---- (d) a checkpointed fleet, crashed and resumed -------------------
+    sess_s, ref_s = swept["session"], swept["sweep_set"]
+    grid = dict(lams=[1e-3, 3e-4, 1e-4, 3e-5], seeds=[0, 1])
+    B = len(ref_s)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES = kernel.LEAVES = 0
+    t0 = time.perf_counter()
+    sess_s.sweep(Sweep(**grid), checkpoint=CheckpointPolicy(work / "fleet",
+                                                             every=1))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    files = sorted(p.name for p in (work / "fleet" / "group_base").iterdir())
+    _crash_after(work / "fleet", 3)
+    rs = sess_s.sweep(Sweep(**grid, resume=work / "fleet"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+    solves_s = int(sess_s.executor.solves.sum())
+    for b in range(B):
+        if not (torch.equal(rs.alphas[b], ref_s.alphas[b])
+                and torch.equal(rs.ws[b], ref_s.ws[b])):
+            raise AssertionError(f"resumed fleet member {b} differs from "
+                                 f"the uncheckpointed sweep")
+    if not np.array_equal(rs.gaps, ref_s.gaps):
+        raise AssertionError("resumed fleet histories differ")
+    want = solves_s * (rounds + rounds - 3)
+    if launches != want or leaves != launches * B * n:
+        raise AssertionError(f"fleet leg: {launches} launches of {leaves} "
+                             f"leaves, expected {want} of {B * n}")
+    print(f"elastic path: Session.sweep({grid}) with CheckpointPolicy("
+          f"every=1): {files} in group_base; {(t1 - t0) / rounds:.4f} s per "
+          f"root round for all {B} configs; after the snapshots past round "
+          f"3 were deleted, Sweep(resume=) ran 2 rounds in {t2 - t1:.3f} s "
+          f"and every member is torch.equal to the uncheckpointed sweep; "
+          f"{launches} launches of {leaves // launches} leaves  [{card}]")
+    out["fleet"] = {"launches": launches, "leaves_per_launch": B * n}
+    shutil.rmtree(work)
+    print(f"elastic path: phase 3e took {time.perf_counter() - t_phase:.1f} "
+          f"s  [{card}]")
     return out
 
 
@@ -1247,6 +1519,11 @@ def main() -> int:
     strag = straggler_accel_path(problem, topo, res, compressed["fitted_C"],
                                  dev, card)
 
+    # ---- 3e. checkpoints, kill and resume, elastic membership, fleets ----
+    elastic = elastic_path(problem, topo, sched, sess, res, compressed,
+                           swept, dev, card)
+    del compressed["session"], swept["session"], swept["sweep_set"]
+
     # ---- 4. the kernel on one of the main path's ticks -----------------------
     ex, data = sess.executor, sess.data
     K, m_b = sess.plan.n_leaves, sess.plan.m_b
@@ -1329,7 +1606,7 @@ def main() -> int:
         "name": "sdca_block",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sdca/csrc/sdca_block.cu",
-        "replaces": "src/repro/kernels/sdca/kernel.py:79",
+        "replaces": "src/repro/kernels/sdca/kernel.py:77",
         "launches": launches,
         "launches_by_path": {
             "main": {"launches": launches, "leaves_per_launch": K},
@@ -1340,7 +1617,7 @@ def main() -> int:
             **{name: {k: swept[name][k]
                       for k in ("launches", "leaves_per_launch")}
                for name in ("sweep", "sweep_local_hs")},
-            **strag},
+            **strag, **elastic},
         "batched": swept["batched"],
         "max_abs_err": max(worst, swept["batched"]["max_abs_err"]),
         "ms": ms,

@@ -24,8 +24,13 @@ per solve tick for all configs) and return a :class:`RunSet`::
 
 ``Session.run(straggler=StragglerPolicy(...))`` (``runtime/
 straggler.py``, with ``core/delay.py::StragglerModel``) runs the paper's
-straggler-adaptive async rounds.  Checkpoints and the elastic runtime,
-the mesh backend and LM training are not ported yet (see ROADMAP).
+straggler-adaptive async rounds.  ``Session.run(checkpoint=
+CheckpointPolicy(...))`` snapshots a solve and ``Session.resume`` continues
+it bit for bit (``run_with_faults`` drives simulated kill-and-resume
+runs); :class:`ElasticSession` runs a solve whose leaves leave and join
+mid-run (a :class:`MembershipLog`), and ``Sweep(resume=)`` continues a
+checkpointed fleet.  The mesh backend and LM training are not ported yet
+(see ROADMAP).
 """
 from repro_torch.api.problem import Problem                   # noqa: F401
 from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401
@@ -33,6 +38,11 @@ from repro_torch.api.session import Session, solve            # noqa: F401
 from repro_torch.api.sweep import RunSet, Sweep, sweep        # noqa: F401
 from repro_torch.api.topology import Topology                 # noqa: F401
 from repro_torch.core.instrument import SolveResult           # noqa: F401
+from repro_torch.runtime.fault import (                       # noqa: F401
+    CheckpointPolicy, ElasticSession, FaultModel, MembershipLog,
+    run_with_faults)
 
 __all__ = ["Problem", "Topology", "Schedule", "DelayModel", "Session",
-           "SolveResult", "Sweep", "RunSet", "solve", "sweep"]
+           "SolveResult", "Sweep", "RunSet", "solve", "sweep",
+           "CheckpointPolicy", "ElasticSession", "FaultModel",
+           "MembershipLog", "run_with_faults"]

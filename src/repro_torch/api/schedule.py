@@ -28,9 +28,9 @@ simulated-time budget.
 * ``acceleration=`` selects the accelerated ``sdca_acc`` method (server
   momentum, the coefficient a runtime scalar of the executor).
 
-The JAX package's ``api/schedule.py``.  ``resolved.ckpt_every`` is
-computed; the ``CheckpointPolicy`` that executes it belongs to the
-elastic runtime, not ported yet (ROADMAP A6).
+The JAX package's ``api/schedule.py``.  ``resolved.ckpt_every`` (the
+Young/Daly period of ``DelayModel(mtbf=, ckpt_write=)``) is what
+``CheckpointPolicy(every="auto")`` runs (``runtime/fault.py``).
 """
 from __future__ import annotations
 

@@ -21,7 +21,11 @@ lays it out in the executor's blocked form and builds the executor.
     method; ``run(acceleration=)`` overrides the coefficient per run);
   * sweeps (:meth:`Session.sweep`, ``api/sweep.py``): a lambda x seed x
     local-H grid through one batched executor, one kernel launch per
-    solve tick for every config.
+    solve tick for every config;
+  * checkpoints (``checkpoint=`` a ``runtime/fault.py::CheckpointPolicy``
+    or a directory) and :meth:`Session.resume`, which continues a
+    checkpointed solve bit for bit, from this package's files or the JAX
+    package's.
 
 A run threads the executor's full state (``init`` once, ``step`` per
 root round, ``finalize`` where it records): compressed plans carry their
@@ -32,7 +36,9 @@ threaded state equals a restart from (alpha, w), so (alpha, w, RNG chain)
 is a complete carry between runs.  ``Schedule(rounds="auto")`` plans the
 per-level H with the paper's eq. (12) at compile time, and
 ``DelayModel(C="auto")`` first fits the improvement constant from a
-pilot run on the session's own backend and device.  Backends: ``"cuda"``
+pilot run on the session's own backend and device.  Every compiled plan
+passes the plan verifier (``analysis/plan_check.py::verify_plan``) before
+an executor is built against it.  Backends: ``"cuda"``
 (the ``sdca_block`` kernel, the default) and ``"torch"`` (its plain
 version).  History values are recorded as device scalars and pulled to
 the host in one transfer (:func:`materialize_history`) at stream points
@@ -46,6 +52,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis import plan_check
 from repro_torch.api.problem import Problem
 from repro_torch.api.schedule import (ResolvedSchedule, Schedule,
                                       leaf_h_spec, runtime_tree)
@@ -118,7 +125,10 @@ class Session:
         executor on ``device``.  A ``rounds="auto"`` schedule whose
         DelayModel has ``C="auto"`` first runs the calibration pilot
         (:func:`_calibrate_C`) on the same backend and device;
-        ``Schedule(acceleration=)`` binds the accelerated executor."""
+        ``Schedule(acceleration=)`` binds the accelerated executor.  The
+        plan verifier (``analysis/plan_check.py::verify_plan``) runs on
+        every compiled plan and raises ``AnalysisError`` on a malformed
+        one."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         schedule = schedule or Schedule()
@@ -141,6 +151,10 @@ class Session:
         plan = plan_mod.compile_tree(resolved.chunk_tree,
                                      weighting=resolved.weighting,
                                      compression=resolved.compression)
+        # geometry, schedule coherence, aggregation convexity, compression
+        # specs, RNG schedule independence and fingerprint soundness,
+        # checked before an executor is built against the plan
+        plan_check.verify_plan(plan)
         ex = method.executor(plan=plan, loss=problem.loss, backend=backend,
                              device=problem.device)
         sess = cls(problem, topology, resolved, backend, plan, ex,
@@ -183,6 +197,9 @@ class Session:
         local_h=None,
         acceleration: Optional[float] = None,
         checkpoint=None,
+        _ef_state=None,
+        _history_prefix=(),
+        _final_save: bool = True,
         _defer_history: bool = False,
     ) -> SolveResult:
         """Run ``rounds`` root rounds (default: the schedule's).
@@ -212,14 +229,28 @@ class Session:
         NEXT chunk's step mask (clamped to the compiled capacity), each
         chunk's H recorded as ``"h"``.
 
+        ``checkpoint`` (a directory or a ``runtime/fault.py::
+        CheckpointPolicy``) snapshots the carry every ``policy.every``
+        root rounds on the global round cursor, and always the final
+        round: flat (alpha, w), the advanced root RNG key, any
+        error-feedback residuals, and the metadata (plan fingerprint,
+        round and time cursors, lambda, local_h, the recorded history)
+        with which :meth:`resume` continues the run bit for bit.  The
+        snapshot is cloned on the device and written one period later
+        (or at the end of the run), so the host transfer does not stall
+        the rounds in between.  Checkpoints compose with compression but
+        not with ``straggler=`` (absent leaves' divergent replicas are not
+        in the flat payload).
+
         ``acceleration`` overrides the momentum coefficient for this run
         (sessions compiled with ``Schedule(acceleration=...)`` only; a
         value in [0, 1], 0 giving plain SDCA bit for bit); accelerated
         runs do not compose with ``straggler=`` or ``checkpoint=``.
-        ``checkpoint`` needs the elastic runtime, which is not ported yet
-        (ROADMAP A6).  ``_defer_history`` leaves the recorded objective
-        values as device scalars for the caller to pull in one batch
-        (:func:`materialize_history`; the sweep layer's path)."""
+        ``_ef_state`` / ``_history_prefix`` / ``_final_save`` are
+        :meth:`resume`'s restore hooks; ``_defer_history`` leaves the
+        recorded objective values as device scalars for the caller to
+        pull in one batch (:func:`materialize_history`; the sweep layer's
+        path)."""
         T = self.resolved.rounds if rounds is None else int(rounds)
         if T < 0:
             raise ValueError(f"rounds must be >= 0, got {T}")
@@ -256,6 +287,7 @@ class Session:
                 "per-depth momentum anchors are part of the chunk carry "
                 "but not of the flat (alpha, w, residuals) snapshot "
                 "payload, so a resumed run would diverge")
+        ckpt_mgr, ck_every, ckpt_pending, k_lag = None, 0, None, 0
         if checkpoint is not None:
             if straggler is not None:
                 raise ValueError(
@@ -264,10 +296,11 @@ class Session:
                     "divergent per-leaf replicas and stale snapshots the "
                     "flat chunk-carry payload cannot represent; checkpoint "
                     "synchronous (or compressed) runs only")
-            raise NotImplementedError(
-                "run(checkpoint=) needs runtime/checkpoint.py and "
-                "runtime/fault.py (CheckpointPolicy), which are not ported "
-                "yet (ROADMAP A6)")
+            from repro_torch.runtime import fault as fault_mod
+            _, ckpt_mgr, ck_every = fault_mod.bind_policy(
+                checkpoint, self.resolved)
+            h_meta = None if local_h is None else \
+                np.asarray(local_h).tolist()
         acc_args = (float(acc_run),) if accelerated else ()
 
         alpha, w, k = self._start_state(warm_start, key, lam)
@@ -291,6 +324,13 @@ class Session:
         clock = {"async": t0_time, "sync": t0_time}
         ex = self.executor
         state = ex.init(X, alpha, w)
+        if _ef_state:
+            # the restore path: the checkpointed error-feedback residuals,
+            # the one part of the state that does not collapse into
+            # (alpha, w) at a root-round boundary
+            from repro_torch.runtime import fault as fault_mod
+            state = fault_mod.with_ef_residuals(self, state, _ef_state)
+        k_cur = k
 
         def record(t: int, a_flat: Tensor, extra: Optional[dict] = None):
             if not record_history:
@@ -362,12 +402,122 @@ class Session:
                             steps_now, lm, *acc_args)
             if record_history and (t % every == 0 or t == T):
                 record(t, ex.finalize(state)[0], extra)
+            if ckpt_mgr is None:
+                continue
+            k_lag += 1
+            # period alignment is on the GLOBAL round cursor, so a resumed
+            # leg snapshots at the rounds the uninterrupted run would
+            if (t0_round + t) % ck_every == 0 or (t == T and _final_save):
+                # the RNG chain advances lazily, once per snapshot
+                k_cur = plan_mod.advance_root_key(k_cur, k_lag, K_root)
+                k_lag = 0
+                af, wf = ex.finalize(state)
+                # cloned on the device: the payload outlives this state
+                # (the write lags one period) and finalize may give views
+                payload = {
+                    "alpha": af.clone(), "w": wf.clone(),
+                    "key": k_cur.numpy().astype(np.uint32),
+                    "res": [r.clone()
+                            for r in fault_mod.ef_residuals(self, state)],
+                }
+                materialize_history(history)       # the metadata is JSON
+                meta = {
+                    "version": fault_mod.PAYLOAD_VERSION,
+                    "round": t0_round + t,
+                    "sim_time": t0_time + t * dt,
+                    "rounds_total": t0_round + T,
+                    "lam": float(lam),
+                    "m": int(m), "d": int(self.problem.d),
+                    "plan": plan.fingerprint,
+                    "local_h": h_meta,
+                    "history": list(_history_prefix) + history,
+                }
+                # the previous snapshot reaches the host now, a period
+                # after it was taken
+                if ckpt_pending is not None:
+                    ckpt_mgr.save(*ckpt_pending)
+                ckpt_pending = (t0_round + t, payload, meta)
+        if ckpt_mgr is not None:
+            if ckpt_pending is not None:
+                ckpt_mgr.save(*ckpt_pending)
+            ckpt_mgr.wait()       # surface async-save failures before exit
         alpha, w = ex.finalize(state)
         next_key = plan_mod.advance_root_key(k, T, K_root)
         if not _defer_history:
             materialize_history(history)
         return SolveResult(alpha=alpha, w=w, history=history,
                            next_key=next_key, lam=lam)
+
+    # ------------------------------------------------------------------
+    def resume(
+        self,
+        checkpoint,
+        *,
+        rounds: Optional[int] = None,
+        record_history: bool = True,
+        history_every: int = 1,
+        on_round: Optional[Callable[[dict], None]] = None,
+        lam: Optional[float] = None,
+        local_h=None,
+        _final_save: bool = True,
+    ) -> SolveResult:
+        """Restart a checkpointed solve from its newest complete snapshot,
+        bit for bit as the uninterrupted run.
+
+        ``checkpoint`` is the directory (or ``runtime/fault.py::
+        CheckpointPolicy``) a previous ``run(checkpoint=...)`` wrote, in
+        this package or the JAX package (the formats are one).  The plan
+        fingerprint and (m, d) are checked against this session's.  Runs
+        the remaining rounds (``rounds_total - step``, or ``rounds=``),
+        keeps checkpointing into the same directory, and returns a result
+        whose history is the whole series from round 0.  ``lam`` /
+        ``local_h`` default to the values recorded at save time."""
+        from repro_torch.runtime import fault as fault_mod
+        policy, mgr, _ = fault_mod.bind_policy(checkpoint, self.resolved)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no complete checkpoints under {policy.directory!r}")
+        meta = mgr.metadata(step)
+        if meta.get("plan") != self.plan.fingerprint:
+            raise ValueError(
+                "checkpoint was written under a different plan "
+                "(topology/schedule/weighting/compression changed between "
+                "save and resume); compile a matching session")
+        m, d = self.problem.m, self.problem.d
+        if int(meta["m"]) != m or int(meta["d"]) != d:
+            raise ValueError(
+                f"checkpoint is for an (m={meta['m']}, d={meta['d']}) "
+                f"problem; this session has (m={m}, d={d})")
+        template = fault_mod.payload_template(
+            self.plan, m, d, self.problem.X.dtype)
+        step, payload = mgr.restore(template, step)
+        remaining = int(meta["rounds_total"]) - step if rounds is None \
+            else int(rounds)
+        if remaining < 0:
+            raise ValueError(f"rounds must be >= 0, got {remaining}")
+        lam_run = float(meta["lam"]) if lam is None else float(lam)
+        h_run = meta.get("local_h") if local_h is None else local_h
+        prefix = [dict(e) for e in meta.get("history", [])]
+        # the warm-start anchor continues the round and time axes from the
+        # restored cursor, not from the last recorded entry: decimation
+        # may have skipped the snapshot's round
+        anchor = {"round": step, "time": float(meta["sim_time"]),
+                  "dual": float("nan"), "primal": float("nan"),
+                  "gap": float("nan")}
+        ws = SolveResult(
+            alpha=torch.as_tensor(payload["alpha"], device=self.device),
+            w=torch.as_tensor(payload["w"], device=self.device),
+            history=[anchor], next_key=prng.as_key(payload["key"]),
+            lam=lam_run)
+        out = self.run(remaining, warm_start=ws,
+                       record_history=record_history,
+                       history_every=history_every, on_round=on_round,
+                       lam=lam_run, local_h=h_run, checkpoint=policy,
+                       _ef_state=list(payload["res"]),
+                       _history_prefix=prefix, _final_save=_final_save)
+        out.history = prefix + out.history
+        return out
 
     # ------------------------------------------------------------------
     def straggler_policy(self, *, seed: int = 0, adaptive=None, **kw):

@@ -33,17 +33,25 @@ How it runs:
 Every member equals the corresponding standalone ``Session.run`` bit for
 bit, histories included: each member's objective is evaluated by the same
 function on the same values as the single run's, and all of them reach
-the host in one transfer at the end.  Not ported yet: checkpointed
-fleets (the JAX package's ``Sweep(resume=)``; here ``checkpoint=``
-raises) wait for the elastic runtime (ROADMAP A6), mesh sweeps for the
-mesh backend (A7), and the LM learning-rate axis (``lrs=``) for the LM
-workload (A9.6).
+the host in one transfer at the end.
+
+``checkpoint=`` makes a fleet resumable (``Sweep(resume=<dir>)``): a
+``fleet.json`` spec record at the root, one stacked ``group_<i>/`` (or
+``group_base/``) snapshot per fused group of a stateless plan, and
+per-member ``member_<i>/`` snapshots for compressed, accelerated and
+continuation groups, which then run member at a time through
+``Session.run`` (their residuals and anchors do not fit a stacked (a, w)
+file).  Not ported yet: mesh sweeps wait for the mesh backend (ROADMAP
+A7), the LM learning-rate axis (``lrs=``) for the LM workload (A9.6).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+import json
+import os
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,7 +119,12 @@ class Sweep:
       (schedules outermost, then lams, then local_hs, then seeds);
       ``"zip"``: elementwise (all given axes of one length);
     * ``continuation=True`` -- a warm-started regularization path over
-      the lambda axis (descending), per (schedule, local_h, seed) chain.
+      the lambda axis (descending), per (schedule, local_h, seed) chain;
+    * ``resume=`` -- a fleet checkpoint directory a previous
+      ``run_sweep(..., checkpoint=...)`` of the SAME spec wrote (checked
+      against its ``fleet.json``): completed members restore, interrupted
+      ones continue from their newest snapshot, untouched ones run from
+      scratch -- every member bit for bit its uninterrupted run.
     """
     lams: Optional[Sequence[float]] = None
     seeds: Optional[Sequence] = None
@@ -119,6 +132,7 @@ class Sweep:
     local_hs: Optional[Sequence] = None
     mode: str = "grid"
     continuation: bool = False
+    resume: Optional[Union[str, os.PathLike]] = None
 
     def __post_init__(self):
         if self.mode not in ("grid", "zip"):
@@ -302,16 +316,38 @@ def _steps_for_point(gsess, pt: SweepPoint) -> np.ndarray:
         plan_mod.steps_for_h(plan, h)
 
 
+def _fleet_every(policy, resolved) -> int:
+    """Resolve a fleet policy's ``every`` against a group's schedule."""
+    every = policy.every
+    if every == "auto":
+        every = getattr(resolved, "ckpt_every", None)
+        if every is None:
+            raise ValueError(
+                "CheckpointPolicy(every='auto') needs a schedule compiled "
+                "with DelayModel(mtbf=..., ckpt_write=...)")
+    return int(every)
+
+
 def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
-                       history_every, warm=None) -> List[SolveResult]:
+                       history_every, fleet=None, warm=None
+                       ) -> List[SolveResult]:
     """The fused path: a schedule group's (lambda x local-H x seed)
     configs through ONE batched executor -- lambda enters as the
     per-config ``lm``, the H axis as the per-config step mask, and each
     solve tick is one ``sdca_block`` launch for all of them.  ``warm`` is
     an optional stacked warm start ``(alphas (B, m), ws (B, d))`` (the
-    continuation path's stage hand-off)."""
+    continuation path's stage hand-off).
+
+    ``fleet`` is ``(policy, group_dir, resuming)`` when the sweep
+    checkpoints: the group snapshots its stacked ``(B, m)`` / ``(B, d)``
+    iterates at root-round boundaries (ONE file per group: the members
+    advance in lockstep), and a resume restores the stack, re-derives
+    each member's key plan from the (checked identical) spec and
+    continues the loop mid-run bit for bit.  Only stateless groups take
+    this path with a fleet."""
     from repro_torch.api.session import _objective
     from repro_torch.core.engine.method import get_method
+    from repro_torch.runtime.fault import _np_dtype
     prob, plan, resolved = gsess.problem, gsess.plan, gsess.resolved
     X, y, loss, dev = prob.X, prob.y, prob.loss, gsess.device
     m = prob.m
@@ -348,6 +384,33 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
         a = torch.zeros((B, m), dtype=X.dtype, device=dev)
         w = torch.zeros((B, prob.d), dtype=X.dtype, device=dev)
 
+    mgr, ck_every, t0 = None, 0, 0
+    hist_prefix: List[List[dict]] = [[] for _ in pts]
+    if fleet is not None:
+        from repro_torch.runtime.checkpoint import CheckpointManager
+        policy, gdir, resuming = fleet
+        mgr = CheckpointManager(directory=str(gdir), keep=policy.keep,
+                                async_save=policy.async_save)
+        ck_every = _fleet_every(policy, resolved)
+        if resuming and mgr.latest_step() is not None:
+            meta = mgr.metadata()
+            if meta.get("plan") != plan.fingerprint:
+                raise ValueError(
+                    "fleet group checkpoint was written under a different "
+                    "plan; resume with the identical spec and session")
+            if int(meta["rounds_total"]) != T:
+                raise ValueError(
+                    f"fleet group was launched for {meta['rounds_total']} "
+                    f"rounds, this resume asks for {T}")
+            dt = _np_dtype(X.dtype)
+            template = {"a": np.zeros((B, m), dt),
+                        "w": np.zeros((B, prob.d), dt)}
+            t0, payload = mgr.restore(template)
+            a = torch.as_tensor(payload["a"], device=dev)
+            w = torch.as_tensor(payload["w"], device=dev)
+            hist_prefix = [list(h) for h in meta.get(
+                "histories", [[] for _ in pts])]
+
     # the objective of each member queued as device scalars, by the
     # function the single run records with, on a fresh copy of its alpha
     # (the single run's alpha is a fresh tensor too), and pulled to the
@@ -359,23 +422,35 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
             _objective(a_batch[b].clone(), X, y, loss, float(pt.lam))
             for b, pt in enumerate(pts)]))
 
+    def hists_now() -> List[List[dict]]:
+        out = [list(h) for h in hist_prefix]
+        if recorded:
+            vals = torch.stack([torch.stack([torch.stack(v) for v in row])
+                                for _, row in recorded]).tolist()
+            for (t_r, _), vrow in zip(recorded, vals, strict=True):
+                for b, (dv, pv) in enumerate(vrow):
+                    record_round(out[b], t_r, t_r * dts[b], float(dv),
+                                 float(pv))
+        return out
+
     state = ex.init(X, a, w)
-    if record_history:
+    if record_history and t0 == 0:
         rec(0, a)
-    for t in range(1, T + 1):
+    for t in range(t0 + 1, T + 1):
         state = ex.step(gsess.data, keys_all[:, t - 1], state, part, steps,
                         lms, *acc_args)
         if record_history and (t % every == 0 or t == T):
             rec(t, ex.finalize(state)[0])
+        if mgr is not None and (t % ck_every == 0 or t == T):
+            af, wf = ex.finalize(state)
+            mgr.save(t, {"a": af, "w": wf},
+                     {"round": t, "rounds_total": T,
+                      "plan": plan.fingerprint,
+                      "histories": hists_now()})
+    if mgr is not None:
+        mgr.wait()
     a, w = ex.finalize(state)
-    histories: List[List[dict]] = [[] for _ in pts]
-    if recorded:
-        vals = torch.stack([torch.stack([torch.stack(v) for v in row])
-                            for _, row in recorded]).tolist()
-        for (t_r, _), vrow in zip(recorded, vals, strict=True):
-            for b, (dv, pv) in enumerate(vrow):
-                record_round(histories[b], t_r, t_r * dts[b], float(dv),
-                             float(pv))
+    histories = hists_now()
     return [SolveResult(alpha=a[b], w=w[b], history=histories[b],
                         next_key=plan_mod.advance_root_key(
                             raw_keys[b], T, K_root),
@@ -419,23 +494,50 @@ def _run_group_continuation(gsess, pts: List[SweepPoint], rounds,
     return [results[pt.index] for pt in pts]
 
 
+def _member_result(gsess, pt: SweepPoint, rounds, record_history,
+                   history_every, warm, fleet) -> SolveResult:
+    """One sequential member, through its own checkpoint directory
+    (``member_<index>`` under the fleet root) when the fleet checkpoints:
+    on resume a completed member restores, an interrupted one continues
+    mid-run and an untouched one runs from scratch -- each bit for bit
+    its uninterrupted run."""
+    if fleet is None:
+        return gsess.run(rounds, key=pt.key(), lam=pt.lam,
+                         local_h=pt.local_h, warm_start=warm,
+                         record_history=record_history,
+                         history_every=history_every, _defer_history=True)
+    policy, root, resuming = fleet
+    mp = dataclasses.replace(
+        policy, directory=str(Path(root) / f"member_{pt.index:04d}"))
+    if resuming:
+        try:
+            return gsess.resume(mp, record_history=record_history,
+                                history_every=history_every, lam=pt.lam,
+                                local_h=pt.local_h)
+        except FileNotFoundError:
+            pass                      # never started: run from scratch
+    return gsess.run(rounds, key=pt.key(), lam=pt.lam, local_h=pt.local_h,
+                     warm_start=warm, record_history=record_history,
+                     history_every=history_every, checkpoint=mp,
+                     _defer_history=True)
+
+
 def _run_group_sequential(gsess, pts: List[SweepPoint], rounds,
-                          record_history, history_every, continuation
-                          ) -> List[SolveResult]:
+                          record_history, history_every, continuation,
+                          fleet=None) -> List[SolveResult]:
     """Member at a time through ``Session.run`` (each member IS its
-    standalone run): the JAX package's fallback for checkpointed fleets,
-    and here the plain version the fused runners are held against.
-    Histories stay deferred inside each run and reach the host after the
-    member loop."""
+    standalone run): the path of checkpointed fleets whose members carry
+    per-member snapshot state (continuation chains, compressed and
+    accelerated carries), and the plain version the fused runners are
+    held against.  Histories stay deferred inside each run and reach the
+    host after the member loop."""
     from repro_torch.api.session import materialize_history
     X = gsess.problem.X
     results: Dict[int, SolveResult] = {}
 
     def member(pt, warm):
-        return gsess.run(rounds, key=pt.key(), lam=pt.lam,
-                         local_h=pt.local_h, warm_start=warm,
-                         record_history=record_history,
-                         history_every=history_every, _defer_history=True)
+        return _member_result(gsess, pt, rounds, record_history,
+                              history_every, warm, fleet)
 
     if continuation:
         # per-seed chains over the lambda path, strongest regularization
@@ -460,17 +562,58 @@ def _run_group_sequential(gsess, pts: List[SweepPoint], rounds,
     return [results[pt.index] for pt in pts]
 
 
+def _fleet_policy(checkpoint, spec: Sweep):
+    """Normalize ``run_sweep``'s ``checkpoint=`` / ``Sweep.resume`` pair
+    into one ``runtime/fault.py::CheckpointPolicy`` rooted at the fleet
+    directory (``None`` when the sweep does not checkpoint)."""
+    from repro_torch.runtime.fault import CheckpointPolicy
+    if isinstance(checkpoint, (str, os.PathLike)):
+        checkpoint = CheckpointPolicy(directory=str(checkpoint))
+    if spec.resume is None:
+        return checkpoint
+    if checkpoint is not None and \
+            str(checkpoint.directory) != str(spec.resume):
+        raise ValueError(
+            f"Sweep(resume={str(spec.resume)!r}) and checkpoint directory "
+            f"{str(checkpoint.directory)!r} disagree; point both at the "
+            "interrupted fleet")
+    if checkpoint is None:
+        checkpoint = CheckpointPolicy(directory=str(spec.resume))
+    return checkpoint
+
+
 def run_sweep(session, spec: Sweep, *, rounds=None, record_history=True,
               history_every=1, checkpoint=None) -> RunSet:
     """Execute ``spec`` through ``session`` (the engine behind
-    ``Session.sweep``); see the module docstring for the batching
-    rules."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpointed sweeps (run_sweep(checkpoint=)) need "
-            "runtime/checkpoint.py and runtime/fault.py, which are not "
-            "ported yet (ROADMAP A6)")
+    ``Session.sweep``); see the module docstring for the batching rules.
+
+    ``checkpoint`` (a directory or ``runtime/fault.py::CheckpointPolicy``)
+    makes the fleet resumable: the root holds a ``fleet.json`` spec
+    record, fused groups snapshot their stacked iterates under
+    ``group_<i>/``, sequential members under ``member_<i>/``.  A later
+    ``Sweep(resume=<dir>)`` of the identical spec (checked) continues the
+    interrupted fleet with every member bit for bit its uninterrupted
+    run."""
     points = spec.expand(float(session.problem.lam))
+    policy = _fleet_policy(checkpoint, spec)
+    resuming = spec.resume is not None
+    fleet_root = None
+    if policy is not None:
+        fleet_root = Path(str(policy.directory))
+        fleet_root.mkdir(parents=True, exist_ok=True)
+        cfg = {"points": [p.to_dict() for p in points],
+               "rounds": None if rounds is None else int(rounds)}
+        cfg_path = fleet_root / "fleet.json"
+        if resuming and cfg_path.exists():
+            old = json.loads(cfg_path.read_text())
+            if old != cfg:
+                raise ValueError(
+                    "fleet.json mismatch: this Sweep's (points, rounds) "
+                    "differ from the interrupted fleet's; resume with the "
+                    "identical spec")
+        else:
+            cfg_path.write_text(json.dumps(cfg))
+
     groups: Dict[Optional[int], List[SweepPoint]] = {}
     for pt in points:
         groups.setdefault(pt.schedule, []).append(pt)
@@ -479,12 +622,28 @@ def run_sweep(session, spec: Sweep, *, rounds=None, record_history=True,
     for sidx in sorted(groups, key=lambda s: (s is not None, s)):
         pts = groups[sidx]
         gsess = _session_for(session, spec, sidx)
-        if spec.continuation:
+        # a checkpointed fleet whose members carry per-member state (a
+        # continuation chain, residuals or momentum anchors) runs member
+        # at a time; every other group fuses
+        use_state = (gsess.plan.has_compression
+                     or gsess.acceleration is not None)
+        fuse = policy is None or not (spec.continuation or use_state)
+        gfleet = None
+        if policy is not None:
+            gname = f"group_{sidx}" if sidx is not None else "group_base"
+            gdir = fleet_root / gname if fuse else fleet_root
+            gfleet = (policy, gdir, resuming)
+        if fuse and spec.continuation:
             group_res = _run_group_continuation(
                 gsess, pts, rounds, record_history, history_every)
-        else:
+        elif fuse:
             group_res = _run_group_batched(
-                gsess, pts, rounds, record_history, history_every)
+                gsess, pts, rounds, record_history, history_every,
+                fleet=gfleet)
+        else:
+            group_res = _run_group_sequential(
+                gsess, pts, rounds, record_history, history_every,
+                spec.continuation, fleet=gfleet)
         for pt, res in zip(pts, group_res, strict=True):
             results[pt.index] = res
 

@@ -6,11 +6,11 @@ imbalanced groups), a stable dict/JSON wire format -- the same format
 as the JAX package's ``Topology``, so a topology serialized by one loads
 in the other -- the delay views the eq.-(12) planner reads
 (:meth:`Topology.sync_levels`, per-leaf sync delays, leaf and aggregation
-costs) and per-edge compression stamps (:meth:`Topology.with_compression`).
-Round counts on the tree are defaults; a Schedule may override them.  Not
-ported yet: ``from_mesh`` (it needs the mesh backend) and the elastic
-membership edits ``with_leaf`` / ``without_leaf`` (they need the elastic
-runtime).
+costs), per-edge compression stamps (:meth:`Topology.with_compression`)
+and the membership edits of elastic sessions (:meth:`Topology.with_leaf` /
+:meth:`Topology.without_leaf`).  Round counts on the tree are defaults; a
+Schedule may override them.  Not ported yet: ``from_mesh`` (it needs the
+mesh backend, ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -185,7 +185,7 @@ class Topology:
             return dataclasses.replace(node, up_compress=str(spec))
         return Topology(tree=visit(self.tree, True))
 
-    # ---- leaf lookup ---------------------------------------------------
+    # ---- membership editing (elastic sessions) -------------------------
     def leaf_names(self) -> List[str]:
         return [l.name for l in self.tree.leaves()]
 
@@ -199,6 +199,71 @@ class Topology:
                 return off, l.data_size
             off += l.data_size
         raise KeyError(f"no leaf named {name!r}")
+
+    def without_leaf(self, name: str) -> "Topology":
+        """A copy with leaf ``name`` permanently removed (the *leave* half
+        of a membership event).  Internal nodes left childless are pruned
+        with it; removing the last leaf is an error."""
+        found = [False]
+
+        def visit(node: TreeNode) -> Optional[TreeNode]:
+            if node.is_leaf:
+                if node.name == name:
+                    found[0] = True
+                    return None
+                return node
+            kids = tuple(k for k in (visit(c) for c in node.children)
+                         if k is not None)
+            if not kids:
+                return None
+            return dataclasses.replace(node, children=kids)
+
+        new_root = visit(self.tree)
+        if not found[0]:
+            raise KeyError(f"no leaf named {name!r}")
+        if new_root is None or new_root.is_leaf:
+            raise ValueError(
+                f"removing {name!r} leaves no usable tree (the root must "
+                "keep at least one leaf under an internal node)")
+        return Topology(tree=new_root)
+
+    def with_leaf(
+        self, name: str, *, parent: Optional[str] = None,
+        data_size: int, local_steps: Optional[int] = None,
+        up_delay: float = 0.0, t_lp: Optional[float] = None,
+    ) -> "Topology":
+        """A copy with a new leaf appended under internal node ``parent``
+        (default: the root) -- the *join* half of a membership event.
+        ``local_steps`` / ``t_lp`` default to the values the existing
+        leaves share (their max / the first leaf's)."""
+        if name in self.leaf_names():
+            raise ValueError(f"leaf name {name!r} already exists")
+        leaves = self.tree.leaves()
+        if local_steps is None:
+            local_steps = max(leaf.rounds for leaf in leaves)
+        if t_lp is None:
+            t_lp = leaves[0].t_lp
+        target = parent if parent is not None else self.tree.name
+        hit = [0]
+
+        def visit(node: TreeNode) -> TreeNode:
+            if node.is_leaf:
+                return node
+            kids = tuple(visit(c) for c in node.children)
+            if node.name == target:
+                hit[0] += 1
+                kids = kids + (TreeNode(
+                    name=name, rounds=int(local_steps),
+                    data_size=int(data_size), up_delay=float(up_delay),
+                    t_lp=float(t_lp)),)
+            return dataclasses.replace(node, children=kids)
+
+        new_root = visit(self.tree)
+        if hit[0] != 1:
+            raise KeyError(
+                f"parent {target!r} matched {hit[0]} internal nodes; "
+                "need exactly one")
+        return Topology(tree=new_root)
 
     # ---- serialization -------------------------------------------------
     def to_dict(self) -> dict:

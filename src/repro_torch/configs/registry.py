@@ -1,6 +1,6 @@
 """--arch registry: the architectures the port can serve, each mapped to
 its (full, smoke) configs.  The JAX package's registry lists ten; the rest
-wait on the modules ROADMAP A13 names."""
+wait on the modules ROADMAP A9 names."""
 from repro_torch.configs import recurrentgemma_2b
 
 ARCHS = {

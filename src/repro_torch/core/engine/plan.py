@@ -59,9 +59,14 @@ class LevelSpec:
 
 
 # ---------------------------------------------------------------------------
-# fingerprint field registry (the reference's): the behavior fields hashed
-# into the fingerprint; the others (root_sync, n_children, levels) follow
-# from them and leaf_names never reaches a run
+# fingerprint field registry (the reference's).  Every field of TreePlan
+# is classified exactly once, and ``analysis/plan_check.py::
+# audit_fingerprint`` checks the registry against the dataclass:
+#   * BEHAVIOR fields are hashed into the fingerprint (arrays as raw
+#     bytes, scalars through ``repr``);
+#   * DERIVED fields follow from the behavior fields (the plan checker
+#     recomputes them), so hashing them could not tell two plans apart;
+#   * METADATA fields never reach a run: renaming a leaf keeps the plan.
 # ---------------------------------------------------------------------------
 FINGERPRINT_ARRAY_FIELDS: Tuple[str, ...] = (
     "solve_mask", "sync_mask", "refresh_mask", "alpha_scale", "w_coeff",
@@ -70,6 +75,13 @@ FINGERPRINT_ARRAY_FIELDS: Tuple[str, ...] = (
 FINGERPRINT_SCALAR_FIELDS: Tuple[str, ...] = (
     "n_leaves", "m_b", "m_total", "n_ticks", "depth", "h_max",
     "weighting", "n_groups")
+DERIVED_FIELDS: Tuple[str, ...] = (
+    "root_sync",     # == sync_mask[:, 0, :].max(axis=1) > 0
+    "n_children",    # == per-depth max(child_ids) + 1
+    "levels",        # re-detectable from the masks and group structure
+    "fingerprint",   # the hash itself
+)
+METADATA_FIELDS: Tuple[str, ...] = ("leaf_names",)
 
 
 def fingerprint_payload(plan: "TreePlan") -> bytes:

@@ -12,7 +12,7 @@ from repro_torch.models.common import dense_init
 
 Tensor = torch.Tensor
 
-_MOE = ("mixture-of-experts FFNs are not ported yet (ROADMAP A13: dbrx-132b "
+_MOE = ("mixture-of-experts FFNs are not ported yet (ROADMAP A9: dbrx-132b "
         "and arctic-480b come after the dense architectures)")
 
 

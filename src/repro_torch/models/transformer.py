@@ -32,7 +32,7 @@ KINDS = ("attn", "rec")
 
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"sub-layer kind {kind!r} is not ported yet (ROADMAP A13); the port "
+        f"sub-layer kind {kind!r} is not ported yet (ROADMAP A9); the port "
         f"serves {KINDS}")
 
 

@@ -1,0 +1,65 @@
+"""Elastic scaling: move a state between devices, size a shrunk job.
+
+Checkpoints hold *global* host arrays (``runtime/checkpoint.py``), so
+elasticity is: gather to the host, place onto the new devices.  On one
+card that is a host round trip and a device move (:func:`to_host`,
+:func:`remesh_state`); a checkpointed session carry restores through the
+same pair (``runtime/fault.py::with_ef_residuals``).  The JAX package's
+sharded forms -- ``remesh_params`` (rebuild parameter shardings for a new
+mesh) and ``fold_batch`` (the per-replica batch of a mesh) -- need a
+device mesh, which comes with the mesh backend (ROADMAP A7); here they
+raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.runtime.checkpoint import _host, _map_tree
+
+PyTree = Any
+
+_NEEDS_MESH = ("needs a device mesh, which comes with the mesh backend "
+               "(ROADMAP A7); on one card use remesh_state")
+
+
+def to_host(state: PyTree) -> PyTree:
+    """Gather a tree of tensors to host copies (numpy arrays; bfloat16
+    leaves, which numpy lacks, as CPU tensors)."""
+    return _map_tree(state, lambda _, t: _host(t, copy=True))
+
+
+def _place(leaf, device):
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+    return t.to(torch.device(device))
+
+
+def remesh_state(state: PyTree, devices: PyTree) -> PyTree:
+    """Place a host (or other-device) state onto ``devices``, a tree of
+    the same structure matched leaf by leaf (see :func:`replicated`)."""
+    flat = {}
+    _map_tree(devices, lambda k, dv: flat.__setitem__(k, dv))
+    return _map_tree(state, lambda k, t: _place(t, flat[k]))
+
+
+def replicated(device, tree: PyTree) -> PyTree:
+    """A devices tree placing every leaf of ``tree`` on ``device``: the
+    leaf-matched structure :func:`remesh_state` takes when a whole state
+    restores onto one device."""
+    return _map_tree(tree, lambda _k, _t: device)
+
+
+def remesh_params(cfg, params: PyTree, new_mesh, rules=None) -> PyTree:
+    raise NotImplementedError(f"remesh_params {_NEEDS_MESH}")
+
+
+def fold_batch(global_batch: int, mesh) -> Dict[str, int]:
+    raise NotImplementedError(f"fold_batch {_NEEDS_MESH}")
+
+
+def shrink_survivors(n_devices: int, lost: int, model_parallel: int) -> int:
+    """Largest usable device count after losing ``lost`` devices, keeping
+    the model-parallel group width (a TP group is one failure domain)."""
+    alive = n_devices - lost
+    return (alive // model_parallel) * model_parallel

@@ -408,3 +408,56 @@ def test_straggler_and_acceleration_on_the_card(cuda_device):
     assert parts == [h["participants"] for h in on_cpu.history[1:]]
     np.testing.assert_allclose(on_card.alpha.cpu().numpy(),
                                on_cpu.alpha.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _resume_setup(tmp_path, device):
+    from repro_torch.api import CheckpointPolicy, Schedule
+    topo = Topology.two_level(2, 3, 40, root_rounds=6, group_rounds=2,
+                              local_steps=24)
+    rng = np.random.default_rng(15)
+    X = rng.standard_normal((topo.m_total, 12)).astype(np.float32)
+    y = rng.standard_normal(topo.m_total).astype(np.float32)
+    sched = Schedule(compression=["int8", "none"])
+    return (topo, X, y, sched,
+            CheckpointPolicy(tmp_path / "ckpt", every=2))
+
+
+def test_resume_on_the_card_is_bit_identical(cuda_device, tmp_path):
+    """A compressed session on the card, killed after round 3 of 6 and
+    resumed: alpha, w, next_key and history equal the uninterrupted run's,
+    and every round launched the kernel."""
+    topo, X, y, sched, policy = _resume_setup(tmp_path, cuda_device)
+    sess = Session.compile(Problem(X, y, lam=0.1), topo, sched,
+                           backend="cuda", device=cuda_device)
+    ref = sess.run(6, key=prng.PRNGKey(3))
+    before = kernel.LAUNCHES
+    sess.run(3, key=prng.PRNGKey(3), checkpoint=policy)
+    res = sess.resume(policy, rounds=3)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES - before == int(sess.executor.solves.sum()) * 6
+    assert torch.equal(res.alpha, ref.alpha)
+    assert torch.equal(res.w, ref.w)
+    assert torch.equal(res.next_key, ref.next_key)
+    assert res.history == ref.history
+
+
+def test_a_card_checkpoint_resumes_on_the_cpu(cuda_device, tmp_path):
+    """The snapshot is host arrays: written by the kernel route on the
+    card, it resumes on the CPU's plain route, within the kernel-vs-plain
+    tolerance of the card's own uninterrupted run."""
+    topo, X, y, sched, policy = _resume_setup(tmp_path, cuda_device)
+    card = Session.compile(Problem(X, y, lam=0.1), topo, sched,
+                           backend="cuda", device=cuda_device)
+    ref = card.run(6, key=prng.PRNGKey(3))
+    card.run(3, key=prng.PRNGKey(3), checkpoint=policy)
+    cpu = Session.compile(Problem(X, y, lam=0.1), topo, sched,
+                          backend="torch", device="cpu")
+    res = cpu.resume(policy, rounds=3)
+    assert res.alpha.device.type == "cpu"
+    assert torch.equal(res.next_key, ref.next_key)
+    assert [h["round"] for h in res.history] == \
+        [h["round"] for h in ref.history]
+    for got, want in ((res.alpha, ref.alpha), (res.w, ref.w)):
+        want = want.cpu()
+        assert float((got - want).abs().max()) <= \
+            REL * max(1.0, float(want.abs().max()))

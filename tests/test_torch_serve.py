@@ -237,12 +237,12 @@ def test_init_params_has_the_reference_layout_and_count(params):
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A9"):
         ttr.init_params(dataclasses.replace(tconfigs.SMOKE, is_rwkv=True),
                         torch.Generator())
     moe = dataclasses.replace(tconfigs.SMOKE, num_experts=4,
                               experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A9"):
         ttr.init_params(moe, torch.Generator())
 
 

@@ -217,17 +217,18 @@ def test_topology_json_round_trips_with_the_reference():
 
 def test_unported_options_raise():
     """What the port still refuses, each naming the ROADMAP item it waits
-    for: checkpoints (A6, the elastic runtime), the mesh backend (A7) and
-    the LM method (A9.6); and what it refuses as the reference does."""
+    for: the mesh backend (A7: its executor, the elastic runtime's
+    sharded forms) and the LM method (A9.6); and what it refuses as the
+    reference does."""
     from repro_torch.core.engine.method import get_method
+    from repro_torch.runtime import elastic
     topo = port_topology("star")
     X, y = data(topo.m_total)
-    sess = Session.compile(Problem(X, y), topo, backend="torch",
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.run(rounds=1, checkpoint="ckpt")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.sweep(lams=[0.1, 0.2], checkpoint="ckpt")
+    Session.compile(Problem(X, y), topo, backend="torch", device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        elastic.remesh_params(None, {}, None)
+    with pytest.raises(NotImplementedError, match="A7"):
+        elastic.fold_batch(8, None)
     plan = tplan.compile_tree(topo.tree)
     with pytest.raises(NotImplementedError, match="A7"):
         get_method("sdca").executor(plan=plan, backend="mesh",

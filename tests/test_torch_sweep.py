@@ -284,7 +284,7 @@ def test_runset_best_final_and_to_dict():
                                                 key=prng.PRNGKey(4)).alpha)
 
 
-def test_one_shot_sweep_and_refusals():
+def test_one_shot_sweep_and_refusals(tmp_path):
     topo = small_star()
     X, y = data(topo.m_total)
     prob = Problem(X, y, lam=LAM)
@@ -295,11 +295,14 @@ def test_one_shot_sweep_and_refusals():
     with pytest.raises(ValueError, match="not both"):
         sweep(prob, port(topo), Sweep(lams=[0.1, 0.2]), mode="zip",
               backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.sweep(lams=[0.1], checkpoint="fleet")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sweep(prob, port(topo), lams=[0.1], checkpoint="fleet",
-              backend="torch", device="cpu")
+    fleet = tmp_path / "fleet"
+    with pytest.raises(ValueError, match="disagree"):
+        sess.sweep(Sweep(lams=[0.1], resume=fleet), checkpoint=str(
+            tmp_path / "elsewhere"))
+    one_shot = sweep(prob, port(topo), lams=[0.1], checkpoint=str(fleet),
+                     backend="torch", device="cpu")
+    assert (fleet / "fleet.json").exists()
+    assert torch.equal(one_shot.alphas, sess.sweep(lams=[0.1]).alphas)
 
 
 # ---------------------------------------------------------------------------
