@@ -95,6 +95,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Sweep(resume=) continues: every member torch.equal to 3c's sweep.
      Also verify_plan's time on the 128-leaf plan against
      Session.compile's.  The counts are zeroed and read around each leg;
+ 3f. the mesh backend, one process per leaf.  The host backend runs
+     first, here, on two_level(4, 4, 8192) (phase 3's leaf shape: 16 x
+     8192 rows of phase 3's seeded data, d = 512, ridge, lambda = 1e-4)
+     under Schedule(rounds=5, level_rounds=[2], local_steps=8192), plain
+     and int8.  Then 16 spawned gloo ranks share the card (each
+     torch.cuda.set_device(0), each drawing the same data on the card and
+     solving its own block): (a) Session.compile(backend="mesh") psum,
+     alpha, w and gaps torch.equal to the host backend; (b)
+     mesh_sync="reduce_scatter" within rtol 1e-5 / atol 1e-6; (c) the
+     int8 schedule under both lowerings against the host's int8 run (psum
+     torch.equal; reduce_scatter on w and X^T alpha / (lambda m) within
+     1e-5 of max|host| plus the last messages' quanta, as phase 3b holds
+     two routes: a reassociated sum can flip an int8 code); (d) a B = 2
+     lambda sweep whose members are torch.equal to their standalone mesh
+     runs.  Each rank zeroes its launch count before (a) and reads it
+     after: one launch per solve tick, of one leaf; the sweep one launch
+     per tick of 2 x 1.  (e) one NCCL rank on star(1, 8192): psum and
+     reduce_scatter torch.equal to the host backend.  Prints seconds per
+     root round, mesh against host (16 processes time-sharing one card,
+     not a deployment's speed), the launches and the peak memory of each
+     rank.  A failing rank fails the spawn, and every spawn and process
+     group has a timeout;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
      the kernel's bound from that tick's inputs; time it for every loss at
@@ -136,7 +158,8 @@ script's own seconds, then one JSON line describing each kernel (the
 sdca_block row's launches are phase 3's run; its launches_by_path gives
 every path's launches and leaves per launch -- phase 3b's pilot and run,
 3c's two sweeps, 3d's straggler and accelerated runs, 3e's checkpoint,
-kill-and-resume, elastic and fleet legs -- and "batched" the batched
+kill-and-resume, elastic and fleet legs, 3f's mesh run per rank -- and
+"batched" the batched
 launch's ms, bound and error) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
 """
@@ -1074,6 +1097,336 @@ def elastic_path(problem, topo, sched, sess, plain_run, compressed, swept,
     return out
 
 
+# ---- phase 3f: the mesh backend, one process per leaf -----------------------
+MESH_WORLD = 16          # gloo ranks sharing the card, one per leaf
+MESH_LEAF = 8192         # phase 3's leaf shape: m_b = 8192, d = 512
+MESH_ROUNDS = 5
+MESH_LAMS = (1e-4, 1e-3)
+# reduce_scatter against psum / the host: the group sum is reassociated.
+# Under int8 a reassociated sum can also flip a code; as for phase 3b's
+# two routes, error feedback leaves what the flips change in the end
+# state to the last residual of each compressed depth, so the compressed
+# reduce_scatter run is held on w and X^T alpha / (lambda m) to its rtol
+# times max|host| plus the last messages' quanta (int8_quanta)
+MESH_RS_TOL = dict(rtol=1e-5, atol=1e-6)
+# the whole spawn (16 processes reaching the card, the runs, the joins)
+MESH_SPAWN_TIMEOUT = 300.0
+
+
+def _mesh_setup(dev, n_leaves: int):
+    """Phase 3f's problem (phase 3's seeded data drawn on the card at
+    n_leaves x 8192 rows, d = 512, ridge, lambda = 1e-4), tree and
+    schedule: two_level(4, 4) for 16 leaves, a star for one."""
+    from repro_torch.api import Problem, Schedule, Topology
+    from repro_torch.data.synthetic import gaussian_regression
+    X, y = gaussian_regression(m=n_leaves * MESH_LEAF, d=512, seed=0,
+                               device=dev)
+    topo = Topology.star(1, MESH_LEAF) if n_leaves == 1 else \
+        Topology.two_level(4, 4, MESH_LEAF)
+    return (Problem.ridge(X, y, lam=MESH_LAMS[0]), topo,
+            Schedule(rounds=MESH_ROUNDS, level_rounds=[2] if n_leaves > 1
+                     else None, local_steps=MESH_LEAF))
+
+
+def _cpu_result(res) -> dict:
+    return {"alpha": res.alpha.cpu(), "w": res.w.cpu(),
+            "gaps": list(res.gaps)}
+
+
+def _last_scales(ex, last: dict) -> None:
+    """Record in ``last[depth]`` the largest int8 block scale of the last
+    error-feedback target ``ex.roundtrip`` was handed at each depth."""
+    from repro_torch.core import compression as comp
+    orig = ex.roundtrip
+
+    def roundtrip(dd, target):
+        last[dd] = float(comp.quantize_int8(target, keep_leading=1)[1].max())
+        return orig(dd, target)
+    ex.roundtrip = roundtrip
+
+
+def _timed_round(sess, warm) -> dict:
+    """One more root round of a mesh session with its leaf solves and its
+    collectives timed on the host clock, the card synchronized before and
+    after each (so a collective's time is its own, not the queued work's):
+    {"round_s", "solve_s", "collective_s", "collectives"}."""
+    import torch
+    ex = sess.executor
+    acc = {"solve_s": 0.0, "collective_s": 0.0, "collectives": 0}
+
+    def timed(fn, field, count=False):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[field] += time.perf_counter() - t0
+            acc["collectives"] += int(count)
+            return out
+        return call
+    ex.leaf_solve = timed(ex.leaf_solve, "solve_s")
+    for comm in ex.comms:
+        comm._gather = timed(comm._gather, "collective_s", True)
+        comm.reduce_scatter = timed(comm.reduce_scatter, "collective_s",
+                                    True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(rounds=1, warm_start=warm)
+    torch.cuda.synchronize()
+    acc["round_s"] = time.perf_counter() - t0
+    del ex.leaf_solve
+    for comm in ex.comms:
+        del comm._gather, comm.reduce_scatter
+    return acc
+
+
+def _mesh_rank(rank: int, world: int, root: str, backend: str) -> None:
+    """One rank of phase 3f, in a spawned process on card 0: the gloo
+    world's runs (a)-(d), or the one-rank NCCL world's run (e).  Rank 0
+    saves the results, every rank its launches, seconds and peak memory."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.core import prng
+    from repro_torch.kernels.sdca import kernel
+    from repro_torch.runtime import ranks
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ranks.init(rank, world, f"file://{root}/pg_{backend}", backend=backend)
+    t_init = time.perf_counter()
+    problem, topo, sched = _mesh_setup(dev, world)
+    key = prng.PRNGKey(0)
+    out, stats = {}, {"init_s": t_init - t_start, "marks": []}
+
+    def mark(label):
+        torch.cuda.synchronize()
+        stats["marks"].append((label, time.perf_counter() - t_start))
+
+    def mesh(schedule=sched, **kw):
+        return Session.compile(problem, topo, schedule, backend="mesh",
+                               device=dev, **kw)
+
+    if backend == "nccl":
+        for sync in ("psum", "reduce_scatter"):
+            out[sync] = _cpu_result(mesh(mesh_sync=sync).run(key=key))
+    else:
+        t0 = time.perf_counter()
+        sess = mesh()
+        stats["compile_s"] = time.perf_counter() - t0
+        ticks = int(sess.executor.solves.sum()) * MESH_ROUNDS
+        torch.cuda.synchronize()
+        kernel.LAUNCHES = kernel.LEAVES = 0
+        t0 = time.perf_counter()
+        res = sess.run(key=key)                                     # (a)
+        torch.cuda.synchronize()
+        stats.update(psum_s=time.perf_counter() - t0, ticks=ticks,
+                     launches=kernel.LAUNCHES, leaves=kernel.LEAVES)
+        out["psum"] = _cpu_result(res)
+        mark("(a) psum")
+        rs = mesh(mesh_sync="reduce_scatter")
+        mark("reduce_scatter compile")
+        t0 = time.perf_counter()
+        out["reduce_scatter"] = _cpu_result(rs.run(key=key))        # (b)
+        torch.cuda.synchronize()
+        stats["rs_s"] = time.perf_counter() - t0
+        mark("(b) reduce_scatter")
+        int8 = dataclasses.replace(sched, compression="int8")
+        stats["int8_scales"] = {}
+        for sync in ("psum", "reduce_scatter"):                     # (c)
+            s8 = mesh(int8, mesh_sync=sync)
+            if sync == "reduce_scatter":
+                _last_scales(s8.executor, stats["int8_scales"])
+            out[f"int8_{sync}"] = _cpu_result(s8.run(key=key))
+        mark("(c) int8")
+        kernel.LAUNCHES = kernel.LEAVES = 0
+        swept = sess.sweep(lams=list(MESH_LAMS))                    # (d)
+        torch.cuda.synchronize()
+        stats.update(sweep_launches=kernel.LAUNCHES,
+                     sweep_leaves=kernel.LEAVES)
+        out["sweep"] = [_cpu_result(r) for r in swept]
+        out["standalone"] = [out["psum"]] + [
+            _cpu_result(sess.run(key=key, lam=lam)) for lam in MESH_LAMS[1:]]
+        mark("(d) sweep and standalone")
+        # after the counts and the checked runs: one warm psum round, timed
+        stats["timed"] = _timed_round(sess, res)
+    torch.cuda.synchronize()
+    stats["total_s"] = time.perf_counter() - t_start
+    stats["peak"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        torch.save(out, f"{root}/{backend}_results.pt")
+    torch.save(stats, f"{root}/{backend}_stats{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _same(a: dict, b: dict) -> bool:
+    """alpha and w torch.equal, the gaps equal (host copies)."""
+    import torch
+    return (torch.equal(a["alpha"], b["alpha"])
+            and torch.equal(a["w"], b["w"]) and a["gaps"] == b["gaps"])
+
+
+def _rs_close(got: dict, want: dict) -> dict:
+    """max |got - want| of alpha and of w, raising past MESH_RS_TOL."""
+    import numpy as np
+    err = {}
+    for f in ("alpha", "w"):
+        g, w = got[f].numpy(), want[f].numpy()
+        np.testing.assert_allclose(g, w, **MESH_RS_TOL, err_msg=f)
+        err[f] = float(np.abs(g - w).max())
+    return err
+
+
+def mesh_path(dev, card: str) -> dict:
+    """Phase 3f: the mesh backend (see the module docstring).  The host
+    runs go first, here; then 16 gloo ranks share the card, then one NCCL
+    rank.  Returns the per-rank launches of run (a)."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core import dual, prng
+    from repro_torch.runtime import ranks
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "mesh_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    key = prng.PRNGKey(0)
+    problem, topo, sched = _mesh_setup(dev, MESH_WORLD)
+    host = Session.compile(problem, topo, sched, backend="cuda", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _cpu_result(host.run(key=key))
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / MESH_ROUNDS
+    host8 = Session.compile(problem, topo,
+                            dataclasses.replace(sched, compression="int8"),
+                            backend="cuda", device=dev)
+    host8_scales: dict = {}
+    _last_scales(host8.executor, host8_scales)
+    want_int8 = _cpu_result(host8.run(key=key))
+    X = problem.X
+    del problem, host, host8
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks.spawn(_mesh_rank, MESH_WORLD,
+                args=(MESH_WORLD, str(root), "gloo"),
+                timeout=MESH_SPAWN_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    got = torch.load(root / "gloo_results.pt", weights_only=False)
+    stats = [torch.load(root / f"gloo_stats{r}.pt", weights_only=False)
+             for r in range(MESH_WORLD)]
+    mesh_s = max(st["psum_s"] for st in stats) / MESH_ROUNDS
+    rs_s = max(st["rs_s"] for st in stats) / MESH_ROUNDS
+    peaks = [st["peak"] / 2**30 for st in stats]
+    gaps = got["psum"]["gaps"]
+    print(f"mesh path: {MESH_WORLD} gloo ranks time-sharing one card (not a "
+          f"deployment's speed), two_level(4, 4, {MESH_LEAF}), d=512, H="
+          f"{MESH_LEAF}, {MESH_ROUNDS} rounds: psum {mesh_s:.4f} s per root "
+          f"round, reduce_scatter {rs_s:.4f}, host backend {host_s:.4f}; "
+          f"spawn and all runs {spawn_s:.1f} s  [{card}]")
+    print("mesh path: rank 0's clock (s from its start): " + ", ".join(
+        f"{label} {t:.2f}" for label, t in
+        [("joined", stats[0]["init_s"]),
+         ("first compile", stats[0]["init_s"] + stats[0]["compile_s"])]
+        + stats[0]["marks"]) + f"; the slowest rank "
+        f"{max(st['total_s'] for st in stats):.2f} in all")
+    tm = stats[0]["timed"]
+    print(f"mesh path: rank 0, one more warm psum root round with the card "
+          f"synchronized around each leaf solve and collective: "
+          f"{tm['round_s']:.4f} s, of which {tm['solve_s']:.4f} s in the "
+          f"2 leaf solves (the kernel waiting its turn on the shared card) "
+          f"and {tm['collective_s']:.4f} s in {tm['collectives']} gloo "
+          f"all_reduces (the round's 3 syncs and its gathers of alpha and "
+          f"w)  [{card}]")
+    print(f"mesh path: sdca_block launches per rank "
+          f"{[st['launches'] for st in stats]} for {stats[0]['ticks']} solve "
+          f"ticks (1 leaf each); sweep {stats[0]['sweep_launches']} launches "
+          f"of {len(MESH_LAMS)} x 1; peak device memory per rank (GiB) "
+          f"{[f'{p:.3f}' for p in peaks]}  [{card}]")
+    for r, st in enumerate(stats):
+        if st["launches"] != st["ticks"] or st["leaves"] != st["ticks"]:
+            raise AssertionError(f"rank {r}: {st['launches']} sdca_block "
+                                 f"launches of {st['leaves']} leaves for "
+                                 f"{st['ticks']} solve ticks")
+        if st["sweep_launches"] != st["ticks"] or \
+                st["sweep_leaves"] != len(MESH_LAMS) * st["ticks"]:
+            raise AssertionError(f"rank {r}: the sweep made "
+                                 f"{st['sweep_launches']} launches of "
+                                 f"{st['sweep_leaves']} leaves")
+    if not _same(got["psum"], want):                                # (a)
+        raise AssertionError("mesh psum differs from the host backend")
+    if not (all(math.isfinite(g) for g in gaps) and gaps[-1] < gaps[0]):
+        raise AssertionError(f"mesh run: the gap did not fall: {gaps}")
+    rs_err = _rs_close(got["reduce_scatter"], want)                 # (b)
+    if not _same(got["int8_psum"], want_int8):                      # (c)
+        raise AssertionError("compressed mesh psum differs from the host's "
+                             "compressed run")
+    # the last messages' quanta: per compressed depth, the larger of the
+    # two runs' largest block scales (any rank's, for the mesh)
+    quanta = sum(max([host8_scales[dd]] + [st["int8_scales"][dd]
+                                           for st in stats])
+                 for dd in host8_scales)
+    rs8 = got["int8_reduce_scatter"]
+    rs8_err = {}
+    for label, g, w in (
+            ("w", rs8["w"], want_int8["w"]),
+            ("X^T alpha/(lam m)",
+             dual.w_of_alpha(rs8["alpha"].to(dev), X, MESH_LAMS[0]).cpu(),
+             dual.w_of_alpha(want_int8["alpha"].to(dev), X,
+                             MESH_LAMS[0]).cpu())):
+        rs8_err[label] = float((g - w).abs().max())
+        allow = MESH_RS_TOL["rtol"] * float(w.abs().max()) + quanta
+        if not rs8_err[label] <= allow:
+            raise AssertionError(f"int8 reduce_scatter against the host's "
+                                 f"int8 run: max|d {label}| "
+                                 f"{rs8_err[label]} > {allow}")
+    del X
+    for lam, member, alone in zip(MESH_LAMS, got["sweep"],          # (d)
+                                  got["standalone"], strict=True):
+        if not _same(member, alone):
+            raise AssertionError(f"mesh sweep member lam={lam} differs from "
+                                 f"its standalone mesh run")
+    print(f"mesh path: (a) psum torch.equal to the host backend (alpha, w, "
+          f"gaps {gaps[0]:.6e} -> {gaps[-1]:.6e}); (b) reduce_scatter max "
+          f"abs err alpha {rs_err['alpha']:.3e}, w {rs_err['w']:.3e} (rtol "
+          f"1e-5, atol 1e-6); (c) int8 psum torch.equal, int8 "
+          f"reduce_scatter max abs err w {rs8_err['w']:.3e}, X^T alpha/(lam "
+          f"m) {rs8_err['X^T alpha/(lam m)']:.3e}, allowed 1e-5 x max|host| "
+          f"+ the last messages' quanta {quanta:.3e}, alpha "
+          f"{float((rs8['alpha'] - want_int8['alpha']).abs().max()):.3e}; "
+          f"(d) lambda sweep B={len(MESH_LAMS)} members torch.equal to "
+          f"their standalone mesh runs")
+
+    # ---- (e) one NCCL rank on a one-leaf star -----------------------------
+    problem1, topo1, sched1 = _mesh_setup(dev, 1)
+    want1 = _cpu_result(Session.compile(problem1, topo1, sched1,
+                                        backend="cuda", device=dev).run(
+        key=key))
+    del problem1
+    ranks.spawn(_mesh_rank, 1, args=(1, str(root), "nccl"),
+                timeout=MESH_SPAWN_TIMEOUT)
+    got1 = torch.load(root / "nccl_results.pt", weights_only=False)
+    for sync in ("psum", "reduce_scatter"):
+        if not _same(got1[sync], want1):
+            raise AssertionError(f"one-rank NCCL mesh ({sync}) differs from "
+                                 f"the host backend")
+    print(f"mesh path: (e) one NCCL rank, star(1, {MESH_LEAF}): psum and "
+          f"reduce_scatter (all_gather_into_tensor, reduce_scatter_tensor, "
+          f"all_reduce) torch.equal to the host backend; phase 3f took "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"3f mesh": {"launches": stats[0]["launches"],
+                        "leaves_per_launch": 1, "ranks": MESH_WORLD,
+                        "launches_per_rank": [st["launches"]
+                                              for st in stats]}}
+
+
 def check_flash(dev) -> float:
     """Phase 5: the flash kernel against its plain version on the card."""
     import torch
@@ -1524,6 +1877,9 @@ def main() -> int:
                            swept, dev, card)
     del compressed["session"], swept["session"], swept["sweep_set"]
 
+    # ---- 3f. the mesh backend: one process per leaf ---------------------
+    meshed = mesh_path(dev, card)
+
     # ---- 4. the kernel on one of the main path's ticks -----------------------
     ex, data = sess.executor, sess.data
     K, m_b = sess.plan.n_leaves, sess.plan.m_b
@@ -1617,7 +1973,7 @@ def main() -> int:
             **{name: {k: swept[name][k]
                       for k in ("launches", "leaves_per_launch")}
                for name in ("sweep", "sweep_local_hs")},
-            **strag, **elastic},
+            **strag, **elastic, **meshed},
         "batched": swept["batched"],
         "max_abs_err": max(worst, swept["batched"]["max_abs_err"]),
         "ms": ms,

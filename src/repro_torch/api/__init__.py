@@ -29,8 +29,10 @@ CheckpointPolicy(...))`` snapshots a solve and ``Session.resume`` continues
 it bit for bit (``run_with_faults`` drives simulated kill-and-resume
 runs); :class:`ElasticSession` runs a solve whose leaves leave and join
 mid-run (a :class:`MembershipLog`), and ``Sweep(resume=)`` continues a
-checkpointed fleet.  The mesh backend and LM training are not ported yet
-(see ROADMAP).
+checkpointed fleet.  ``Session.compile(..., backend="mesh")`` runs the
+solve with one ``torch.distributed`` rank per leaf (every rank making the
+same calls; ``runtime/ranks.py`` spawns and joins them on one host).  LM
+training is not ported yet (see ROADMAP).
 """
 from repro_torch.api.problem import Problem                   # noqa: F401
 from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401

@@ -39,15 +39,18 @@ per-level H with the paper's eq. (12) at compile time, and
 pilot run on the session's own backend and device.  Every compiled plan
 passes the plan verifier (``analysis/plan_check.py::verify_plan``) before
 an executor is built against it.  Backends: ``"cuda"``
-(the ``sdca_block`` kernel, the default) and ``"torch"`` (its plain
-version).  History values are recorded as device scalars and pulled to
-the host in one transfer (:func:`materialize_history`) at stream points
-and at the end of a run.
+(the ``sdca_block`` kernel, the default), ``"torch"`` (its plain
+version) and ``"mesh"`` (``core/engine/mesh.py``: one ``torch.distributed``
+rank per leaf, every rank making the same ``compile`` / ``run`` calls on
+the same global problem; see :meth:`Session.compile`).  History values
+are recorded as device scalars and pulled to the host in one transfer
+(:func:`materialize_history`) at stream points and at the end of a run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,13 +65,18 @@ from repro_torch.core import prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.delay import fit_C
 from repro_torch.core.engine import host as host_mod
+from repro_torch.core.engine import mesh as mesh_mod
 from repro_torch.core.engine import plan as plan_mod
 from repro_torch.core.engine.method import get_method
 from repro_torch.core.instrument import SolveResult, record_round
 
 Tensor = torch.Tensor
 
-BACKENDS = host_mod.BACKENDS
+BACKENDS = host_mod.BACKENDS + ("mesh",)
+
+# the DeviceMesh each (device type, fan-outs) builds when compile gets no
+# mesh: init_device_mesh creates process groups, so it runs once
+_DEFAULT_MESHES: Dict[tuple, object] = {}
 
 
 def _objective(alpha: Tensor, X: Tensor, y: Tensor, loss, lam: float):
@@ -101,7 +109,8 @@ class Session:
     def __init__(self, problem: Problem, topology: Topology,
                  resolved: ResolvedSchedule, backend: str, plan,
                  executor: host_mod.HostExecutor,
-                 acceleration: Optional[float] = None):
+                 acceleration: Optional[float] = None,
+                 mesh_options: Optional[dict] = None):
         self.problem = problem
         self.topology = topology
         self.resolved = resolved
@@ -113,14 +122,35 @@ class Session:
         # None = the plain "sdca" method; a float (0.0 included) = the
         # "sdca_acc" method with this default momentum coefficient
         self.acceleration = acceleration
+        # the mesh keywords of compile this session was bound with: mesh,
+        # mesh_axes, mesh_use_kernel, mesh_sync (empty off the mesh)
+        self.mesh_options = dict(mesh_options or {})
         # the problem in the executor's blocked layout (a view of X when
-        # every leaf holds m_b rows)
+        # every leaf holds m_b rows; on the mesh, this rank's block)
         self.data = executor.prepare(problem.X, problem.y)
+
+    def executor_options(self) -> dict:
+        """The mesh keywords of ``Method.executor`` (empty off the mesh)."""
+        return _executor_kw(self.mesh_options)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the files a run saves: always off
+        the mesh, the first leaf's rank on it."""
+        return getattr(self.executor, "writer", True)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing off the mesh)."""
+        if self.backend == "mesh":
+            self.executor.barrier()
 
     @classmethod
     def compile(cls, problem: Problem, topology: Topology,
                 schedule: Optional[Schedule] = None, *,
-                backend: str = "cuda", device="cuda") -> "Session":
+                backend: str = "cuda", device="cuda", mesh=None,
+                mesh_axes: Optional[Sequence[str]] = None,
+                mesh_use_kernel: bool = True,
+                mesh_sync: str = "psum") -> "Session":
         """Lower ``topology`` under ``schedule`` and bind the ``backend``
         executor on ``device``.  A ``rounds="auto"`` schedule whose
         DelayModel has ``C="auto"`` first runs the calibration pilot
@@ -128,7 +158,20 @@ class Session:
         ``Schedule(acceleration=)`` binds the accelerated executor.  The
         plan verifier (``analysis/plan_check.py::verify_plan``) runs on
         every compiled plan and raises ``AnalysisError`` on a malformed
-        one."""
+        one.
+
+        ``backend="mesh"`` runs the plan with one ``torch.distributed``
+        rank per leaf (``core/engine/mesh.py``), under a process group
+        every rank has initialized; each rank makes the same calls with
+        the same global problem and keeps its own block.  ``mesh`` is a
+        ``DeviceMesh`` with ``mesh_axes`` its axes innermost (leaf level)
+        first; without one, a mesh ``lvl0, lvl1, ...`` of the plan's
+        per-depth fan-outs is built over the world, whose size must be
+        their product.  ``mesh_use_kernel`` picks the ``sdca_block``
+        kernel or its plain version at the leaves, ``mesh_sync`` the sync
+        lowering: ``"psum"`` (replicated servers, the host backend bit for
+        bit) or ``"reduce_scatter"`` (each depth's server sharded over its
+        group; full participation only)."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         schedule = schedule or Schedule()
@@ -142,8 +185,10 @@ class Session:
                 and schedule.delay.C == "auto"):
             # only rounds="auto" reads the DelayModel: an explicit-rounds
             # schedule would ignore the fitted C, so it pays no pilot
-            schedule, fitted_C = _calibrate_C(problem, topology, schedule,
-                                              backend)
+            schedule, fitted_C = _calibrate_C(
+                problem, topology, schedule, backend,
+                dict(mesh=mesh, mesh_axes=mesh_axes,
+                     mesh_use_kernel=mesh_use_kernel, mesh_sync=mesh_sync))
         resolved = schedule.resolve(topology)
         acceleration = schedule.acceleration
         method = get_method("sdca_acc" if acceleration is not None
@@ -155,10 +200,17 @@ class Session:
         # specs, RNG schedule independence and fingerprint soundness,
         # checked before an executor is built against the plan
         plan_check.verify_plan(plan)
+        mesh_kw: dict = {}
+        if backend == "mesh":
+            mesh, mesh_axes = _bind_mesh(plan, resolved, mesh, mesh_axes,
+                                         mesh_sync, problem.device)
+            mesh_kw = dict(mesh=mesh, mesh_axes=mesh_axes,
+                           mesh_use_kernel=mesh_use_kernel,
+                           mesh_sync=mesh_sync)
         ex = method.executor(plan=plan, loss=problem.loss, backend=backend,
-                             device=problem.device)
+                             device=problem.device, **_executor_kw(mesh_kw))
         sess = cls(problem, topology, resolved, backend, plan, ex,
-                   acceleration=acceleration)
+                   acceleration=acceleration, mesh_options=mesh_kw)
         sess.fitted_C = fitted_C
         return sess
 
@@ -301,6 +353,12 @@ class Session:
                 checkpoint, self.resolved)
             h_meta = None if local_h is None else \
                 np.asarray(local_h).tolist()
+        if (straggler is not None
+                and self.mesh_options.get("mesh_sync") == "reduce_scatter"):
+            raise ValueError(
+                "mesh_sync='reduce_scatter' assumes full participation "
+                "(the sharded-server sync has no per-leaf gating); use "
+                "mesh_sync='psum' for straggler-adaptive runs")
         acc_args = (float(acc_run),) if accelerated else ()
 
         alpha, w, k = self._start_state(warm_start, key, lam)
@@ -433,14 +491,18 @@ class Session:
                     "history": list(_history_prefix) + history,
                 }
                 # the previous snapshot reaches the host now, a period
-                # after it was taken
-                if ckpt_pending is not None:
+                # after it was taken (on the mesh, every rank gathers it
+                # and the first leaf's rank writes it)
+                if ckpt_pending is not None and self.writer:
                     ckpt_mgr.save(*ckpt_pending)
                 ckpt_pending = (t0_round + t, payload, meta)
         if ckpt_mgr is not None:
-            if ckpt_pending is not None:
-                ckpt_mgr.save(*ckpt_pending)
-            ckpt_mgr.wait()       # surface async-save failures before exit
+            if self.writer:
+                if ckpt_pending is not None:
+                    ckpt_mgr.save(*ckpt_pending)
+                ckpt_mgr.wait()   # surface async-save failures before exit
+            # no rank returns (and may resume) before the files are out
+            self.barrier()
         alpha, w = ex.finalize(state)
         next_key = plan_mod.advance_root_key(k, T, K_root)
         if not _defer_history:
@@ -616,16 +678,17 @@ class Session:
 
 
 def _calibrate_C(problem: Problem, topology: Topology, schedule: Schedule,
-                 backend: str):
+                 backend: str, mesh_kw: dict):
     """Resolve ``DelayModel(C="auto")``: run ``pilot_rounds`` root rounds
-    under the topology's default schedule on ``backend`` and the
-    problem's device, fit eq. (11)'s improvement constant from the
+    under the topology's default schedule on ``backend`` (with the mesh
+    keywords ``mesh_kw`` on the mesh) and the problem's device, fit eq. (11)'s improvement constant from the
     observed per-root-round gap contractions (``core/delay.py::fit_C``),
     and return (the schedule with the fitted C, the fitted C)."""
     dm = schedule.delay
     pilot = Session.compile(problem, topology,
                             Schedule(weighting=schedule.weighting),
-                            backend=backend, device=problem.device)
+                            backend=backend, device=problem.device,
+                            **(mesh_kw if backend == "mesh" else {}))
     res = pilot.run(rounds=int(dm.pilot_rounds), key=prng.PRNGKey(0))
     plan = pilot.plan
     # one root round of the pilot, seen as eq. (11)'s star round: K = the
@@ -660,13 +723,68 @@ def solve(
     straggler=None,
     lam: Optional[float] = None,
     local_h=None,
+    mesh=None,
+    mesh_axes: Optional[Sequence[str]] = None,
+    mesh_use_kernel: bool = True,
+    mesh_sync: str = "psum",
 ) -> SolveResult:
     """One-shot convenience: ``Session.compile(...).run(...)`` with the
     ``run`` surface of this package (``warm_start``, ``straggler`` and the
-    ``lam`` / ``local_h`` overrides)."""
+    ``lam`` / ``local_h`` overrides) and the mesh keywords of
+    :meth:`Session.compile`."""
     sess = Session.compile(problem, topology, schedule, backend=backend,
-                           device=device)
+                           device=device, mesh=mesh, mesh_axes=mesh_axes,
+                           mesh_use_kernel=mesh_use_kernel,
+                           mesh_sync=mesh_sync)
     return sess.run(rounds, key=key, warm_start=warm_start,
                     record_history=record_history,
                     history_every=history_every, on_round=on_round,
                     straggler=straggler, lam=lam, local_h=local_h)
+
+
+def _executor_kw(mesh_kw: dict) -> dict:
+    """``Session.compile``'s mesh keywords under ``Method.executor``'s
+    names."""
+    names = {"mesh": "mesh", "mesh_axes": "axes",
+             "mesh_use_kernel": "use_kernel", "mesh_sync": "sync"}
+    return {names[k]: v for k, v in mesh_kw.items()}
+
+
+def _bind_mesh(plan, resolved, mesh, mesh_axes, mesh_sync, device):
+    """The mesh checks of :meth:`Session.compile` (the reference's, with
+    its messages) and the ``(mesh, mesh_axes)`` to bind: the given pair,
+    or the default ``lvl0, lvl1, ...`` mesh of the plan's fan-outs over
+    the world."""
+    if plan.levels is None:
+        raise ValueError(
+            "backend='mesh' needs a level-homogeneous topology "
+            "(uniform per-depth fan-out/rounds, congruent leaves)")
+    if resolved.weighting != "uniform":
+        raise ValueError("backend='mesh' supports weighting='uniform'")
+    if mesh_sync not in mesh_mod.SYNC_MODES:
+        raise ValueError(f"unknown mesh_sync {mesh_sync!r}; use "
+                         f"{mesh_mod.SYNC_MODES}")
+    if mesh is not None:
+        if mesh_axes is None:
+            raise ValueError("pass mesh_axes (innermost level first) "
+                             "together with an explicit mesh")
+        return mesh, tuple(mesh_axes)
+    import torch.distributed as dist
+    sizes = [plan.levels[d].group_size for d in range(plan.depth)]
+    names = tuple(f"lvl{d}" for d in range(plan.depth))
+    need = math.prod(sizes)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise RuntimeError(
+            f"backend='mesh' needs {need} ranks (one per leaf) for "
+            f"fan-outs {sizes}, have "
+            f"{'no process group' if have is None else f'world size {have}'}"
+            f" (start {need} processes that each call torch.distributed."
+            f"init_process_group(world_size={need}), or pass mesh=)")
+    dev_type = torch.device(device).type
+    key = (dev_type, tuple(sizes))
+    if key not in _DEFAULT_MESHES:
+        from torch.distributed.device_mesh import init_device_mesh
+        _DEFAULT_MESHES[key] = init_device_mesh(
+            dev_type, tuple(sizes), mesh_dim_names=names)
+    return _DEFAULT_MESHES[key], tuple(reversed(names))

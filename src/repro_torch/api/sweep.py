@@ -41,8 +41,13 @@ the host in one transfer at the end.
 per-member ``member_<i>/`` snapshots for compressed, accelerated and
 continuation groups, which then run member at a time through
 ``Session.run`` (their residuals and anchors do not fit a stacked (a, w)
-file).  Not ported yet: mesh sweeps wait for the mesh backend (ROADMAP
-A7), the LM learning-rate axis (``lrs=``) for the LM workload (A9.6).
+file).  On the mesh backend (``Session.compile(backend="mesh")``) a
+group runs through the batched mesh executor: on every rank, one
+``sdca_block`` launch per solve tick covers the rank's leaf for all B
+configs, and the syncs run config by config, so each member equals its
+standalone mesh run bit for bit; fleet files are written by the first
+leaf's rank.  Not ported yet: the LM learning-rate axis (``lrs=``), which
+waits for the LM workload (ROADMAP A9.6).
 """
 from __future__ import annotations
 
@@ -297,13 +302,14 @@ class RunSet:
 def _session_for(session, spec: Sweep, schedule_index):
     """The (sub)session a schedule group runs through: the caller's own
     session for ``None``, else a fresh compile of that Schedule on the
-    same backend and device."""
+    same backend, device and mesh."""
     if schedule_index is None:
         return session
     from repro_torch.api.session import Session
     return Session.compile(session.problem, session.topology,
                            spec.schedules[schedule_index],
-                           backend=session.backend, device=session.device)
+                           backend=session.backend, device=session.device,
+                           **session.mesh_options)
 
 
 def _steps_for_point(gsess, pt: SweepPoint) -> np.ndarray:
@@ -375,7 +381,8 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
     acc_args = (float(gsess.acceleration),) if accelerated else ()
     method = get_method("sdca_acc" if accelerated else "sdca")
     ex = method.executor(plan=plan, loss=loss, backend=gsess.backend,
-                         device=dev, batched=True)
+                         device=dev, batched=True,
+                         **gsess.executor_options())
     part = torch.as_tensor(plan_mod.full_participation(plan), device=dev)
     if warm is not None:
         a = torch.as_tensor(warm[0], dtype=X.dtype, device=dev)
@@ -443,12 +450,15 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
             rec(t, ex.finalize(state)[0])
         if mgr is not None and (t % ck_every == 0 or t == T):
             af, wf = ex.finalize(state)
-            mgr.save(t, {"a": af, "w": wf},
-                     {"round": t, "rounds_total": T,
-                      "plan": plan.fingerprint,
-                      "histories": hists_now()})
+            if gsess.writer:
+                mgr.save(t, {"a": af, "w": wf},
+                         {"round": t, "rounds_total": T,
+                          "plan": plan.fingerprint,
+                          "histories": hists_now()})
     if mgr is not None:
-        mgr.wait()
+        if gsess.writer:
+            mgr.wait()
+        gsess.barrier()
     a, w = ex.finalize(state)
     histories = hists_now()
     return [SolveResult(alpha=a[b], w=w[b], history=histories[b],
@@ -611,7 +621,7 @@ def run_sweep(session, spec: Sweep, *, rounds=None, record_history=True,
                     "fleet.json mismatch: this Sweep's (points, rounds) "
                     "differ from the interrupted fleet's; resume with the "
                     "identical spec")
-        else:
+        elif session.writer:
             cfg_path.write_text(json.dumps(cfg))
 
     groups: Dict[Optional[int], List[SweepPoint]] = {}

@@ -8,9 +8,9 @@ in the other -- the delay views the eq.-(12) planner reads
 (:meth:`Topology.sync_levels`, per-leaf sync delays, leaf and aggregation
 costs), per-edge compression stamps (:meth:`Topology.with_compression`)
 and the membership edits of elastic sessions (:meth:`Topology.with_leaf` /
-:meth:`Topology.without_leaf`).  Round counts on the tree are defaults; a
-Schedule may override them.  Not ported yet: ``from_mesh`` (it needs the
-mesh backend, ROADMAP A7).
+:meth:`Topology.without_leaf`), and the tree of a ``DeviceMesh``
+(:meth:`Topology.from_mesh`).  Round counts on the tree are defaults; a
+Schedule may override them.
 """
 from __future__ import annotations
 
@@ -338,6 +338,55 @@ class Topology:
             return TreeNode(name=name, children=kids, rounds=rounds[d],
                             t_cp=t_cp, up_delay=up)
         return cls(tree=build(0, (), 0.0))
+
+    @classmethod
+    def from_mesh(
+        cls, mesh, *, sync_axes: Sequence[str] = ("data", "pod"),
+        periods: Optional[Sequence[int]] = None,
+        level_delays: Optional[Sequence[float]] = None,
+        t_lp: float = 0.0, t_cp: float = 0.0, m_leaf: int = 1,
+    ) -> "Topology":
+        """The LM-training tree of a ``DeviceMesh``: one leaf per replica,
+        one internal level per sync axis.
+
+        ``sync_axes`` are bottom-up (fastest link first); axes missing
+        from the mesh or of size 1 are dropped.  ``periods[i]`` (bottom-up,
+        default all 1) is the number of level-i rounds per level-(i+1)
+        sync -- the leaves' local H and the internal rounds of the tree,
+        what ``Schedule(rounds="auto")`` re-plans from ``level_delays[i]``,
+        the delay of the link crossing axis ``i``.  The root runs 1 round:
+        the run length is the Schedule's.  ``m_leaf`` is a nominal per-leaf
+        data size (it only feeds the delay model's bandwidth terms)."""
+        from repro_torch.launch.mesh import axis_size
+
+        axes = tuple(a for a in sync_axes
+                     if a in tuple(mesh.mesh_dim_names or ())
+                     and axis_size(mesh, a) > 1)
+        sizes = [axis_size(mesh, a) for a in axes]       # bottom-up
+        L = len(axes)
+        if L == 0:
+            # one replica: a one-leaf star, keeping the first link delay
+            # so eq.-(12) replanning stays meaningful
+            return cls.balanced(
+                [1], m_leaf=m_leaf,
+                local_steps=(list(periods) or [1])[0] if periods else 1,
+                level_delays=[level_delays[0]] if level_delays else None,
+                t_lp=t_lp, t_cp=t_cp)
+        ps = list(periods) if periods is not None else [1] * L
+        if len(ps) != L:
+            raise ValueError(
+                f"{len(ps)} periods for {L} present sync axes {axes}")
+        ds = list(level_delays) if level_delays is not None else [0.0] * L
+        if len(ds) != L:
+            raise ValueError(
+                f"{len(ds)} level_delays for {L} present sync axes {axes}")
+        # top-down rounds: the root runs 1, depth d runs periods[L-d], the
+        # leaves periods[0] local steps
+        rounds = [1] + [ps[L - d] for d in range(1, L)]
+        return cls.balanced(list(reversed(sizes)), m_leaf=m_leaf,
+                            local_steps=ps[0], level_rounds=rounds,
+                            level_delays=list(reversed(ds)),
+                            t_lp=t_lp, t_cp=t_cp)
 
     @classmethod
     def groups(

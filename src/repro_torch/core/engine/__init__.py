@@ -12,10 +12,16 @@ Backends: ``"cuda"`` (the hand-written ``sdca_block`` leaf kernel) and
 adds a leading config axis (one kernel launch per tick for every config)
 and ``accelerated=True`` the ``sdca_acc`` server momentum; ``method``
 registers the two methods (``get_method("sdca" | "sdca_acc")``).
+``mesh.get_mesh_executor`` / ``mesh.execute_plan_mesh`` run a
+level-homogeneous plan as a ``torch.distributed`` program, one rank per
+leaf (used by ``core/treedual_mesh.py`` and ``Session.compile(backend=
+"mesh")``).
 """
 from repro_torch.core.engine.host import (  # noqa: F401
     BACKENDS, HostExecutor, execute_plan, get_host_executor,
     regularizer_scale)
+from repro_torch.core.engine.mesh import (  # noqa: F401
+    execute_plan_mesh, get_mesh_executor)
 from repro_torch.core.engine.method import (  # noqa: F401
     Method, get_method, register_method)
 from repro_torch.core.engine.plan import (  # noqa: F401
@@ -25,7 +31,8 @@ from repro_torch.core.engine.plan import (  # noqa: F401
     tree_from_level_plan)
 
 __all__ = ["BACKENDS", "HostExecutor", "execute_plan", "get_host_executor",
-           "regularizer_scale", "Method", "get_method", "register_method",
+           "regularizer_scale", "execute_plan_mesh", "get_mesh_executor",
+           "Method", "get_method", "register_method",
            "LevelSpec", "SchedulePlan", "TreePlan", "balanced_tree",
            "chunk_participation", "chunked_key_plan", "compile_tree",
            "full_participation", "full_steps", "index_plan", "key_plan",

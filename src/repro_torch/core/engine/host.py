@@ -168,16 +168,24 @@ class HostExecutor(nn.Module):
     ``backend="cuda"`` solves leaves with the ``sdca_block`` kernel
     (CPU tensors take its plain version, as every kernel wrapper does),
     ``backend="torch"`` with the plain version everywhere.  ``batched``
-    and ``accelerated`` select the flavors of the module docstring."""
+    and ``accelerated`` select the flavors of the module docstring.
+
+    ``rows`` are the leaves whose state the executor carries: all of them
+    here, one per rank on the mesh (``core/engine/mesh.py``).  The sync
+    gates are computed over every leaf from the plan and the (S, n)
+    participation mask, then read at ``rows``; only the weighted group
+    sum of the w-deltas (:meth:`_group_sum`) needs the other leaves'
+    state."""
 
     def __init__(self, plan: TreePlan, *, loss: Loss, backend: str = "cuda",
                  device="cuda", batched: bool = False,
-                 accelerated: bool = False):
+                 accelerated: bool = False, rows: slice = slice(None)):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         self.plan, self.loss, self.backend = plan, loss, backend
         self.batched, self.accelerated = bool(batched), bool(accelerated)
+        self.rows = rows
         n, m_b, m = plan.n_leaves, plan.m_b, plan.m_total
         D, h_max = plan.depth, plan.h_max
         dev = torch.device(device)
@@ -197,7 +205,7 @@ class HostExecutor(nn.Module):
             torch.int64)
         buf("valid", j[None, :] < sizes[:, None], torch.float32)
         buf("flat_map", flat_map, torch.int64)
-        buf("hmask", np.arange(h_max)[None, :] < plan.leaf_h[:, None],
+        buf("hmask", (np.arange(h_max)[None, :] < plan.leaf_h[:, None])[rows],
             torch.float32)
         buf("ascale", plan.alpha_scale, torch.float32)
         buf("wcoef", plan.w_coeff, torch.float32)
@@ -207,14 +215,16 @@ class HostExecutor(nn.Module):
         buf("solve_mask", plan.solve_mask, torch.float32)
         buf("sync_mask", plan.sync_mask, torch.float32)
         buf("refresh_mask", plan.refresh_mask, torch.float32)
-        # leaves grouped by H capacity: each group draws its exact randint
-        # shape (the legacy draw has no prefix property)
+        # the carried leaves grouped by H capacity: each group draws its
+        # exact randint shape (the legacy draw has no prefix property)
+        leaf_h, own_sizes = plan.leaf_h[rows], sizes[rows]
         self.h_groups = []
-        for h in sorted({int(v) for v in plan.leaf_h}):
-            rows = np.nonzero(plan.leaf_h == h)[0]
+        for h in sorted({int(v) for v in leaf_h}):
+            hrows = np.nonzero(leaf_h == h)[0]
             self.h_groups.append((
-                h, torch.as_tensor(rows, device=dev),
-                torch.as_tensor(sizes[rows], dtype=torch.int64, device=dev)))
+                h, torch.as_tensor(hrows, device=dev),
+                torch.as_tensor(own_sizes[hrows], dtype=torch.int64,
+                                device=dev)))
         member = plan.sync_mask.max(axis=0) > 0                  # (D, n)
         self.groups = [_Segments(plan.group_ids[dd], member[dd],
                                  plan.n_groups[dd]) for dd in range(D)]
@@ -231,13 +241,14 @@ class HostExecutor(nn.Module):
         self.comp_groups = {}
         if plan.has_compression:
             for dd in range(D):
-                kinds = plan.compress_kind[dd]
-                if not (kinds != comp_mod.KIND_NONE).any():
+                if not (plan.compress_kind[dd] != comp_mod.KIND_NONE).any():
                     continue
                 self.res_slot[dd] = len(self.res_slot)
+                kinds = plan.compress_kind[dd][rows]
+                fracs = plan.compress_frac[dd][rows]
                 groups = {}
                 for li in np.nonzero(kinds != comp_mod.KIND_NONE)[0]:
-                    key = (int(kinds[li]), float(plan.compress_frac[dd, li]))
+                    key = (int(kinds[li]), float(fracs[li]))
                     groups.setdefault(key, []).append(int(li))
                 self.comp_groups[dd] = [
                     (k, f, torch.as_tensor(rows, device=dev))
@@ -384,16 +395,17 @@ class HostExecutor(nn.Module):
         lms = lm_host if self.backend == "torch" else \
             sdca_kernel.lm_array(lm_host, data.Xb.device)
         a, w = state.a, state.w
+        R = self.rows
         carries = [_Carry(state, b) for b in range(B)]
         one = torch.ones((), dtype=w.dtype, device=dev)
         acc_on = None if acc is None else torch.full(
             (), acc != 0.0, dtype=torch.bool, device=dev)
         for s in range(plan.n_ticks):
             if self.solves[s]:
-                idx = self.draw_idx(keys[:, s].contiguous())
+                idx = self.draw_idx(keys[:, s, R].contiguous())
                 # the static per-leaf H gate x the solve slot x the runtime
                 # step mask; all-ones steps multiply by exactly 1.0
-                mk = self.hmask * self.solve_mask[s][:, None] * steps[:, s]
+                mk = self.hmask * self.solve_mask[s][R, None] * steps[:, s, R]
                 da, dw = self.leaf_solve(data, a, w, xsq, idx, mk, lms)
                 a = a + da
                 w = w + dw
@@ -411,7 +423,7 @@ class HostExecutor(nn.Module):
               acc: Optional[float], acc_on: Optional[Tensor]) -> None:
         """Tick ``s``'s sync events bottom-up, the server rebase and the
         snapshot refresh, for one config (``c``, updated in place)."""
-        D = self.plan.depth
+        D, R = self.plan.depth, self.rows
         a, w = c.a, c.w
         act_of: List[Optional[Tensor]] = [None] * D
         # leaves that attended a deeper sync earlier in this tick: they now
@@ -431,10 +443,10 @@ class HostExecutor(nn.Module):
             denom_g = torch.where(
                 absent_g == 0, one,
                 torch.where(present_g > 0, present_g, one))
-            denom = denom_g[gid]
-            act = (ev > 0) & (present_g > 0)[gid]         # group live
-            eb = (e > 0)[:, None]                         # leaf attends
-            base_a = (c.snapA[dd] + (self.ascale[dd] / denom)[:, None]
+            denom = denom_g[gid][R]
+            act = ((ev > 0) & (present_g > 0)[gid])[R]   # group live
+            eb = (e[R] > 0)[:, None]                      # leaf attends
+            base_a = (c.snapA[dd] + (self.ascale[dd][R] / denom)[:, None]
                       * (a - c.snapA[dd]))
             if acc is not None:
                 # extrapolate alpha along its own combined sequence with
@@ -450,8 +462,8 @@ class HostExecutor(nn.Module):
             # a partially present child is represented by its surviving
             # leaves: their weights scale by |child| / |present|
             cnt_c = self.children[dd].sum(e)
-            corr = self.csize[dd] / torch.clamp(cnt_c, min=1.0)[
-                self.cids[dd]]
+            corr = (self.csize[dd] / torch.clamp(cnt_c, min=1.0)[
+                self.cids[dd]])[R]
             # the fast-forward the snapshot refresh applies after a tick
             # whose shallower depths do not sync, applied here before a
             # shallower sync of the same tick: a leaf re-joining after an
@@ -471,8 +483,8 @@ class HostExecutor(nn.Module):
                 c.res[ri] = torch.where(eb, target - approx, c.res[ri])
                 delta_w = torch.where(getattr(self, f"comp_mask{dd}"),
                                       approx.to(w.dtype), delta_w)
-            contrib = (((wc * e) / denom) * corr)[:, None] * delta_w
-            srv_base = c.srvW[dd] + seg.sum(contrib)[gid]
+            contrib = (((wc[R] * e[R]) / denom) * corr)[:, None] * delta_w
+            srv_base = c.srvW[dd] + self._group_sum(dd, contrib)
             if acc is not None:
                 # server momentum along the un-extrapolated combination
                 # sequence (kept in srvP); a zero coefficient selects
@@ -499,8 +511,8 @@ class HostExecutor(nn.Module):
                     c.srvA[d2] = torch.where(live, a, c.srvA[d2])
         # snapshot refresh for participants; depths above a leaf's
         # shallowest attended sync fast-forward to the server state
-        refb = (self.refresh_mask[s] * part[None, :]) > 0     # (D, n)
-        attended = (self.sync_mask[s].amax(dim=0) * part) > 0
+        refb = ((self.refresh_mask[s] * part[None, :]) > 0)[:, R]  # (D, rows)
+        attended = ((self.sync_mask[s].amax(dim=0) * part) > 0)[R]
         for dd in range(D):
             r = refb[dd][:, None]
             ffwd = (~refb[dd] & attended)[:, None]
@@ -508,6 +520,11 @@ class HostExecutor(nn.Module):
             c.snapW[dd] = torch.where(
                 r, w, torch.where(ffwd, c.srvW[dd], c.snapW[dd]))
         c.a, c.w = a, w
+
+    def _group_sum(self, dd: int, contrib: Tensor) -> Tensor:
+        """Each carried leaf's group total of the weighted w-deltas at
+        depth ``dd``: a segment sum over the group's leaf range."""
+        return self.groups[dd].sum(contrib)[self.gids[dd]]
 
     def forward(self, data: BlockedData, keys: Tensor, alpha0: Tensor,
                 w0: Tensor, participation: Tensor, steps: Tensor,

@@ -10,7 +10,8 @@ children.  Registered here:
   ``"sdca"``      -- the paper's dual coordinate ascent: local step =
                      Procedure P over a coordinate block, combine =
                      (dalpha keep-own, dw sum/average); the executors of
-                     ``core/engine/host.py``.
+                     ``core/engine/host.py`` and, for ``backend="mesh"``,
+                     of ``core/engine/mesh.py`` (one rank per leaf).
   ``"sdca_acc"``  -- the accelerated primal-dual flavor (Ma et al., arXiv
                      1711.05305): the same local step, but every server
                      combine extrapolates BOTH sides of the primal-dual
@@ -30,6 +31,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.core.engine import host as host_mod
+from repro_torch.core.engine import mesh as mesh_mod
 
 
 class Method:
@@ -44,7 +46,9 @@ class Method:
 
 class SDCAMethod(Method):
     """The paper's tree-DCA on the host executor (backends ``"cuda"`` and
-    ``"torch"``, see ``core/engine/host.py``)."""
+    ``"torch"``, see ``core/engine/host.py``) or the mesh executor
+    (``"mesh"``: ``mesh=``, ``axes=``, ``use_kernel=``, ``sync=``, see
+    ``core/engine/mesh.py``)."""
 
     name = "sdca"
 
@@ -52,9 +56,8 @@ class SDCAMethod(Method):
         if backend in host_mod.BACKENDS:
             return host_mod.get_host_executor(plan, backend=backend, **kw)
         if backend == "mesh":
-            raise NotImplementedError(
-                "the mesh backend (core/engine/mesh.py on torch.distributed) "
-                "is not ported yet (ROADMAP A7)")
+            return mesh_mod.get_mesh_executor(plan, kw.pop("mesh", None),
+                                              **kw)
         raise ValueError(f"sdca: unknown backend {backend!r}")
 
 

@@ -4,11 +4,11 @@ Checkpoints hold *global* host arrays (``runtime/checkpoint.py``), so
 elasticity is: gather to the host, place onto the new devices.  On one
 card that is a host round trip and a device move (:func:`to_host`,
 :func:`remesh_state`); a checkpointed session carry restores through the
-same pair (``runtime/fault.py::with_ef_residuals``).  The JAX package's
-sharded forms -- ``remesh_params`` (rebuild parameter shardings for a new
-mesh) and ``fold_batch`` (the per-replica batch of a mesh) -- need a
-device mesh, which comes with the mesh backend (ROADMAP A7); here they
-raise.
+same pair (``runtime/fault.py::with_ef_residuals``, which on the mesh
+backend places each rank's own rows).  :func:`fold_batch` sizes the
+per-replica batch of a ``DeviceMesh``.  ``remesh_params`` (rebuild
+parameter shardings for a new mesh) needs the LM workload's parameter
+shardings (ROADMAP A9); here it raises.
 """
 from __future__ import annotations
 
@@ -16,12 +16,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.launch.mesh import axis_size
 from repro_torch.runtime.checkpoint import _host, _map_tree
 
 PyTree = Any
-
-_NEEDS_MESH = ("needs a device mesh, which comes with the mesh backend "
-               "(ROADMAP A7); on one card use remesh_state")
 
 
 def to_host(state: PyTree) -> PyTree:
@@ -51,11 +49,20 @@ def replicated(device, tree: PyTree) -> PyTree:
 
 
 def remesh_params(cfg, params: PyTree, new_mesh, rules=None) -> PyTree:
-    raise NotImplementedError(f"remesh_params {_NEEDS_MESH}")
+    raise NotImplementedError(
+        "remesh_params needs the LM workload's parameter shardings "
+        "(launch/sharding.py, ROADMAP A9); on one card use remesh_state")
 
 
 def fold_batch(global_batch: int, mesh) -> Dict[str, int]:
-    raise NotImplementedError(f"fold_batch {_NEEDS_MESH}")
+    """Per-replica batch for an invariant global batch on any mesh size:
+    data parallelism is the product of the ``data`` and ``pod`` axes."""
+    dp = axis_size(mesh, "data") * axis_size(mesh, "pod")
+    if global_batch % dp != 0:
+        raise ValueError(
+            f"global batch {global_batch} must divide data parallelism "
+            f"{dp}; pad or regrid the batch")
+    return {"data_parallel": dp, "per_replica": global_batch // dp}
 
 
 def shrink_survivors(n_devices: int, lost: int, model_parallel: int) -> int:

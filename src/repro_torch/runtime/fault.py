@@ -134,15 +134,20 @@ def ef_residuals(session, state) -> List[Tensor]:
     residuals of a live executor state (empty for an uncompressed plan):
     the one part of the blocked state that does not collapse into (alpha,
     w) at a root-round boundary.  Returned as the state's own device
-    tensors; the caller clones them before the state moves on."""
+    tensors; the caller clones them before the state moves on.  On the
+    mesh each rank holds its leaf's row, and every rank gathers the (n,
+    d) residuals (a collective)."""
     if state is None or not session.plan.has_compression:
         return []
+    if session.backend == "mesh":
+        return [session.executor.gather_leaves(r) for r in state.res]
     return list(state.res)
 
 
 def with_ef_residuals(session, state, res: Sequence):
     """Substitute restored EF residuals (host arrays) into a freshly
-    ``init``-ed executor state, on the session's device."""
+    ``init``-ed executor state, on the session's device; on the mesh,
+    each rank's own leaf row."""
     res = tuple(res)
     if not res:
         return state
@@ -152,12 +157,11 @@ def with_ef_residuals(session, state, res: Sequence):
             f"checkpoint carries {len(res)} EF residuals but the plan "
             f"compresses {n_res} depths -- was the schedule's compression "
             "changed between save and resume?")
-    if session.backend not in ("cuda", "torch"):
-        raise NotImplementedError(
-            f"restoring EF residuals onto backend {session.backend!r} needs "
-            "the mesh backend's shardings (ROADMAP A7)")
     from repro_torch.runtime.elastic import remesh_state, replicated
     host = tuple(np.asarray(r, np.float32) for r in res)
+    if session.backend == "mesh":
+        leaf = session.executor.leaf
+        host = tuple(r[leaf:leaf + 1] for r in host)
     sub = remesh_state(host, replicated(session.device, host))
     return state._replace(res=tuple(sub))
 

@@ -280,7 +280,15 @@ def test_remesh_state_roundtrip_is_value_identical():
 
 
 def test_remesh_params_and_fold_batch_need_the_mesh_backend():
-    with pytest.raises(NotImplementedError, match="A7"):
+    """remesh_params waits for the LM parameter shardings (A9);
+    fold_batch reads the data x pod sizes of a mesh (any object with
+    DeviceMesh's mesh_dim_names and shape)."""
+    import types
+    with pytest.raises(NotImplementedError, match="A9"):
         elastic.remesh_params(None, {}, None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        elastic.fold_batch(256, None)
+    mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                                 shape=(2, 4, 8))
+    assert elastic.fold_batch(256, mesh) == {"data_parallel": 8,
+                                             "per_replica": 32}
+    with pytest.raises(ValueError, match="must divide data parallelism 8"):
+        elastic.fold_batch(12, mesh)

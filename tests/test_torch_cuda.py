@@ -461,3 +461,85 @@ def test_a_card_checkpoint_resumes_on_the_cpu(cuda_device, tmp_path):
         want = want.cpu()
         assert float((got - want).abs().max()) <= \
             REL * max(1.0, float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the mesh backend on the card (spawned ranks sharing card 0)
+# ---------------------------------------------------------------------------
+MESH_RS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _mesh_case(n, dev):
+    rng = np.random.default_rng(21)
+    topo = Topology.star(n, 512, rounds=4, local_steps=256)
+    X = torch.from_numpy(rng.standard_normal((n * 512, 64)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(n * 512).astype(
+        np.float32)).to(dev)
+    return Problem(X, y, lam=1e-3), topo
+
+
+def _mesh_rank(rank, world, backend, root):
+    """One rank (spawned): psum and reduce_scatter runs on card 0, with
+    its sdca_block launches counted around the psum run."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import ranks
+    torch.cuda.set_device(0)
+    ranks.init(rank, world, f"file://{root}/pg", backend=backend)
+    dev = torch.device("cuda", 0)
+    prob, topo = _mesh_case(world, dev)
+    out = {}
+    for sync in ("psum", "reduce_scatter"):
+        sess = Session.compile(prob, topo, backend="mesh", device=dev,
+                               mesh_sync=sync)
+        before = kernel.LAUNCHES
+        res = sess.run(key=prng.PRNGKey(5))
+        torch.cuda.synchronize()
+        out[sync] = {"alpha": res.alpha.cpu(), "w": res.w.cpu(),
+                     "gaps": list(res.gaps),
+                     "launches": kernel.LAUNCHES - before,
+                     "ticks": int(sess.executor.solves.sum()) * 4}
+    torch.save(out, f"{root}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _mesh_against_host(world, backend, root, cuda_device):
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ranks
+    _build.build_all()               # the ranks load the built library
+    prob, topo = _mesh_case(world, cuda_device)
+    host = Session.compile(prob, topo, backend="cuda",
+                           device=cuda_device).run(key=prng.PRNGKey(5))
+    ranks.spawn(_mesh_rank, world, args=(world, backend, str(root)),
+                timeout=300)
+    for r in range(world):
+        got = torch.load(root / f"rank{r}.pt", weights_only=False)
+        psum, rs = got["psum"], got["reduce_scatter"]
+        assert torch.equal(psum["alpha"], host.alpha.cpu())
+        assert torch.equal(psum["w"], host.w.cpu())
+        assert psum["gaps"] == list(host.gaps)
+        assert psum["launches"] == psum["ticks"] > 0
+        np.testing.assert_allclose(rs["alpha"].numpy(),
+                                   host.alpha.cpu().numpy(), **MESH_RS_TOL)
+        np.testing.assert_allclose(rs["w"].numpy(), host.w.cpu().numpy(),
+                                   **MESH_RS_TOL)
+    return got
+
+
+def test_gloo_mesh_on_the_card_equals_the_host_backend(cuda_device,
+                                                       tmp_path):
+    """Two gloo ranks sharing the card (gloo reduces CUDA tensors through
+    all_reduce only, the form the mesh picks for gloo): psum torch.equal
+    to the host backend, reduce_scatter within rtol 1e-5 / atol 1e-6, one
+    kernel launch per solve tick on each rank."""
+    _mesh_against_host(2, "gloo", tmp_path, cuda_device)
+
+
+def test_one_rank_nccl_mesh_equals_the_host_backend(cuda_device, tmp_path):
+    """One NCCL rank (the native all_gather_into_tensor /
+    reduce_scatter_tensor / all_reduce forms): both lowerings torch.equal
+    to the host backend."""
+    got = _mesh_against_host(1, "nccl", tmp_path, cuda_device)
+    assert torch.equal(got["reduce_scatter"]["alpha"], got["psum"]["alpha"])
+    assert torch.equal(got["reduce_scatter"]["w"], got["psum"]["w"])

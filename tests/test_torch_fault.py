@@ -210,11 +210,13 @@ def test_with_ef_residuals_checks_the_plan(data):
         fault.with_ef_residuals(sess, state, [np.zeros((4, 8))] * 2)
     sub = fault.with_ef_residuals(sess, state, [np.ones((4, 8))])
     assert torch.equal(sub.res[0], torch.ones(4, 8))
-    # a stand-in session on the mesh backend, which is not ported
+    # a stand-in session on the mesh backend: its rank holds leaf 2's row
     fake = types.SimpleNamespace(plan=sess.plan, backend="mesh",
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        fault.with_ef_residuals(fake, state, [np.ones((4, 8))])
+                                 device="cpu",
+                                 executor=types.SimpleNamespace(leaf=2))
+    rows = np.arange(32, dtype=np.float32).reshape(4, 8)
+    sub = fault.with_ef_residuals(fake, state, [rows])
+    assert torch.equal(sub.res[0], torch.as_tensor(rows[2:3]))
     assert fault.ef_residuals(_session(data), state) == []
 
 

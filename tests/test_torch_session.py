@@ -217,20 +217,18 @@ def test_topology_json_round_trips_with_the_reference():
 
 def test_unported_options_raise():
     """What the port still refuses, each naming the ROADMAP item it waits
-    for: the mesh backend (A7: its executor, the elastic runtime's
-    sharded forms) and the LM method (A9.6); and what it refuses as the
-    reference does."""
+    for: the parameter shardings of the LM workload (A9: remesh_params)
+    and the LM method (A9.6); a mesh executor asked for without a mesh;
+    and what it refuses as the reference does."""
     from repro_torch.core.engine.method import get_method
     from repro_torch.runtime import elastic
     topo = port_topology("star")
     X, y = data(topo.m_total)
     Session.compile(Problem(X, y), topo, backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         elastic.remesh_params(None, {}, None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        elastic.fold_batch(8, None)
     plan = tplan.compile_tree(topo.tree)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         get_method("sdca").executor(plan=plan, backend="mesh",
                                     loss=Problem(X, y).loss)
     with pytest.raises(ValueError, match="unknown method 'lm_treesync'"):
