@@ -149,7 +149,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      share of the bound and, as a yardstick of the card's streaming rate,
      one torch.mul over the same a and b) and, for flash attention, one
      F.scaled_dot_product_attention call with the same band mask (a
-     yardstick only: the port never calls it).
+     yardstick only: the port never calls it);
+  9. TreeSync LM training through Problem.lm + Session.compile(backend=
+     "mesh") + LMSession.run: four gloo ranks share the card, one replica
+     each, on a (pod, data, model) = (2, 2, 1) DeviceMesh,
+     Topology.from_mesh(periods=(2, 2)) with the pod (root) edge
+     int8-compressed.  recurrentgemma-2b at full width (d_model 2560,
+     vocab 256000, tied, f32 params, bf16 activations, remat,
+     xla_chunked attention, logits_chunk 512) cut to one (rec, rec, attn)
+     block, Adafactor, batch 4 x 2048 tokens (one sequence a rank), 8
+     steps (4 data syncs, 2 compressed pod syncs).  Every loss finite and
+     the last two below the first; after each due sync the group's ranks
+     hold torch.equal params; each rank's scan launches, zeroed before the
+     run and read after, equal 2 rec layers x (forward + remat recompute +
+     reverse) x 8; on rank 0 one step's gradients through the kernel match
+     the plain route (autograd through the plain scan) within
+     TRAIN_GRAD_TOL per leaf, every recurrent-layer leaf nonzero.  At
+     SMOKE width in the same spawn: (a) periods=(1, 1) SGD at f32
+     activations equals one process's data-parallel steps within
+     STAR_TOL; (b) a checkpointed run stopped after step 4 and resumed by a
+     fresh session is torch.equal to the uninterrupted run; (c) a
+     straggler run drops a replica as the policy decides, losses finite.
+     Prints seconds per warm step and per outer round, sync seconds by
+     level, tokens/s per rank and in total, peak memory per rank and the
+     launches; then the reverse-time launch's ms at (1, 2048, 2560)
+     beside the forward's, with its bytes bound.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -1782,6 +1806,392 @@ def time_lm_kernels(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 9: TreeSync LM training, one rank per replica -------------------
+TRAIN_WORLD = 4          # gloo ranks sharing the card, one per replica
+TRAIN_MESH = (2, 2, 1)   # (pod, data, model)
+TRAIN_PERIODS = (2, 2)   # data syncs every 2 steps, pod syncs every 4
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048       # one 2048-token sequence a rank
+TRAIN_SPAWN_TIMEOUT = 900.0
+# gradients through the kernel route against the plain route on one rank,
+# per leaf, as a share of max|plain|: the scans agree to an ulp (forward
+# bit-equal, backward the same recurrence), and bf16 activations round
+# what follows them at the same points in both routes
+TRAIN_GRAD_TOL = 1e-2
+# the star special case at f32 activations, against one process's
+# data-parallel steps on the global batch: the mean of four replicas'
+# gradients against one batch's gradient, the sums reassociated
+STAR_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_STRAGGLER = dict(slow_prob=0.3, slow_factor=50.0)
+TRAIN_STRAGGLER_SEED = 1
+
+
+def _train_cfg():
+    """recurrentgemma-2b at full width, cut to one (rec, rec, attn) block."""
+    import dataclasses
+    from repro_torch.configs import recurrentgemma_2b
+    return dataclasses.replace(recurrentgemma_2b.FULL, num_layers=3,
+                               remat=True, attention_impl="xla_chunked",
+                               logits_chunk=512)
+
+
+def expected_scan_launches(cfg, steps: int) -> int:
+    """Scan launches a replica makes in ``steps`` train steps, from the
+    code: each recurrent layer launches the forward and the reverse-time
+    launch of RGLRUScan.backward, and a layer inside a pattern block,
+    under remat, the recomputed forward as well (the tail's layers run
+    outside the checkpointed blocks, as in the reference)."""
+    from repro_torch.models.transformer import block_layout
+    pattern, n_full, tail = block_layout(cfg)
+    in_blocks = n_full * sum(k == "rec" for k in pattern)
+    in_tail = sum(k == "rec" for k in tail)
+    return (in_blocks * (2 + int(cfg.remat)) + in_tail * 2) * steps
+
+
+def _group_equal(group, tree) -> bool:
+    """Whether every member of ``group`` (an LMComm group) holds the same
+    bits in every tensor of ``tree``: the group's rows of each piece
+    gathered and compared with this rank's."""
+    import torch
+    from repro_torch.core.engine.lm import SYNC_CHUNK
+    from repro_torch.optim.api import tree_leaves
+    comm, _ = group
+    same = True
+    for t in tree_leaves(tree):
+        bits = t.detach().reshape(-1).view(torch.int32)
+        for s in range(0, bits.numel(), SYNC_CHUNK):
+            piece = bits[s:s + SYNC_CHUNK]
+            rows = comm.gather_rows(piece[None])
+            same &= bool((rows == piece[None]).all())
+    return same
+
+
+def _smoke_session(mesh, dev, cfg, opt, periods, schedule=None, **topo_kw):
+    from repro_torch.api import Problem, Session, Topology
+    prob = Problem.lm(cfg, opt, batch=8, seq=64, seed=0)
+    topo = Topology.from_mesh(mesh, sync_axes=("data", "pod"),
+                              periods=periods, **topo_kw)
+    return Session.compile(prob, topo, schedule, backend="mesh", mesh=mesh,
+                           device=dev)
+
+
+def _train_rank(rank: int, world: int, root: str) -> None:
+    """One replica of phase 9, in a spawned process on card 0: the
+    full-width run with its checks, the gradient check (rank 0), then the
+    SMOKE-width star, kill-and-resume and straggler runs.  Each rank saves
+    its numbers; a failed check raises, which fails the spawn."""
+    import dataclasses
+    import os
+    from datetime import timedelta
+
+    # four processes share the card: let each return what it frees to its
+    # own pool in whole segments, so peaks do not strand memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.api import (CheckpointPolicy, Problem, Schedule, Session,
+                                 Topology)
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.core.delay import StragglerModel
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.optim import make_adafactor, make_adamw, make_sgd
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.runtime import ranks
+    from repro_torch.runtime.straggler import StragglerPolicy
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ranks.init(rank, world, f"file://{root}/pg", backend="gloo",
+               timeout=timedelta(seconds=TRAIN_SPAWN_TIMEOUT))
+    mesh = init_device_mesh("cuda", TRAIN_MESH,
+                            mesh_dim_names=("pod", "data", "model"))
+    stats = {"init_s": time.perf_counter() - t_start}
+
+    # ---- the full-width run ---------------------------------------------
+    cfg = _train_cfg()
+    prob = Problem.lm(cfg, make_adafactor(), batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, seed=0)
+    topo = Topology.from_mesh(mesh, sync_axes=("data", "pod"),
+                              periods=TRAIN_PERIODS)
+    sess = Session.compile(prob, topo, Schedule(compression=("int8",
+                                                             "none")),
+                           backend="mesh", mesh=mesh, device=dev)
+    cum = np.cumprod(TRAIN_PERIODS)
+    synced = []
+
+    def on_state(step, state):
+        # the highest level due at this step: its group holds one model
+        for level in (1, 0):
+            if step % int(cum[level]) == 0:
+                group = sess.comm.prefix[level]
+                if not _group_equal(group, state.params):
+                    raise AssertionError(
+                        f"after step {step}'s level-{level} sync the group "
+                        f"of replica {sess.replica} holds different params")
+                synced.append((step, level))
+                break
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sess.run(steps=TRAIN_STEPS, key=0, on_state=on_state)
+    torch.cuda.synchronize()
+    stats["run_s"] = time.perf_counter() - t0
+    stats["launches"] = rg.LAUNCHES
+    stats["peak"] = torch.cuda.max_memory_allocated()
+    stats["history"] = res.history
+    stats["sync_s"] = sess.sync_seconds()
+    stats["sync_n"] = sess.sync_counts()
+    stats["synced"] = synced
+    losses = [h["loss"] for h in res.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    want = expected_scan_launches(cfg, TRAIN_STEPS)
+    if stats["launches"] != want:
+        raise AssertionError(f"rank {rank}: {stats['launches']} scan "
+                             f"launches, the code makes {want}")
+
+    # ---- the kernel route's gradients against the plain route (rank 0) --
+    if rank != 0:
+        del res
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        params = res.state.params
+        res.state.residual = res.state.opt_state = None
+        # alone on the card (the other ranks wait): one step's data draw
+        # and its forward + backward, each timed warm after one untimed
+        batch = sess._batch_at(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = sess._batch_at(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        stats["draw_alone_s"] = time.perf_counter() - t0
+        grads_of(cfg, params, batch)
+        torch.cuda.synchronize()
+        n0 = rg.LAUNCHES
+        t0 = time.perf_counter()
+        gk, mk = grads_of(cfg, params, batch)
+        torch.cuda.synchronize()
+        stats["grads_alone_s"] = time.perf_counter() - t0
+        stats["grad_launches"] = rg.LAUNCHES - n0
+        gp, mp = grads_of(cfg, params, batch, plain_recurrence=True)
+        worst, rec_min = 0.0, float("inf")
+        for blk in ("sub0", "sub1"):
+            for g in gk["blocks"][blk]["mix"].values():
+                rec_min = min(rec_min, float(g.abs().sum()))
+        for x, y in zip(tree_leaves(gk), tree_leaves(gp), strict=True):
+            scale = max(float(y.abs().max()), 1e-30)
+            e = float((x - y).abs().max()) / scale
+            if not e <= TRAIN_GRAD_TOL:
+                raise AssertionError(f"kernel-route gradient differs from "
+                                     f"the plain route by {e} of max|plain|")
+            worst = max(worst, e)
+        if not rec_min > 0:
+            raise AssertionError("a recurrent-layer parameter got no "
+                                 "gradient through the kernel")
+        stats.update(grad_rel_err=worst, grad_loss=(float(mk["loss"]),
+                                                    float(mp["loss"])))
+        del gk, gp, params, res
+        torch.cuda.empty_cache()
+    dist.barrier()
+    del sess
+
+    # ---- (a) the star special case at SMOKE width ------------------------
+    small32 = dataclasses.replace(recurrentgemma_2b.SMOKE,
+                                  activation_dtype="float32")
+    sgd = make_sgd(lr=0.05, momentum=0.0)
+    star = _smoke_session(mesh, dev, small32, sgd, (1, 1))
+    consensus = star.run(steps=3, key=0).consensus()
+    if rank == 0:
+        st = star.init_state(0)
+        params, opt_state = st.params, st.opt_state
+        dp = make_train_step(small32, sgd)
+        for i in range(3):
+            params, opt_state, _ = dp(params, opt_state, lm_batch(
+                small32, 8, 64, i, seed=0, device=dev))
+        err = 0.0
+        for x, y in zip(tree_leaves(consensus), tree_leaves(params),
+                        strict=True):
+            torch.testing.assert_close(x, y, **STAR_TOL)
+            err = max(err, float((x - y).abs().max()))
+        stats["star_err"] = err
+
+    # ---- (b) kill after step 4 and resume: the uninterrupted run ----------
+    small = recurrentgemma_2b.SMOKE
+    int8 = Schedule(compression=("int8", "none"))
+    run_b = _smoke_session(mesh, dev, small, make_adamw(lr=1e-3),
+                           TRAIN_PERIODS, int8)
+    full = run_b.run(steps=6, key=0)
+    pol = CheckpointPolicy(f"{root}/ckpt", every=1)
+    run_b.run(steps=4, key=0, checkpoint=pol)
+    fresh = _smoke_session(mesh, dev, small, run_b.problem.optimizer,
+                           TRAIN_PERIODS, int8)
+    resumed = fresh.resume(pol, steps=2)
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(full.state.params) + tree_leaves(full.state.opt_state)
+        + tree_leaves(full.state.residual),
+        tree_leaves(resumed.state.params) + tree_leaves(
+            resumed.state.opt_state) + tree_leaves(resumed.state.residual),
+        strict=True))
+    if not same or [h["loss"] for h in full.history] != [
+            h["loss"] for h in resumed.history]:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    stats["resume_equal"] = True
+
+    # ---- (c) stragglers ------------------------------------------------
+    topo_kw = dict(level_delays=[1e-3, 5e-2], t_lp=1e-3)
+    strag = _smoke_session(mesh, dev, small, make_sgd(lr=0.05),
+                           TRAIN_PERIODS, **topo_kw)
+
+    def policy():
+        return StragglerPolicy(model=StragglerModel(**TRAIN_STRAGGLER),
+                               seed=TRAIN_STRAGGLER_SEED)
+    out = strag.run(rounds=4, key=0, straggler=policy())
+    losses = [h["loss"] for h in out.history]
+    decide = policy()
+    spr = strag.steps_per_round
+    decide.bind(strag.topology.leaf_sync_delays(),
+                t_compute=spr * strag.topology.leaf_t_lp(),
+                t_lp=strag.topology.leaf_t_lp())
+    want_parts = []
+    for r in range(4):
+        st = decide.step(final=r == 3)
+        want_parts += [int(st.mask.sum())] * spr
+    got_parts = [h["participants"] for h in out.history]
+    if not all(np.isfinite(losses)) or got_parts != want_parts:
+        raise AssertionError(f"straggler run: losses {losses}, participants "
+                             f"{got_parts} against the policy's "
+                             f"{want_parts}")
+    if min(got_parts) == TRAIN_WORLD:
+        raise AssertionError("the straggler policy dropped no replica")
+    stats["straggler_participants"] = got_parts
+    torch.cuda.synchronize()
+    stats["total_s"] = time.perf_counter() - t_start
+    torch.save(stats, f"{root}/train_stats{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def time_reverse_scan(dev, card: str) -> dict:
+    """The scan's reverse-time launch at the training shape (1, 2048, 2560)
+    beside its forward launch, both with their bytes bound."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    n0 = rg.LAUNCHES
+    B, S, W = 1, TRAIN_SEQ, 2560
+    g = torch.Generator(device=dev).manual_seed(9)
+    a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
+    b = torch.randn(B, S, W, generator=g, device=dev)
+    dh = torch.randn(B, S, W, generator=g, device=dev)
+    h0 = torch.zeros(B, W, device=dev)
+    a_next = torch.zeros_like(a)
+    a_next[:, :-1] = a[:, 1:]
+    ra = torch.flip(a_next, (1,)).contiguous()
+    rb = torch.flip(dh, (1,)).contiguous()
+    got = ops.reverse_scan(a, dh)
+    want = torch.flip(rglru_scan_ref(ra, rb, h0)[0], (1,))
+    if not torch.equal(got, want):
+        raise AssertionError("the reverse-time launch is not bit-equal to "
+                             "the plain backward recurrence")
+    fwd_ms = time_ms(lambda: rg.rglru_scan_kernel(a, b, h0), 20)
+    rev_ms = time_ms(lambda: rg.rglru_scan_kernel(ra, rb, h0), 20)
+    op_ms = time_ms(lambda: ops.reverse_scan(a, dh), 20)
+    plain_ms = time_plain_ms(lambda: rglru_scan_ref(ra, rb, h0), 1)
+    nbytes = (3 * a.numel() + 2 * h0.numel()) * 4
+    flops = 2 * a.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"rglru_scan at the training shape (B={B} S={S} W={W} f32): "
+          f"forward launch {fwd_ms:.4f} ms, reverse-time launch {rev_ms:.4f} "
+          f"ms ({100 * bound / rev_ms:.1f}% of its bound), the whole "
+          f"reverse op (shift, two flips, launch, flip back) {op_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes "
+          f"{t_bytes:.4f} ms: {nbytes} B), bit-equal to the plain backward "
+          f"recurrence  [{card}]")
+    rg.LAUNCHES = n0
+    return {"forward_ms": fwd_ms, "ms": rev_ms, "op_ms": op_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def train_path(dev, card: str) -> dict:
+    """Phase 9 (see the module docstring): four gloo ranks share the card,
+    one replica each; returns the scan launches of each rank's full-width
+    run and the timings."""
+    import shutil
+
+    import torch
+    from repro_torch.runtime import ranks
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = _train_cfg()
+    want = expected_scan_launches(cfg, TRAIN_STEPS)
+    ranks.spawn(_train_rank, TRAIN_WORLD, args=(TRAIN_WORLD, str(root)),
+                timeout=TRAIN_SPAWN_TIMEOUT)
+    stats = [torch.load(root / f"train_stats{r}.pt", weights_only=False)
+             for r in range(TRAIN_WORLD)]
+    shutil.rmtree(root, ignore_errors=True)
+    n_params = cfg.param_count()
+    steps = [[h["sec"] for h in s["history"]] for s in stats]
+    warm = [sum(x[1:]) / (len(x) - 1) for x in steps]
+    spr = TRAIN_PERIODS[0] * TRAIN_PERIODS[1]
+    per_round = [sum(x) / (len(x) / spr) for x in steps]
+    tok = TRAIN_SEQ * TRAIN_BATCH // TRAIN_WORLD
+    losses = [h["loss"] for h in stats[0]["history"]]
+    print(f"train path: recurrentgemma-2b at full width cut to "
+          f"{cfg.num_layers} layers ({n_params} parameters, "
+          f"{n_params * 4 / 2**30:.2f} GiB f32), Adafactor, bf16 "
+          f"activations, remat, (pod, data) = (2, 2), periods "
+          f"{TRAIN_PERIODS}, int8 root; {TRAIN_WORLD} processes "
+          f"time-sharing one card, {tok} tokens a rank a step")
+    print(f"train path: losses {[f'{x:.4f}' for x in losses]}; groups "
+          f"torch.equal after each sync {stats[0]['synced']}")
+    for r, s in enumerate(stats):
+        print(f"train path rank {r}: {s['launches']} scan launches (the "
+              f"code: {want}), {warm[r]:.3f} s per warm step, "
+              f"{per_round[r]:.3f} s per outer round, syncs "
+              f"{[f'{x:.3f}' for x in s['sync_s']]} s over "
+              f"{s['sync_n']} (data, pod), {tok / warm[r]:.1f} tokens/s, "
+              f"peak memory {s['peak'] / 2**30:.2f} GiB, init "
+              f"{s['init_s']:.1f} s, run {s['run_s']:.1f} s, total "
+              f"{s['total_s']:.1f} s  [{card}]")
+    total_tok = TRAIN_WORLD * tok / max(warm)
+    print(f"train path: {total_tok:.1f} tokens/s in total (4 processes "
+          f"time-sharing one card, not a deployment's speed); gradient "
+          f"check on rank 0: kernel route vs plain route within "
+          f"{stats[0]['grad_rel_err']:.3e} of max|plain| per leaf "
+          f"(alone on the card: the data draw {stats[0]['draw_alone_s']:.3f}"
+          f" s, forward + backward {stats[0]['grads_alone_s']:.3f} s) "
+          f"({stats[0]['grad_launches']} scan launches), losses "
+          f"{stats[0]['grad_loss']}; star case within "
+          f"{stats[0]['star_err']:.3e}; resume torch.equal; straggler "
+          f"participants {stats[0]['straggler_participants']}; phase 9 "
+          f"took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"launches": [s["launches"] for s in stats],
+            "expected_per_rank": want,
+            "sec_per_step_warm": warm, "sec_per_round": per_round,
+            "sync_s": [s["sync_s"] for s in stats],
+            "tokens_per_s_total": total_tok,
+            "draw_alone_s": stats[0]["draw_alone_s"],
+            "grads_alone_s": stats[0]["grads_alone_s"],
+            "peak_bytes": [s["peak"] for s in stats]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1946,11 +2356,22 @@ def main() -> int:
         lm["flash_attention"]["max_abs_err"], flash_err)
     lm["rglru_scan"]["max_abs_err"] = max(lm["rglru_scan"]["max_abs_err"],
                                           rglru_err)
+
+    # ---- 9. TreeSync LM training, one rank per replica ----------------------
+    torch.cuda.empty_cache()
+    trained = train_path(dev, card)
+    reverse = time_reverse_scan(dev, card)
     # the flash row is the serving path's (bf16) kernel
     lm_rows = [dict(
         name=name, route="cuda",
         source=f"src/repro_torch/kernels/{pkg}/csrc/{src}.cu",
-        replaces=replaces, launches=lm_launches[name], **lm[name])
+        replaces=replaces, launches=lm_launches[name], **lm[name],
+        **({"launches_by_path": {
+            "serve": lm_launches[name],
+            **{f"train_rank{r}": n
+               for r, n in enumerate(trained["launches"])}},
+            "train_expected_per_rank": trained["expected_per_rank"],
+            "reverse_time": reverse} if name == "rglru_scan" else {}))
         for name, pkg, src, replaces in (
             ("flash_attention", "flash_attention", "flash_attention_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:86"),

@@ -31,10 +31,15 @@ runs); :class:`ElasticSession` runs a solve whose leaves leave and join
 mid-run (a :class:`MembershipLog`), and ``Sweep(resume=)`` continues a
 checkpointed fleet.  ``Session.compile(..., backend="mesh")`` runs the
 solve with one ``torch.distributed`` rank per leaf (every rank making the
-same calls; ``runtime/ranks.py`` spawns and joins them on one host).  LM
-training is not ported yet (see ROADMAP).
+same calls; ``runtime/ranks.py`` spawns and joins them on one host).
+
+LM training is the second workload on the same engine:
+``Problem.lm(cfg, optimizer, batch=8, seq=128)`` compiled with
+``backend="mesh"`` returns an :class:`LMSession` (one rank per replica)
+driven by the same Schedule / planner / straggler / checkpoint machinery.
 """
-from repro_torch.api.problem import Problem                   # noqa: F401
+from repro_torch.api.lm import LMResult, LMSession           # noqa: F401
+from repro_torch.api.problem import LMProblem, Problem        # noqa: F401
 from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401
 from repro_torch.api.session import Session, solve            # noqa: F401
 from repro_torch.api.sweep import RunSet, Sweep, sweep        # noqa: F401
@@ -44,7 +49,8 @@ from repro_torch.runtime.fault import (                       # noqa: F401
     CheckpointPolicy, ElasticSession, FaultModel, MembershipLog,
     run_with_faults)
 
-__all__ = ["Problem", "Topology", "Schedule", "DelayModel", "Session",
+__all__ = ["Problem", "LMProblem", "Topology", "Schedule", "DelayModel",
+           "Session", "LMSession", "LMResult",
            "SolveResult", "Sweep", "RunSet", "solve", "sweep",
            "CheckpointPolicy", "ElasticSession", "FaultModel",
            "MembershipLog", "run_with_faults"]

@@ -8,8 +8,11 @@ can continue one of the reference (``Session.run(warm_start=...)``);
 from the arrays a reference ``Problem`` was built from;
 ``lm_params_from_reference`` carries a reference LM's parameters over;
 ``exec_state_from_reference`` turns a reference state-executor carry into
-this package's :class:`~repro_torch.core.engine.host.ExecState`.  The
-tests start both packages from the same state this way.
+this package's :class:`~repro_torch.core.engine.host.ExecState`;
+``lm_state_from_reference`` / ``lm_state_to_reference`` carry an LM
+TreeSync state (params, optimizer state, step, residual) across, one
+replica's row of the reference's replica-stacked state.  The tests start
+both packages from the same state this way.
 """
 from __future__ import annotations
 
@@ -101,6 +104,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _tree(node, device, index=None):
+    """A numpy tree (dicts, lists; ``None`` kept) as tensors on
+    ``device``, taking row ``index`` of every leaf when given."""
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _tree(v, device, index) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -121,3 +128,54 @@ def lm_params_from_reference(tree, cfg, device="cuda") -> dict:
         out["blocks"] = [_tree(tree["blocks"], device, i)
                          for i in range(n_full)]
     return out
+
+
+def lm_state_from_reference(state, replica: int = 0, device="cuda"):
+    """Replica ``replica`` of a reference ``TreeSyncState`` with numpy
+    leaves (``jax.tree.map(np.asarray, state)``; the fields may also be
+    given as a dict ``{"params", "opt_state", "step", "residual"}``) as
+    this package's :class:`~repro_torch.core.engine.lm.TreeSyncState` on
+    ``device``: params in the reference's layout (blocks stacked), the
+    optimizer state entry for entry (its step a 0-d int32 tensor), the
+    host step and the residual."""
+    from repro_torch.core.engine.lm import TreeSyncState
+    get = (state.get if isinstance(state, dict)
+           else lambda k: getattr(state, k, None))
+    opt = _tree(get("opt_state"), device, replica)
+    return TreeSyncState(
+        params=_tree(get("params"), device, replica),
+        opt_state=opt, step=int(np.asarray(get("step"))),
+        residual=_tree(get("residual"), device, replica))
+
+
+def _numpy_tree(node):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _numpy_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_numpy_tree(v) for v in node]
+    t = node.detach().cpu()
+    return (t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy())
+
+
+def lm_state_to_reference(states) -> dict:
+    """The reference's replica-stacked state as numpy, from this
+    package's per-replica states (a list, in replica order):
+    ``{"params", "opt_state", "step", "residual"}`` with every leaf
+    stacked on a leading (R,) axis (bfloat16 leaves as float32)."""
+    def stack(trees):
+        if trees[0] is None:
+            return None
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        if isinstance(trees[0], list):
+            return [stack([t[i] for t in trees])
+                    for i in range(len(trees[0]))]
+        return np.stack(trees)
+    return {
+        "params": stack([_numpy_tree(s.params) for s in states]),
+        "opt_state": stack([_numpy_tree(s.opt_state) for s in states]),
+        "step": np.asarray(int(states[0].step), np.int32),
+        "residual": stack([_numpy_tree(s.residual) for s in states]),
+    }

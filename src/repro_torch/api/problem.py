@@ -5,6 +5,7 @@ loss (by name via the ``core.dual`` registry, or a
 :class:`~repro_torch.core.dual.Loss`), and the ridge parameter lambda.
 Its tensors stay on the device they were given on (numpy input lands on
 the CPU); :meth:`to` moves them, as ``Session.compile(device=)`` does.
+``Problem.lm`` builds the second workload, an :class:`LMProblem`.
 """
 from __future__ import annotations
 
@@ -77,3 +78,44 @@ class Problem:
     @classmethod
     def logistic(cls, X, y, *, lam: float = 0.1) -> "Problem":
         return cls(X, y, loss="logistic", lam=lam)
+
+    # ---- the second workload -------------------------------------------
+    @staticmethod
+    def lm(cfg, optimizer, *, batch: int, seq: int, seed: int = 0,
+           average_opt_state: bool = True) -> "LMProblem":
+        """Data-parallel LM training on the same schedule engine.
+
+        Returns an :class:`LMProblem` that :meth:`Session.compile
+        <repro_torch.api.session.Session.compile>` dispatches to the
+        ``"lm_treesync"`` method (mesh backend): the local step is one
+        ``optimizer`` update on a synthetic-LM batch, the per-level
+        combine a parameter/opt-state mean over the level's sync group.
+        """
+        return LMProblem(cfg=cfg, optimizer=optimizer, batch=batch, seq=seq,
+                         seed=seed, average_opt_state=average_opt_state)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMProblem:
+    """LM-training *what*: model config + optimizer + deterministic data
+    stream (``repro_torch.data.lm.lm_batch`` is a pure function of
+    ``(seed, step)``, so resume = restore state + continue the stream).
+
+    Where/how stay :class:`~repro_torch.api.topology.Topology` /
+    :class:`~repro_torch.api.schedule.Schedule`, exactly as for SDCA; the
+    ``method`` marker routes :meth:`Session.compile
+    <repro_torch.api.session.Session.compile>` to
+    :class:`repro_torch.api.lm.LMSession`.
+    """
+    cfg: "object"            # repro_torch.configs.base.ModelConfig
+    optimizer: "object"      # repro_torch.optim.Optimizer
+    batch: int = 8
+    seq: int = 128
+    seed: int = 0
+    average_opt_state: bool = True
+    method: str = dataclasses.field(default="lm_treesync")
+
+    def __post_init__(self):
+        if self.batch <= 0 or self.seq <= 0:
+            raise ValueError(
+                f"batch/seq must be positive, got {self.batch}/{self.seq}")

@@ -49,6 +49,7 @@ are recorded as device scalars and pulled to the host in one transfer
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import plan_check
+from repro_torch.analysis import trace_guard as guard_mod
 from repro_torch.api.problem import Problem
 from repro_torch.api.schedule import (ResolvedSchedule, Schedule,
                                       leaf_h_spec, runtime_tree)
@@ -128,6 +130,7 @@ class Session:
         # the problem in the executor's blocked layout (a view of X when
         # every leaf holds m_b rows; on the mesh, this rank's block)
         self.data = executor.prepare(problem.X, problem.y)
+        self._guard = None          # TraceGuard when compiled strict
 
     def executor_options(self) -> dict:
         """The mesh keywords of ``Method.executor`` (empty off the mesh)."""
@@ -150,7 +153,7 @@ class Session:
                 backend: str = "cuda", device="cuda", mesh=None,
                 mesh_axes: Optional[Sequence[str]] = None,
                 mesh_use_kernel: bool = True,
-                mesh_sync: str = "psum") -> "Session":
+                mesh_sync: str = "psum", strict=False) -> "Session":
         """Lower ``topology`` under ``schedule`` and bind the ``backend``
         executor on ``device``.  A ``rounds="auto"`` schedule whose
         DelayModel has ``C="auto"`` first runs the calibration pilot
@@ -171,7 +174,20 @@ class Session:
         kernel or its plain version at the leaves, ``mesh_sync`` the sync
         lowering: ``"psum"`` (replicated servers, the host backend bit for
         bit) or ``"reduce_scatter"`` (each depth's server sharded over its
-        group; full participation only)."""
+        group; full participation only).
+
+        An :class:`~repro_torch.api.problem.LMProblem` (``Problem.lm``)
+        compiles to an :class:`~repro_torch.api.lm.LMSession` (mesh
+        backend only; ``mesh`` a ``DeviceMesh`` with the sync axes, or
+        ``make_host_mesh()``).  ``strict`` (bool or a
+        ``analysis.TraceGuard``) turns on strict mode: host syncs inside
+        an executor step raise (``torch.cuda.set_sync_debug_mode``), and
+        with ``sanitize`` the state is checked for NaN/Inf every round."""
+        if getattr(problem, "method", "sdca") not in ("sdca", None):
+            from repro_torch.api.lm import LMSession
+            return LMSession.compile(problem, topology, schedule,
+                                     backend=backend, mesh=mesh,
+                                     strict=strict, device=device)
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
         schedule = schedule or Schedule()
@@ -212,6 +228,7 @@ class Session:
         sess = cls(problem, topology, resolved, backend, plan, ex,
                    acceleration=acceleration, mesh_options=mesh_kw)
         sess.fitted_C = fitted_C
+        sess._guard = guard_mod.as_trace_guard(strict)
         return sess
 
     @property
@@ -456,8 +473,15 @@ class Session:
                     extra["h"] = h_now
                     if st.h_suggest is not None:
                         next_h = int(min(max(st.h_suggest, 1), plan.h_max))
-            state = ex.step(self.data, keys_all[t - 1], state, prt,
-                            steps_now, lm, *acc_args)
+            # strict mode: no host sync inside a step after the first (the
+            # first builds the kernels)
+            guard = self._guard
+            with (guard.dispatch_region() if guard is not None and t > 1
+                  else contextlib.nullcontext()):
+                state = ex.step(self.data, keys_all[t - 1], state, prt,
+                                steps_now, lm, *acc_args)
+            if guard is not None and guard.sanitize:
+                guard.check_carry(state, f"state@round{t}")
             if record_history and (t % every == 0 or t == T):
                 record(t, ex.finalize(state)[0], extra)
             if ckpt_mgr is None:

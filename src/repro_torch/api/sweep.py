@@ -46,8 +46,10 @@ group runs through the batched mesh executor: on every rank, one
 ``sdca_block`` launch per solve tick covers the rank's leaf for all B
 configs, and the syncs run config by config, so each member equals its
 standalone mesh run bit for bit; fleet files are written by the first
-leaf's rank.  Not ported yet: the LM learning-rate axis (``lrs=``), which
-waits for the LM workload (ROADMAP A9.6).
+leaf's rank.  The LM learning-rate axis (``lrs=``) belongs to the fused
+LM sweep (``LMSession.sweep``, B members stacked on each rank), the next
+item of the ROADMAP's LM queue; until then an LM session's ``sweep``
+raises.
 """
 from __future__ import annotations
 

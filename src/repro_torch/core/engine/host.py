@@ -383,6 +383,16 @@ class HostExecutor(nn.Module):
                         participation, steps[None], [float(lm)], acc)
         return _map_state(out, lambda t: t[0])
 
+    def _lm_on(self, lm_host: List[float], device) -> Tensor:
+        """The kernel's (B,) ``lm`` operand on ``device``, copied there once
+        per set of values: every step of a run reuses it, so a step makes
+        no host-to-device copy (which strict mode's sync guard refuses)."""
+        key = (tuple(lm_host), str(device))
+        if getattr(self, "_lm_key", None) != key:
+            self._lm_dev = sdca_kernel.lm_array(lm_host, device)
+            self._lm_key = key
+        return self._lm_dev
+
     def _run(self, data: BlockedData, keys: Tensor, state: ExecState,
              participation: Tensor, steps: Tensor, lm_host: List[float],
              acc: Optional[float]) -> ExecState:
@@ -393,7 +403,7 @@ class HostExecutor(nn.Module):
         # each config's ||x||^2 / lm, divided as a one-config run divides
         xsq = torch.stack([data.sqnorm / v for v in lm_host])
         lms = lm_host if self.backend == "torch" else \
-            sdca_kernel.lm_array(lm_host, data.Xb.device)
+            self._lm_on(lm_host, data.Xb.device)
         a, w = state.a, state.w
         R = self.rows
         carries = [_Carry(state, b) for b in range(B)]

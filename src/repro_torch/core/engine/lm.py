@@ -1,0 +1,455 @@
+"""LM TreeSync as a mesh-backend *Method* on the schedule IR (the JAX
+package's ``core/engine/lm.py``), one ``torch.distributed`` rank per
+replica.
+
+The paper's tree schedule (H local iterations per level, nested per-level
+rounds) is method-agnostic; this module supplies the LM-training side of
+the Method protocol (see ``engine.method``): the local step is one
+optimizer update on this rank's replica, and the per-level combine is a
+(masked) mean over that level's sync group.
+
+Where the reference keeps a leading replica dimension R = prod(sync-axis
+sizes), sharded so that each device group holds one replica, each rank
+here holds one replica's params, optimizer state and error-feedback
+residual.  The replicas are numbered as the reference's replica dimension
+(``P(tuple(reversed(axes)))``: outermost level slowest), and a rank's
+replica is its leaf in ``engine.mesh.leaf_ranks``.  Digit l of the
+replica index in the mixed radix of the bottom-up level sizes is its
+position on level l, so
+
+  * a level-l sync (``_mean_over_level``) is a mean over the ranks that
+    differ from this one in digit l only;
+  * a prefix sync (``_mean_over_prefix``, levels 0..l at once) over the
+    ranks that differ in digits 0..l only;
+  * a masked mean gives participants the mean of the participants in
+    their group and leaves absentees their own value (``_masked_mean``).
+
+Every mean gathers the group's rows in replica order and sums them on
+each rank (``GroupComm.gather_rows`` of ``engine.mesh``): every member
+computes the same bits, and the sum runs in the order the reference's
+mean over the reshaped replica axis takes, whatever order a backend's
+``all_reduce`` would pick.  Tensors are synced in flat chunks of
+``SYNC_CHUNK`` elements (a multiple of the int8 codec's 32-element
+blocks, so a chunked int8 round trip is the whole leaf's bit for bit),
+which bounds the gather buffers at full width.
+
+The step takes the per-level periods as a runtime operand: level l fires
+when the step number is a multiple of ``cumprod(periods)[l]``.  Optional
+runtime operands, each a separate executor variant: ``masked=True`` (a
+per-replica (R,) participation mask, replicated on every rank) and
+``with_lr=True`` (a learning rate overriding the optimizer's schedule).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import compression as comp_mod
+from repro_torch.core.engine.mesh import GROUP_TIMEOUT, GroupComm, leaf_ranks
+from repro_torch.launch.mesh import axis_size
+from repro_torch.launch.steps import grads_of
+from repro_torch.models import transformer
+from repro_torch.optim import Optimizer
+from repro_torch.optim.api import tree_leaves, tree_unflatten
+
+PyTree = Any
+Tensor = torch.Tensor
+
+# elements of one synced piece of a tensor (64 MiB of f32), a multiple of
+# the int8 codec's BLOCK
+SYNC_CHUNK = 1 << 24
+assert SYNC_CHUNK % comp_mod.BLOCK == 0
+
+
+# ---------------------------------------------------------------------------
+# this rank's replica of the state
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class TreeSyncState:
+    """One replica of the reference's replica-stacked state: ``params``
+    (the reference's layout, blocks stacked), ``opt_state``, the host
+    step count and, under a compressed root edge, the f32 error-feedback
+    ``residual`` shaped like ``params``."""
+    params: PyTree
+    opt_state: PyTree
+    step: int
+    residual: Optional[PyTree] = None
+
+
+def clone_tree(tree: PyTree) -> PyTree:
+    if tree is None:
+        return None
+    return tree_unflatten(tree, [t.clone() if isinstance(t, Tensor) else t
+                                 for t in tree_leaves(tree)])
+
+
+def clone_state(state: TreeSyncState) -> TreeSyncState:
+    return TreeSyncState(clone_tree(state.params), clone_tree(state.opt_state),
+                         int(state.step), clone_tree(state.residual))
+
+
+def init_lm_state(cfg: ModelConfig, optimizer: Optimizer,
+                  gen: torch.Generator, compression: str = "none"
+                  ) -> TreeSyncState:
+    """A fresh replica: parameters drawn from ``gen`` on its device (every
+    rank draws the same ones from the same seed; the reference draws from a
+    ``jax.random`` key, so the numbers differ), in the reference's stacked
+    layout, and the optimizer's initial state."""
+    params = transformer.stack_blocks(transformer.init_params(cfg, gen))
+    state = TreeSyncState(params=params, opt_state=optimizer.init(params),
+                          step=0)
+    if comp_mod.spec_name(*comp_mod.parse_spec(compression)) != "none":
+        state.residual = comp_mod.get_compressor(compression).init_residual(
+            params)
+    return state
+
+
+def replica_rows(batch: int, n_replicas: int, replica: int) -> slice:
+    """The rows of a global batch that replica ``replica`` trains on (the
+    reference's ``split_batch``: (B, ...) -> (R, B/R, ...))."""
+    if batch % n_replicas:
+        raise ValueError(f"batch {batch} does not split over {n_replicas} "
+                         "replicas")
+    b = batch // n_replicas
+    return slice(replica * b, (replica + 1) * b)
+
+
+def split_batch(batch: Dict[str, Tensor], n_replicas: int, replica: int
+                ) -> Dict[str, Tensor]:
+    """This replica's rows of a global batch."""
+    rows = replica_rows(next(iter(batch.values())).shape[0], n_replicas,
+                        replica)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# the sync groups of one mesh
+# ---------------------------------------------------------------------------
+def present_axes(mesh, sync_axes: Sequence[str]) -> Tuple[str, ...]:
+    """Mesh axes actually present (size > 1), bottom-up (fastest first)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return tuple(a for a in sync_axes
+                 if a in names and axis_size(mesh, a) > 1)
+
+
+def level_sizes_for(mesh, sync_axes: Sequence[str]) -> Tuple[int, ...]:
+    """Replica-dim factorization (s_{L-1}, ..., s_0): outermost level
+    first, as the reference reshapes its (R, ...) replica dim."""
+    return tuple(axis_size(mesh, a)
+                 for a in reversed(present_axes(mesh, sync_axes)))
+
+
+def _runs(sizes_up: Sequence[int], lo: int, hi: int) -> List[List[int]]:
+    """The replica groups that vary digits lo..hi (bottom-up) of the mixed
+    radix ``sizes_up`` and agree on the others, members ascending."""
+    R = math.prod(sizes_up)
+    stride = math.prod(sizes_up[:lo])
+    span = math.prod(sizes_up[lo:hi + 1])
+    groups: Dict[int, List[int]] = {}
+    for r in range(R):
+        inner = (r // stride) % span
+        groups.setdefault(r - inner * stride, []).append(r)
+    return list(groups.values())
+
+
+class LMComm:
+    """This rank's replica index and its sync groups: ``level[l]`` (digit
+    l) and ``prefix[l]`` (digits 0..l), each a ``(GroupComm, members)``
+    pair with the members' replica indices in order.  Building one is a
+    collective: every rank creates every group."""
+
+    def __init__(self, mesh, axes: Sequence[str]):
+        self.axes = tuple(axes)                       # bottom-up
+        sizes_up = [axis_size(mesh, a) for a in self.axes]
+        self.R = math.prod(sizes_up)
+        ranks = leaf_ranks(mesh, self.axes)           # replica -> rank
+        self.replica = ranks.index(dist.get_rank())
+        self.level, self.prefix = [], []
+        for l in range(len(self.axes)):
+            self.level.append(self._group(ranks, _runs(sizes_up, l, l)))
+            self.prefix.append(self._group(ranks, _runs(sizes_up, 0, l)))
+
+    def _group(self, ranks, runs):
+        group, _ = dist.new_subgroups_by_enumeration(
+            [[ranks[r] for r in run] for run in runs], timeout=GROUP_TIMEOUT)
+        mine = next(run for run in runs if self.replica in run)
+        return GroupComm(group, [ranks[r] for r in mine]), mine
+
+    @property
+    def world(self):
+        """The group of every replica (the prefix of all levels)."""
+        return self.prefix[-1]
+
+
+_COMMS: Dict[Tuple, LMComm] = {}
+
+
+def _mesh_key(mesh, axes) -> Tuple:
+    return (tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape),
+            tuple(int(r) for r in mesh.mesh.reshape(-1).tolist()),
+            tuple(axes))
+
+
+def get_comm(mesh, axes: Sequence[str]) -> Optional[LMComm]:
+    """The cached :class:`LMComm` of ``mesh`` over ``axes`` (None when no
+    axis is present: one replica, no collectives)."""
+    if not axes:
+        return None
+    key = _mesh_key(mesh, axes)
+    if key not in _COMMS:
+        _COMMS[key] = LMComm(mesh, axes)
+    return _COMMS[key]
+
+
+def _group_mean(group, x: Tensor, mask: Optional[np.ndarray],
+                own: bool) -> Tensor:
+    """The f32 mean of ``x`` (flat) over ``group``'s members, rows summed
+    in replica order; masked: over the participants, or ``x`` itself for
+    an absentee (``own`` False) -- the reference's ``_masked_mean``."""
+    comm, members = group
+    rows = comm.gather_rows(x.float()[None])
+    if mask is None:
+        return torch.sum(rows, dim=0) / comm.size
+    mb = torch.as_tensor(mask[members], dtype=torch.float32,
+                         device=x.device)
+    num = torch.sum(rows * mb[:, None], dim=0)
+    mean = num / torch.clamp(torch.sum(mb), min=1.0)
+    return mean if own else x.float()
+
+
+def _syncable(t) -> bool:
+    return (isinstance(t, Tensor) and t.dim() > 0
+            and t.is_floating_point())
+
+
+def _pieces(t: Tensor):
+    flat = t.view(-1)
+    for s in range(0, flat.numel(), SYNC_CHUNK):
+        yield flat[s:s + SYNC_CHUNK]
+
+
+@torch.no_grad()
+def mean_tree(tree: PyTree, group, mask: Optional[np.ndarray] = None,
+              own: bool = True) -> None:
+    """Replace every float leaf of ``tree`` (scalars and integer leaves
+    excepted: step counters are the same on every replica) by its mean
+    over ``group``, in place."""
+    for t in tree_leaves(tree):
+        if not _syncable(t):
+            continue
+        for piece in _pieces(t):
+            piece.copy_(_group_mean(group, piece, mask, own).to(t.dtype))
+
+
+def _fits(compressor) -> bool:
+    """Whether the codec works block by block (so a flat piece of a leaf
+    compresses as its part of the whole): int8 and none, not top-k."""
+    return compressor.name in ("int8", "none")
+
+
+@torch.no_grad()
+def compressed_outer_sync(params: PyTree, residual: PyTree, comm: LMComm,
+                          compressor, mask: Optional[np.ndarray]) -> None:
+    """Cross-outermost-level averaging of compressed deltas with error
+    feedback, in place.  The anchor is the inner-level mean (identical
+    within each outer group after the inner syncs); each rank compresses
+    its own delta from that anchor plus its residual, the outer group
+    averages the decompressed deltas and the anchors.  Masked: absentees
+    keep their params and residual exactly."""
+    L = len(comm.level)
+    own = mask is None or bool(mask[comm.replica] > 0)
+    outer = comm.level[L - 1]
+    for p, r in zip(tree_leaves(params), tree_leaves(residual), strict=True):
+        pieces = (zip(_pieces(p), _pieces(r), strict=True) if _fits(compressor)
+                  else [(p.view(-1), r.view(-1))])
+        for pp, rr in pieces:
+            x = pp.float()
+            inner = (_group_mean(comm.prefix[L - 2], x, mask, own)
+                     if L > 1 else x)
+            wire, new_r = compressor.compress([x - inner], [rr])
+            deq = compressor.decompress(wire)[0]
+            both = torch.stack([deq.reshape(-1), inner.reshape(-1)])
+            avg = _group_mean(outer, both.reshape(-1), mask, own)
+            avg = avg.reshape(2, -1)
+            new_p = (avg[1] + avg[0]).to(p.dtype)
+            if own:
+                pp.copy_(new_p)
+                rr.copy_(new_r[0])
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+class LMStep:
+    """One replica's LM train step with the tree syncs:
+    ``step(state, batch, periods[, participation][, lr]) -> (state,
+    metrics)``, the reference's signature with ``batch`` this rank's rows
+    and ``participation`` the (R,) mask on every rank.  The state is
+    updated in place (the reference's executor donates it) and returned;
+    ``metrics`` are the replicas' mean ``loss``, ``moe_aux`` and
+    ``tokens`` as 0-d f32 tensors."""
+
+    def __init__(self, cfg: ModelConfig, optimizer: Optimizer, *,
+                 comm: Optional[LMComm], compression: str = "none",
+                 average_opt_state: bool = True, masked: bool = False,
+                 with_lr: bool = False):
+        self.cfg, self.optimizer, self.comm = cfg, optimizer, comm
+        self.L = 0 if comm is None else len(comm.level)
+        self.masked, self.with_lr = masked, with_lr
+        self.average_opt_state = average_opt_state
+        self.use_comp = comp_mod.spec_name(
+            *comp_mod.parse_spec(compression)) != "none"
+        self.compressor = (comp_mod.get_compressor(compression)
+                           if self.use_comp else None)
+        # seconds spent in each level's syncs (host clock, after a device
+        # synchronize), and how many ran
+        self.sync_seconds = [0.0] * self.L
+        self.sync_count = [0] * self.L
+
+    def local_step(self, state: TreeSyncState, batch, lr):
+        grads, metrics = grads_of(self.cfg, state.params, batch)
+        if self.with_lr:
+            _, state.opt_state = self.optimizer.update(
+                state.params, grads, state.opt_state, lr=lr, inplace=True)
+        else:
+            _, state.opt_state = self.optimizer.update(
+                state.params, grads, state.opt_state, inplace=True)
+        return metrics
+
+    def sync_level(self, state: TreeSyncState, level: int, mask) -> None:
+        own = mask is None or bool(mask[self.comm.replica] > 0)
+        group = self.comm.level[level]
+        mean_tree(state.params, group, mask, own)
+        if self.average_opt_state:
+            mean_tree(state.opt_state, group, mask, own)
+
+    def __call__(self, state: TreeSyncState, batch, periods,
+                 participation=None, lr=None):
+        metrics = self.local_step(state, batch, lr)
+        step_no = int(state.step) + 1
+        cum = np.cumprod(np.asarray(periods, np.int64)[: self.L])
+        mask = (None if not self.masked else
+                np.asarray(participation.cpu() if isinstance(
+                    participation, Tensor) else participation, np.float32))
+        for level in range(self.L):
+            if step_no % int(cum[level]):
+                continue
+            dev = tree_leaves(state.params)[0].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if level == self.L - 1 and self.use_comp:
+                compressed_outer_sync(state.params, state.residual,
+                                      self.comm, self.compressor, mask)
+            else:
+                self.sync_level(state, level, mask)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.sync_seconds[level] += time.perf_counter() - t0
+            self.sync_count[level] += 1
+        state.step = step_no
+        return state, self.replica_mean(metrics)
+
+    def replica_mean(self, metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The mean of each metric over the replicas (the reference's mean
+        over its replica axis), on every rank."""
+        if self.comm is None:
+            return metrics
+        names = sorted(metrics)
+        vec = torch.stack([metrics[k].float().reshape(()) for k in names])
+        mean = _group_mean(self.comm.world, vec, None, True)
+        return {k: mean[i] for i, k in enumerate(names)}
+
+
+@torch.no_grad()
+def consensus_params(state: TreeSyncState, comm: Optional[LMComm] = None
+                     ) -> PyTree:
+    """The fully-averaged model (what you checkpoint / serve): the f32
+    mean of every parameter over all replicas, on every rank."""
+    out = []
+    for t in tree_leaves(state.params):
+        v = t.float().clone()
+        if comm is not None:
+            for piece in _pieces(v):
+                piece.copy_(_group_mean(comm.world, piece, None, True))
+        out.append(v)
+    return tree_unflatten(state.params, out)
+
+
+# ---------------------------------------------------------------------------
+# cached executors
+# ---------------------------------------------------------------------------
+LM_KEY_FIELDS = ("cfg", "optimizer", "init", "update", "level_sizes",
+                 "compression", "average_opt_state", "masked", "with_lr",
+                 "batched", "mesh")
+_EXECUTOR_CACHE: Dict[Tuple, Callable] = {}
+_CACHE_STATS = {"hits": 0, "misses": 0}
+_MISS_LOG: List[dict] = []
+_MISS_LOG_MAX = 64
+
+
+def _named(key) -> dict:
+    return {f: (v if isinstance(v, (int, float, str, bool, tuple))
+                or v is None else repr(v))
+            for f, v in zip(LM_KEY_FIELDS, key, strict=True)}
+
+
+def get_lm_executor(cfg: ModelConfig, optimizer: Optimizer, *,
+                    level_sizes: Tuple[int, ...], compression: str = "none",
+                    average_opt_state: bool = True, masked: bool = False,
+                    with_lr: bool = False, batched: bool = False,
+                    mesh=None, axes: Sequence[str] = ()) -> LMStep:
+    """Memoized :class:`LMStep` for one (config, variant, mesh).  Building
+    one may build the mesh's sync groups, a collective.  ``batched=True``
+    (a fused sweep of B members on each rank) is the next slice's."""
+    if batched:
+        raise NotImplementedError(
+            "the fused LM sweep (B members stacked on each rank) is not "
+            "ported yet (ROADMAP A9.1: the LM sweep)")
+    axes = tuple(axes)
+    mkey = None if mesh is None or not axes else _mesh_key(mesh, axes)
+    key = (cfg, optimizer.name, optimizer.init, optimizer.update,
+           tuple(level_sizes), compression, average_opt_state, masked,
+           with_lr, batched, mkey)
+    hit = key in _EXECUTOR_CACHE
+    _CACHE_STATS["hits" if hit else "misses"] += 1
+    if hit:
+        return _EXECUTOR_CACHE[key]
+    _MISS_LOG.append({"backend": "lm", "key": _named(key)})
+    del _MISS_LOG[:-_MISS_LOG_MAX]
+    comm = get_comm(mesh, axes) if mesh is not None else None
+    if comm is not None and tuple(level_sizes) != tuple(
+            reversed([c.size for c, _ in comm.level])):
+        raise ValueError(f"level_sizes {tuple(level_sizes)} do not match "
+                         f"the mesh's {axes}")
+    fn = LMStep(cfg, optimizer, comm=comm, compression=compression,
+                average_opt_state=average_opt_state, masked=masked,
+                with_lr=with_lr)
+    _EXECUTOR_CACHE[key] = fn
+    return fn
+
+
+def lm_executor_cache_stats() -> Dict[str, int]:
+    return dict(_CACHE_STATS, size=len(_EXECUTOR_CACHE))
+
+
+def lm_executor_cache_keys() -> List[dict]:
+    """Current LM-cache keys as named dicts (see ``LM_KEY_FIELDS``)."""
+    return [_named(k) for k in _EXECUTOR_CACHE]
+
+
+def lm_executor_miss_log() -> List[dict]:
+    """The newest cache misses, ``{"backend": "lm", "key": {...}}``."""
+    return list(_MISS_LOG)
+
+
+def clear_lm_executor_cache() -> None:
+    _EXECUTOR_CACHE.clear()
+    _CACHE_STATS.update(hits=0, misses=0)

@@ -20,11 +20,14 @@ children.  Registered here:
                      to ``"sdca"``).  The same executors, built with
                      ``accelerated=True``.
 
-The JAX package also registers ``"lm_treesync"`` (LM training); it comes
-with ``core/engine/lm.py`` (ROADMAP A9.6), and until then
-``get_method("lm_treesync")`` raises as for any unknown method.  The port
-builds its executors per session and keeps no executor cache, so a
-Method here has no ``cache_stats``.
+  ``"lm_treesync"`` -- LM training (``core/engine/lm.py``): local step =
+                     one optimizer update on this rank's replica, combine
+                     = a (masked) parameter / optimizer-state mean over
+                     the level's sync group; mesh backend only, one rank
+                     per replica.  Its executors are cached, so it has
+                     ``cache_stats``.
+
+The SDCA host executors are built per session and kept in no cache.
 """
 from __future__ import annotations
 
@@ -74,6 +77,22 @@ class SDCAAccMethod(SDCAMethod):
         return super().executor(plan=plan, backend=backend, **kw)
 
 
+class LMTreeSyncMethod(Method):
+    """Replica-per-rank LM training on the mesh backend (``executor(cfg=,
+    optimizer=, level_sizes=, compression=, average_opt_state=, masked=,
+    with_lr=, batched=, mesh=, axes=)``, see ``core/engine/lm.py``)."""
+
+    name = "lm_treesync"
+
+    def executor(self, **kw):
+        from repro_torch.core.engine import lm as lm_mod
+        return lm_mod.get_lm_executor(**kw)
+
+    def cache_stats(self) -> Dict[str, int]:
+        from repro_torch.core.engine import lm as lm_mod
+        return lm_mod.lm_executor_cache_stats()
+
+
 _REGISTRY: Dict[str, Method] = {}
 
 
@@ -84,6 +103,7 @@ def register_method(method: Method) -> Method:
 
 register_method(SDCAMethod())
 register_method(SDCAAccMethod())
+register_method(LMTreeSyncMethod())
 
 
 def get_method(name: str) -> Method:

@@ -157,3 +157,121 @@ def normal(key: Tensor, shape: Sequence[int] = ()) -> Tensor:
     u = uniform(key, shape, lo, 1.0)
     return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
                                           device=key.device)
+
+
+# ---------------------------------------------------------------------------
+# the draws of the LM data stream (``data/lm.py``)
+# ---------------------------------------------------------------------------
+def fold_in(key: Tensor, data: int) -> Tensor:
+    """``jax.random.fold_in(key, data)``: threefry2x32 of the key over the
+    counter words ``(0, data)`` (jax's ``threefry_seed`` of a uint32)."""
+    k0, k1 = key[..., 0], key[..., 1]
+    zero = torch.zeros_like(k0)
+    d = torch.full_like(k0, int(data) & _M32)
+    b0, b1 = threefry2x32(k0, k1, zero, d)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def _bits_range(key: Tensor, start: int, count: int, device=None) -> Tensor:
+    """The 32 random bits of flat positions ``start .. start + count`` of a
+    row-major draw of any shape holding them (one key, ``(2,)``): the same
+    counters the whole draw would use."""
+    flat = torch.arange(start, start + count, dtype=torch.int64,
+                        device=device if device is not None else key.device)
+    k = key.to(flat.device)
+    b0, b1 = threefry2x32(k[0], k[1], (flat >> 32) & _M32, flat & _M32)
+    return b0 ^ b1
+
+
+def _unit_floats(bits: Tensor) -> Tensor:
+    """float32 in [0, 1) from the top 23 bits of each word."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
+def _scale_to(floats: Tensor, minval: float, maxval: float) -> Tensor:
+    """``max(minval, floats * (maxval - minval) + minval)`` with the
+    multiply-add fused, as :func:`uniform` computes it."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    span = (hi - lo).double()
+    return torch.maximum(lo, (floats.double() * span + lo.double()).float())
+
+
+def bernoulli(key: Tensor, p: float = 0.5, shape: Sequence[int] = ()
+              ) -> Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a uniform draw
+    below ``p``, bool."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel_rows(key: Tensor, shape: Sequence[int], start: int, count: int,
+                device=None) -> Tensor:
+    """Rows ``start .. start + count`` of ``jax.random.gumbel(key, shape)``
+    (mode "low", float32) with ``shape``'s last axis a row: ``-log(-log(
+    u))``, u uniform over [tiny, 1), from the counters the whole draw would
+    use.  Returns ``(count, shape[-1])``."""
+    V = int(shape[-1])
+    u = _scale_to(_unit_floats(_bits_range(key, start * V, count * V,
+                                           device)), _TINY, 1.0)
+    return (-torch.log(-torch.log(u))).reshape(count, V)
+
+
+def categorical(key: Tensor, logits: Tensor, shape: Sequence[int],
+                rows: Union[slice, None] = None,
+                chunk_elems: int = 1 << 24) -> Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` for 1-D
+    ``logits`` (V,): the Gumbel-max argmax over gumbel noise of shape
+    ``shape + (V,)`` plus ``logits``, int32 of ``shape``.
+
+    ``rows`` (a slice of ``shape[0]``) draws only those leading rows, from
+    the counters of the whole draw offset to the block, so a rank draws its
+    own rows of a global batch and gets exactly their slice.  The noise is
+    made ``chunk_elems`` at a time, so a (B, S, V) draw at a 256k vocab
+    never exists at once.  Ties go to the lower index, as ``jnp.argmax``
+    breaks them."""
+    shape = tuple(int(s) for s in shape)
+    V = int(logits.shape[-1])
+    rows = rows if rows is not None else slice(0, shape[0])
+    r0, r1, _ = rows.indices(shape[0])
+    per_row = int(np.prod(shape[1:], dtype=np.int64))   # V-vectors a row
+    n = (r1 - r0) * per_row
+    step = max(1, chunk_elems // max(V, 1))
+    logits = logits.float()
+    out = []
+    for s in range(0, n, step):
+        c = min(step, n - s)
+        g = gumbel_rows(key, shape + (V,), r0 * per_row + s, c,
+                        device=logits.device)
+        out.append(torch.argmax(g + logits, dim=-1))
+        del g
+    if not out:
+        return torch.zeros((r1 - r0,) + shape[1:], dtype=torch.int32,
+                           device=logits.device)
+    return torch.cat(out).to(torch.int32).reshape((r1 - r0,) + shape[1:])
+
+
+def _round_bf16(x: Tensor) -> Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def normal_bf16(key: Tensor, shape: Sequence[int] = ()) -> Tensor:
+    """``jax.random.normal(key, shape, bfloat16)``: 8-bit draws (the low
+    byte of each word: bfloat16 has 7 mantissa bits), a bfloat16 uniform over (nextafter(-1, 0), 1) and
+    ``sqrt(2) * erfinv(u)``, each operation rounded to bfloat16.  The
+    erfinv differs from jax's by its implementation, so the result agrees
+    to a bfloat16 ulp or so, not bit for bit."""
+    shape = tuple(int(s) for s in shape)
+    bits = (_bits(key, shape) & 0xFF) >> 1
+    floats = ((bits | 0x3F80) << 16).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(-1.0 + 2.0 ** -8, device=key.device)   # bf16 nextafter
+    span = _round_bf16(1.0 - lo)
+    u = torch.maximum(lo, _round_bf16(_round_bf16(floats * span) + lo))
+    z = _round_bf16(torch.erfinv(u))
+    return (z * _round_bf16(torch.tensor(float(np.sqrt(2)),
+                                         device=key.device))
+            ).to(torch.bfloat16)

@@ -15,6 +15,15 @@ no fallback.  On CPU tensors it runs the plain version
 ``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_ROUTE`` splits them
 by route, so a run can show that its recurrences went through the kernel
 and which copies fed it.
+
+The launch writes into a fresh tensor through ctypes, so its output
+carries no autograd graph.  Models call it through ``ops.rglru_scan``,
+which routes a call that autograd records through ``ops.RGLRUScan``: its
+forward is this launch, its backward this same kernel run on flipped time
+(``ops.reverse_scan``: the gradient of a linear recurrence is the
+recurrence run backward, with ``a`` shifted one step) followed by two
+elementwise products.  A training step therefore launches the kernel
+forward, again when remat recomputes the forward, and once in reverse.
 """
 from __future__ import annotations
 

@@ -117,7 +117,17 @@ def attention_train(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
 def attention_flash(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
                     window: Optional[int] = None) -> Tensor:
     """The flash-attention path: the CUDA kernel on the card, its plain
-    version on the CPU."""
+    version on the CPU.  Forward only, as the reference's kernel: under
+    autograd it raises rather than return an output that carries no
+    gradient to the projections (train with ``attention_impl=
+    "xla_chunked"``, as the reference does)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.values())):
+        raise RuntimeError(
+            "attention_impl='flash' has no backward (the reference's flash "
+            "kernel is forward only): its output would carry no gradient. "
+            "Train with attention_impl='xla_chunked', or run this forward "
+            "under torch.no_grad()")
     B, S, D = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)

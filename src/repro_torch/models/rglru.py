@@ -10,7 +10,8 @@ RG-LRU:  r_t = sigmoid(x_t W_a);  i_t = sigmoid(x_t W_x)
 
 Over a sequence the recurrence h_t = a_t h_{t-1} + b_t (h_0 = 0) runs in
 ``kernels.rglru.ops.rglru_scan`` -- the hand-written kernel on the card --
-where the reference uses ``jax.lax.associative_scan``; decode carries
+where the reference uses ``jax.lax.associative_scan``; its backward is
+the same kernel run in reverse time.  Decode carries
 (h, conv tail) state, O(1) per token.
 """
 from __future__ import annotations
@@ -82,13 +83,16 @@ def causal_conv(u: Tensor, conv: Tensor) -> Tuple[Tensor, Tensor]:
     return out, padded
 
 
-def rglru_block(p, cfg: ModelConfig, x: Tensor) -> Tensor:
-    """x: (B, S, D) -> (B, S, D), parallel over channels."""
+def rglru_block(p, cfg: ModelConfig, x: Tensor, plain: bool = False
+                ) -> Tensor:
+    """x: (B, S, D) -> (B, S, D), parallel over channels; differentiable
+    through the kernel (``kernels.rglru.ops.RGLRUScan``), or with
+    ``plain=True`` through the plain recurrence."""
     u = x @ p["w_in"]  # (B, S, W)
     gate = gelu(x @ p["w_gate"])
     conv, _ = causal_conv(u, p["conv"])
     a, b = _gates(p, conv)
-    h = linear_recurrence(a, b).to(x.dtype)
+    h = linear_recurrence(a, b, plain).to(x.dtype)
     return (h * gate) @ p["w_out"]
 
 

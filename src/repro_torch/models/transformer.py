@@ -10,12 +10,21 @@ reference's ``shardctx.constrain`` has no counterpart: the port runs on
 one device.  Two modes: prefill (a full-sequence forward that builds the
 decode cache) and decode (one token against the cache; O(1) state for the
 recurrent layers).
+
+Training (``forward_hidden`` / ``forward_train``, the reference's train
+mode) also takes the reference's own layout: ``blocks`` a dict of
+tensors stacked on a leading block axis (:func:`stack_blocks`), which is
+what a training state holds, so its optimizer state and checkpoints match
+the reference's entry for entry.  ``cfg.remat`` recomputes each block in
+the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` with nothing saveable).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -23,6 +32,7 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import (cast_floats, dense_init, dtype_of,
                                        rms_norm)
+from repro_torch.models.loss import chunked_xent
 
 Tensor = torch.Tensor
 PyTree = Any
@@ -113,10 +123,128 @@ def _embed_inputs(cfg: ModelConfig, params, batch) -> Tensor:
     return x
 
 
+def stack_blocks(params) -> PyTree:
+    """``params`` with ``blocks`` (a list of per-block dicts) stacked into
+    one dict of tensors with a leading block axis -- the reference's
+    layout; other entries are kept as they are."""
+    if not isinstance(params.get("blocks"), list):
+        return params
+    out = dict(params)
+    out["blocks"] = _stack([b for b in params["blocks"]])
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def block_params(params, i: int):
+    """Block ``i``'s parameters under either layout (views into a stacked
+    ``blocks``)."""
+    blocks = params["blocks"]
+    return blocks[i] if isinstance(blocks, list) else _index(blocks, i)
+
+
 def _logits(cfg: ModelConfig, params, h: Tensor) -> Tensor:
     """(B, D) final hidden states -> (B, V) float32 logits against the
     float32 master embedding."""
     return h.float() @ _unembed(cfg, params).float()
+
+
+# ---------------------------------------------------------------------------
+# sub-layer application (train mode)
+# ---------------------------------------------------------------------------
+def _sublayer_train(p, cfg: ModelConfig, kind: str, x: Tensor,
+                    positions: Tensor, plain_recurrence: bool = False
+                    ) -> Tuple[Tensor, Tensor]:
+    """Returns (x, moe_aux_loss)."""
+    p = cast_floats(p, x.dtype)
+    h = rms_norm(x, p["ln1"])
+    if kind == "attn":
+        x = x + attn_mod.attend(p["mix"], cfg, h, positions)
+    elif kind == "rec":
+        x = x + rglru_mod.rglru_block(p["mix"], cfg, h, plain_recurrence)
+    else:
+        raise _unported(kind)
+    h2 = rms_norm(x, p["ln2"])
+    out, aux = mlp_mod.ffn(p["ffn"], cfg, h2)
+    return x + out, aux
+
+
+def _block_train(blk, cfg: ModelConfig, pattern, x: Tensor,
+                 positions: Tensor, plain_recurrence: bool = False
+                 ) -> Tuple[Tensor, Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(pattern):
+        x, a = _sublayer_train(blk[f"sub{i}"], cfg, kind, x, positions,
+                               plain_recurrence)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, Tensor],
+                   plain_recurrence: bool = False) -> Tuple[Tensor, Tensor]:
+    """Full-sequence forward to final hidden states. Returns (h, moe_aux).
+
+    The blocks run in order as a Python loop, under ``cfg.remat`` each in
+    ``torch.utils.checkpoint`` (recomputed in the backward).  The
+    reference's ``cfg.scan_layers`` picks a ``lax.scan`` or an unrolled
+    loop, one program either way; eager torch has only the loop, so both
+    settings run it.  ``plain_recurrence=True`` runs the RG-LRU recurrence
+    through its plain version (autograd through the loop) instead of the
+    kernel: the reference route for checking the kernel's gradients."""
+    pattern, n_full, tail = block_layout(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+
+    def inner(blk, x):
+        return _block_train(blk, cfg, pattern, x, positions,
+                            plain_recurrence)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n_full):
+        blk = block_params(params, i)
+        if remat:
+            x, a = checkpoint(inner, blk, x, use_reentrant=False)
+        else:
+            x, a = inner(blk, x)
+        aux = aux + a
+    for i, kind in enumerate(tail):
+        x, a = _sublayer_train(params["tail"][i], cfg, kind, x, positions,
+                               plain_recurrence)
+        aux = aux + a
+    return rms_norm(x, params["final_ln"]), aux
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor],
+                  plain_recurrence: bool = False
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Causal-LM loss. batch: tokens/embeds, labels, optional mask.
+    Returns (total, {"loss", "moe_aux", "tokens"})."""
+    h, aux = forward_hidden(cfg, params, batch, plain_recurrence)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss_sum, n = chunked_xent(h, _unembed(cfg, params), labels, mask,
+                               cfg.logits_chunk)
+    loss = loss_sum / torch.clamp(n, min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "moe_aux": aux, "tokens": n}
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,16 @@ JAX package's ``runtime/fault.py``.
   each event changed).  A joining leaf enters with a zero dual block
   against the current global ``w``.
 
+* **LM snapshots** -- :func:`lm_payload` / :func:`lm_restore` carry an
+  LM TreeSync state (``core/engine/lm.py``) in the reference's file: the
+  replica-stacked (R, ...) leaves under the names its
+  ``tree_flatten_with_path`` gives a ``TreeSyncState`` (``None`` for
+  the step, ``None/<path>`` for the params and the optimizer state), so
+  either package resumes the other's snapshot.  Each rank holds one
+  replica, so a save gathers the replicas in replica order and the first
+  replica's rank writes; a restore reads the file on every rank and
+  keeps its own row.
+
 * **Fault injection** -- :class:`FaultModel` samples crash rounds and
   permanent-leave processes with ``np.random.default_rng(seed)`` (the
   reference's draws, so the same seed gives the same crashes);
@@ -97,6 +107,67 @@ def bind_policy(checkpoint, resolved=None):
                 "period lives in resolved.ckpt_every")
         every = int(ck)
     return checkpoint, checkpoint.manager(), int(every)
+
+
+# ---------------------------------------------------------------------------
+# the LM TreeSync payload
+# ---------------------------------------------------------------------------
+def _lm_entries(state):
+    """``(name, tensor)`` pairs of one replica's state under the
+    reference's checkpoint names.  Its ``TreeSyncState`` fields flatten to
+    the key ``None`` (jax names a dataclass field by neither key nor
+    index), so the params and the optimizer state share the ``None/``
+    prefix; the reference's residual would land on the params' names too
+    (the later overwrites the earlier in its file), so the residual here
+    goes under ``residual/`` instead."""
+    from repro_torch.runtime.checkpoint import _paths
+    out = [(f"None/{k}", v) for k, v in _paths(state.params)]
+    out += [(f"None/{k}", v) for k, v in _paths(state.opt_state)]
+    if state.residual is not None:
+        out += [(f"residual/{k}", v) for k, v in _paths(state.residual)]
+    return out
+
+
+def lm_payload(state, comm) -> dict:
+    """The replica-stacked checkpoint payload of an LM state, gathered on
+    every rank of ``comm`` (an ``engine.lm.LMComm``, None for one
+    replica): ``{"None": int32 step, "None/<path>": (R, ...)}``."""
+    payload = {"None": np.asarray(int(state.step), np.int32)}
+    for name, t in _lm_entries(state):
+        if comm is None:
+            stacked = t.detach()[None]
+        else:
+            g, _ = comm.world
+            flat = t.detach().reshape(1, -1)
+            wide = flat.float() if flat.dtype == torch.bfloat16 else flat
+            stacked = g.gather_rows(wide).to(t.dtype).reshape(
+                (g.size,) + tuple(t.shape))
+        payload[name] = stacked
+    return payload
+
+
+def lm_restore(mgr: CheckpointManager, step: int, state, replica: int):
+    """Replica ``replica``'s row of a snapshot, written into ``state``'s
+    tensors (a state of the same structure, e.g. a fresh ``init_state``);
+    returns ``(step, state)``.  A file without ``residual/`` entries (the
+    reference's) gives the residual what the reference's own restore
+    gives it: the entries under the params' names."""
+    pairs = _lm_entries(state)
+    with np.load(mgr._path(step)) as z:
+        files = set(z.files)
+    template = {"None": np.zeros((), np.int32)}
+    for name, t in pairs:
+        if name in files:
+            template[name] = torch.empty(0, dtype=t.dtype)
+    arrays = mgr._read(step, template)
+    with torch.no_grad():
+        for name, t in pairs:
+            src = arrays.get(name)
+            if src is None:
+                src = arrays["None/" + name[len("residual/"):]]
+            t.copy_(torch.as_tensor(src)[replica].to(t.dtype))
+    state.step = int(np.asarray(arrays["None"]))
+    return state.step, state
 
 
 # ---------------------------------------------------------------------------

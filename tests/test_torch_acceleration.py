@@ -71,16 +71,16 @@ def test_sdca_acc_is_a_registered_method():
     assert tmethod.get_method("sdca_acc").name == "sdca_acc"
     assert tmethod.get_method("sdca").name == "sdca"
     assert isinstance(tmethod.get_method("sdca_acc"), tmethod.SDCAMethod)
-    # the LM method waits for core/engine/lm.py: unknown, with the
-    # reference's text for an unknown method
+    # the LM method is registered as in the reference, so an unknown
+    # method gives the reference's text, registry and all
+    assert tmethod.get_method("lm_treesync").name == "lm_treesync"
     with pytest.raises(ValueError) as port_err:
-        tmethod.get_method("lm_treesync")
+        tmethod.get_method("no_such_method")
     with pytest.raises(ValueError) as ref_err:
         jmethod.get_method("no_such_method")
-    assert str(port_err.value) == \
-        "unknown method 'lm_treesync'; registered: ['sdca', 'sdca_acc']"
-    assert str(ref_err.value).startswith("unknown method 'no_such_method';"
-                                         " registered: [")
+    assert str(port_err.value) == str(ref_err.value) == (
+        "unknown method 'no_such_method'; registered: "
+        "['lm_treesync', 'sdca', 'sdca_acc']")
 
 
 @pytest.mark.parametrize("compression", [None, "int8"])

@@ -543,3 +543,32 @@ def test_one_rank_nccl_mesh_equals_the_host_backend(cuda_device, tmp_path):
     got = _mesh_against_host(1, "nccl", tmp_path, cuda_device)
     assert torch.equal(got["reduce_scatter"]["alpha"], got["psum"]["alpha"])
     assert torch.equal(got["reduce_scatter"]["w"], got["psum"]["w"])
+
+
+def test_strict_session_steps_without_a_host_sync(cuda_device):
+    """Session.compile(strict=True) guards each executor step after the
+    first with torch.cuda.set_sync_debug_mode("error"): the card path's
+    steps make no host synchronization, and the run equals the plain
+    one bit for bit."""
+    from repro_torch.analysis import TraceGuard
+    topo = Topology.two_level(2, 2, 64)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    X = torch.randn(topo.m_total, 16, generator=g, device=cuda_device)
+    y = torch.randn(topo.m_total, generator=g, device=cuda_device)
+    plain = Session.compile(Problem(X, y), topo, device=cuda_device).run(
+        rounds=3, key=prng.PRNGKey(0))
+    strict = Session.compile(Problem(X, y), topo, device=cuda_device,
+                             strict=TraceGuard(sanitize=True))
+    got = strict.run(rounds=3, key=prng.PRNGKey(0))
+    assert torch.equal(got.alpha, plain.alpha)
+    assert torch.equal(got.w, plain.w)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_the_sync_guard_raises_on_a_host_sync(cuda_device):
+    from repro_torch.analysis import HostSyncError, no_host_sync
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(HostSyncError, match="host synchronization"):
+        with no_host_sync():
+            float(x.sum())
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -1,8 +1,11 @@
-"""The serving path's kernels on the card: the hand-written flash-attention
-and RG-LRU scan kernels against their plain versions over the shape and
-dtype grid chip_smoke.py runs, the wrappers' checks, and
-``launch/serve.generate`` on the card against its CPU run with the launch
-counts of prefill and decode.  Every test here needs an NVIDIA GPU and
+"""The LM paths' kernels on the card: the hand-written flash-attention and
+RG-LRU scan kernels against their plain versions over the shape and dtype
+grid chip_smoke.py runs, the wrappers' checks, ``launch/serve.generate``
+on the card against its CPU run with the launch counts of prefill and
+decode, and the training path: the scan's reverse-time launch against the
+plain backward recurrence, gradients through the kernel (forward and
+reverse launches) against autograd through the plain scan, and one
+training step of one replica.  Every test here needs an NVIDIA GPU and
 skips without one; the file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_lm.py
@@ -264,3 +267,93 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the training path: the scan's autograd Function and one train step
+# ---------------------------------------------------------------------------
+# gradients through the kernel against autograd through the plain scan,
+# as a share of max|plain| per tensor: the forward is bit-equal, the
+# backward recurrence runs the same products in the same order but the
+# plain version's autograd adds the carried gradient in its own kernels
+SCAN_GRAD_TOL = 1e-5
+
+
+def _scan_case(B, S, W, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = 0.5 + 0.5 * torch.rand(B, S, W, generator=g, device=device)
+    b = torch.randn(B, S, W, generator=g, device=device)
+    h0 = torch.randn(B, W, generator=g, device=device)
+    dh = torch.randn(B, S, W, generator=g, device=device)
+    return a, b, h0, dh
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 8), (2, 37, 40), (2, 300, 6),
+                                   (1, 2048, 2560)])
+def test_reverse_launch_is_the_backward_recurrence(B, S, W, cuda_device):
+    from repro_torch.kernels.rglru import ops
+    a, _, _, dh = _scan_case(B, S, W, cuda_device)
+    before = rg.LAUNCHES
+    g = ops.reverse_scan(a, dh)
+    assert rg.LAUNCHES == before + 1
+    a_next = torch.zeros_like(a)
+    a_next[:, :-1] = a[:, 1:]
+    want, _ = rglru_scan_ref(torch.flip(a_next, (1,)), torch.flip(dh, (1,)),
+                             torch.zeros(B, W, device=cuda_device))
+    assert torch.equal(g, torch.flip(want, (1,)))
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 37, 40), (2, 300, 6), (1, 2048, 2560)])
+def test_scan_gradients_through_the_kernel(B, S, W, cuda_device):
+    from repro_torch.kernels.rglru import ops
+    a, b, h0, dh = _scan_case(B, S, W, cuda_device)
+    ins = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    refs = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    before = rg.LAUNCHES
+    h, last = ops.rglru_scan(*ins)
+    got = torch.autograd.grad((h * dh).sum() + last.sum(), ins)
+    assert rg.LAUNCHES == before + 2          # forward, reverse
+    hr, lastr = rglru_scan_ref(*refs)
+    want = torch.autograd.grad((hr * dh).sum() + lastr.sum(), refs)
+    assert torch.equal(h, hr)
+    for x, y in zip(got, want, strict=True):
+        err = float((x - y).abs().max())
+        assert err <= SCAN_GRAD_TOL * max(1.0, float(y.abs().max())), err
+
+
+def test_one_train_step_on_one_replica(cuda_device):
+    """recurrentgemma SMOKE at its bf16 activations with remat: one
+    LMSession step on the card (one replica, no process group) launches
+    the scan three times per recurrent layer of a block (forward, remat
+    recompute, reverse) and twice for the tail's (outside the checkpointed
+    blocks), every recurrent-layer parameter gets a nonzero gradient
+    through the kernel, and the kernel route's gradients match the plain
+    route's."""
+    from repro_torch.api import Problem, Session
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.optim import make_adafactor
+    from repro_torch.optim.api import tree_leaves
+    cfg = dataclasses.replace(recurrentgemma_2b.SMOKE, remat=True)
+    sess = Session.compile(Problem.lm(cfg, make_adafactor(), batch=2,
+                                      seq=64), None, backend="mesh",
+                           mesh=make_host_mesh(), device=cuda_device)
+    pattern, n_full, tail = transformer.block_layout(cfg)
+    want = 3 * n_full * pattern.count("rec") + 2 * tail.count("rec")
+    rg.LAUNCHES = 0
+    res = sess.run(steps=1)
+    assert rg.LAUNCHES == want == 8
+    assert np.isfinite(res.final_loss)
+    params = res.state.params
+    batch = sess._batch_at(1)
+    gk, _ = grads_of(cfg, params, batch)
+    gp, _ = grads_of(cfg, params, batch, plain_recurrence=True)
+    mixes = [gk["blocks"]["sub0"]["mix"], gk["blocks"]["sub1"]["mix"],
+             gk["tail"][0]["mix"]]
+    for mix in mixes:
+        for name, g in mix.items():
+            assert bool(torch.isfinite(g).all()) and float(
+                g.abs().sum()) > 0, name
+    for x, y in zip(tree_leaves(gk), tree_leaves(gp), strict=True):
+        err = float((x - y).abs().max())
+        assert err <= 1e-2 * max(float(y.abs().max()), 1e-12), err

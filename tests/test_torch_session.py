@@ -217,9 +217,10 @@ def test_topology_json_round_trips_with_the_reference():
 
 def test_unported_options_raise():
     """What the port still refuses, each naming the ROADMAP item it waits
-    for: the parameter shardings of the LM workload (A9: remesh_params)
-    and the LM method (A9.6); a mesh executor asked for without a mesh;
-    and what it refuses as the reference does."""
+    for: the parameter shardings of the LM workload (A9: remesh_params);
+    a mesh executor asked for without a mesh; an unknown method (the LM
+    method is registered since the LM workload was ported); and what it
+    refuses as the reference does."""
     from repro_torch.core.engine.method import get_method
     from repro_torch.runtime import elastic
     topo = port_topology("star")
@@ -231,8 +232,9 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="DeviceMesh"):
         get_method("sdca").executor(plan=plan, backend="mesh",
                                     loss=Problem(X, y).loss)
-    with pytest.raises(ValueError, match="unknown method 'lm_treesync'"):
-        get_method("lm_treesync")
+    assert get_method("lm_treesync").name == "lm_treesync"
+    with pytest.raises(ValueError, match="unknown method 'lm_sweep'"):
+        get_method("lm_sweep")
     with pytest.raises(ValueError):
         Session.compile(Problem(X[:-1], y[:-1]), topo, device="cpu")
     with pytest.raises(ValueError):
