@@ -15,8 +15,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on a two-level tree of 8 groups x 16 workers x 8192 examples (m =
      1,048,576, d = 512, ridge, lambda = 1e-4), Schedule(rounds=5,
      level_rounds=[2], local_steps=8192), Session.compile(backend="cuda")
-     .run(key=PRNGKey(0)) and a warm-started run(rounds=2).  The kernel's
-     launch count is zeroed just before and read just after; it must equal
+     .run(key=PRNGKey(0)) and a warm-started run(rounds=2).  The session
+     is compiled twice: the first compile builds the executor (one host
+     cache miss), the second must take the same executor from the cache
+     (one hit, no miss); both compile times and cache deltas are
+     printed.  The kernel's launch count is zeroed just before and read
+     just after; it must equal
      the run's solve ticks.  The duality gap must fall and w must match
      X^T alpha / (lambda m);
      One more warm root round runs under torch.profiler (wall time,
@@ -134,16 +138,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      0 and inputs 4 bytes past a 16-byte boundary (the cp.async route);
   7. the serving path: recurrentgemma-2b at full width (26 layers, d_model
      2560, attention_impl="flash"), weights drawn on the card from
-     torch.Generator("cuda").manual_seed(0), through
-     repro_torch.launch.serve.generate: batch 4, 4096-token prompts, 32
-     generated tokens.  The launch counts are zeroed before and read after
-     a prefill-only generate (8 flash, all on the tensor-core route, and
-     18 scan, all on the TMA route) and the full generate (the same:
-     decode launches neither).
-     Logits must be finite and tokens in range; the same prefill through
-     the plain route (attention_impl="xla_chunked" and the plain scan)
-     must give last-position logits within LM_TOL; one warm prefill and a few decode steps run under
-     torch.profiler;
+     PRNGKey(0) as the reference draws them (the init's seconds by CUDA
+     events and its peak memory printed), prompts from the same key,
+     through repro_torch.launch.serve.generate: batch 4, 4096-token
+     prompts, 32 generated tokens.  The launch counts are zeroed before
+     and read after a prefill-only generate (8 flash, all on the
+     tensor-core route, and 18 scan, all on the TMA route) and the full
+     generate (the same: decode launches neither).  Logits must be finite
+     and tokens in range; the same prefill through the plain route
+     (attention_impl="xla_chunked" and the plain scan) must give
+     last-position logits within LM_TOL; one warm prefill and a few
+     decode steps run under torch.profiler;
   8. time the two LM kernels warm (CUDA events) at the serving shape beside
      their plain versions, their bounds (the scan's with its TB/s, its
      share of the bound and, as a yardstick of the card's streaming rate,
@@ -158,9 +163,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      vocab 256000, tied, f32 params, bf16 activations, remat,
      xla_chunked attention, logits_chunk 512) cut to one (rec, rec, attn)
      block, Adafactor, batch 4 x 2048 tokens (one sequence a rank), 8
-     steps (4 data syncs, 2 compressed pod syncs).  Every loss finite and
-     the last two below the first; after each due sync the group's ranks
-     hold torch.equal params; each rank's scan launches, zeroed before the
+     steps (4 data syncs, 2 compressed pod syncs), from PRNGKey(0) (an
+     init alone first, timed by CUDA events with its peak memory, and
+     freed).  Every loss finite and the last two below the first; after
+     each due sync the group's ranks hold torch.equal params; each rank's scan launches, zeroed before the
      run and read after, equal 2 rec layers x (forward + remat recompute +
      reverse) x 8; on rank 0 one step's gradients through the kernel match
      the plain route (autograd through the plain scan) within
@@ -170,10 +176,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      STAR_TOL; (b) a checkpointed run stopped after step 4 and resumed by a
      fresh session is torch.equal to the uninterrupted run; (c) a
      straggler run drops a replica as the policy decides, losses finite.
+     (d) phase 10b: LMSession.sweep(Sweep(lrs=[1e-3, 3e-3], seeds=[0,
+     1], local_hs=[1, 2])) (B = 8) at SMOKE width with the int8 root,
+     AdamW: one executor build, one data draw a step, B x the code's scan
+     launches, every member torch.equal (params, optimizer state,
+     residual, losses) to its standalone LMSession.run.
      Prints seconds per warm step and per outer round, sync seconds by
      level, tokens/s per rank and in total, peak memory per rank and the
-     launches; then the reverse-time launch's ms at (1, 2048, 2560)
-     beside the forward's, with its bytes bound.
+     launches;
+ 10. the LM sweep at full width: phase 9's model (912,304,640 parameters,
+     3.40 GiB f32), Adafactor, two gloo ranks sharing the card as (pod,
+     data) = (1, 2), periods (2,), uncompressed, batch 2 x 2048 (one
+     sequence a rank), 4 grid steps of LMSession.sweep(Sweep(lrs=[1e-3,
+     3e-3], seeds=[0, 1])) (B = 4 members on each rank).  Cut against
+     phase 9: no int8 root (a residual per member would add 13.6 GiB a
+     rank) and two ranks, not four.  Checks on each rank: one executor
+     build for the grid (cache_stats), every loss finite, one data draw a
+     grid step (not B), scan launches = B x the code's count; members 0
+     and 3 (other lr and seed) torch.equal in params, optimizer state and
+     losses to their standalone LMSession.run on the same ranks.  Prints
+     the seconds of each grid step, the data draw and a member's local
+     step (CUDA events the script records around them), a sync, and the
+     peak per rank; then the reverse-time launch's ms
+     at (1, 2048, 2560) beside the forward's, with its bytes bound.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -183,8 +208,9 @@ sdca_block row's launches are phase 3's run; its launches_by_path gives
 every path's launches and leaves per launch -- phase 3b's pilot and run,
 3c's two sweeps, 3d's straggler and accelerated runs, 3e's checkpoint,
 kill-and-resume, elastic and fleet legs, 3f's mesh run per rank -- and
-"batched" the batched
-launch's ms, bound and error) and, last, the device line.  Needs
+"batched" the batched launch's ms, bound and error; the rglru_scan row's
+launches_by_path gives the serving path's and, per rank, phase 9's, 10b's
+and 10's) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -1567,11 +1593,29 @@ def profile_window(fn, label: str, card: str) -> None:
           f"kernels: {ours}  [{card}]")
 
 
+def init_on_card(fn):
+    """``fn()`` (a model or state init on the card) timed by CUDA events,
+    the card's clock as for the kernels, with the peak device memory
+    allocated while it ran: ``(result, {"s", "peak"})``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, {"s": start.elapsed_time(end) / 1e3,
+                 "peak": torch.cuda.max_memory_allocated()}
+
+
 def serve_path(dev, card: str) -> dict:
     """Phase 7: recurrentgemma-2b at full width through generate."""
     import dataclasses
     import torch
     from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.core import prng
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.launch.serve import generate
@@ -1582,15 +1626,15 @@ def serve_path(dev, card: str) -> dict:
     kinds = cfg.layer_kinds()
     n_attn = sum(k == "attn" for k in kinds)
     n_rec = sum(k == "rec" for k in kinds)
-    g = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    params = transformer.init_params(cfg, g)
-    torch.cuda.synchronize()
+    key = prng.PRNGKey(0)      # the reference CLI's key, for both draws
+    params, init = init_on_card(lambda: transformer.init_params(
+        cfg, key, device=dev))
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"serve: {cfg.name} {n_params} parameters drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
-    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                       generator=g, device=dev)}
+    print(f"serve: {cfg.name} {n_params} parameters drawn on the card from "
+          f"PRNGKey(0) in {init['s']:.3f} s, peak device memory "
+          f"{init['peak'] / 2**30:.3f} GiB during the init  [{card}]")
+    prompts = {"tokens": prng.randint(key, (B, S), 0,
+                                      cfg.vocab_size).to(dev)}
 
     # prefill only (gen_tokens=1: no decode step), also the warm-up
     fa.LAUNCHES = rg.LAUNCHES = 0
@@ -1892,8 +1936,9 @@ def _train_rank(rank: int, world: int, root: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.api import (CheckpointPolicy, Problem, Schedule, Session,
-                                 Topology)
+                                 Sweep, Topology)
     from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.core import prng
     from repro_torch.core.delay import StragglerModel
     from repro_torch.data.lm import lm_batch
     from repro_torch.kernels.rglru import kernel as rg
@@ -1936,11 +1981,16 @@ def _train_rank(rank: int, world: int, root: str) -> None:
                 synced.append((step, level))
                 break
 
+    # the init alone (PRNGKey(0), as the run draws it), timed and freed
+    st, init = init_on_card(lambda: sess.init_state(prng.PRNGKey(0)))
+    stats["init_card_s"], stats["init_peak"] = init["s"], init["peak"]
+    del st
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rg.LAUNCHES = 0
     t0 = time.perf_counter()
-    res = sess.run(steps=TRAIN_STEPS, key=0, on_state=on_state)
+    res = sess.run(steps=TRAIN_STEPS, key=prng.PRNGKey(0), on_state=on_state)
     torch.cuda.synchronize()
     stats["run_s"] = time.perf_counter() - t0
     stats["launches"] = rg.LAUNCHES
@@ -2075,11 +2125,255 @@ def _train_rank(rank: int, world: int, root: str) -> None:
     if min(got_parts) == TRAIN_WORLD:
         raise AssertionError("the straggler policy dropped no replica")
     stats["straggler_participants"] = got_parts
+
+    # ---- (d) phase 10b: an LM sweep at SMOKE width, int8 root -----------
+    stats["smoke_sweep"] = smoke_sweep(mesh, dev, int8)
     torch.cuda.synchronize()
     stats["total_s"] = time.perf_counter() - t_start
     torch.save(stats, f"{root}/train_stats{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
+
+
+# ---- phase 10: the LM sweep ---------------------------------------------
+SWEEP_WORLD = 2          # gloo ranks sharing the card, one per replica
+SWEEP_MESH = (1, 2, 1)   # (pod, data, model): one sync level
+SWEEP_PERIODS = (2,)
+SWEEP_STEPS = 4
+SWEEP_BATCH = 2          # one 2048-token sequence a rank
+SWEEP_LRS, SWEEP_SEEDS = [1e-3, 3e-3], [0, 1]
+SWEEP_CHECKED = (0, 3)   # members held to their standalone runs
+SMOKE_SWEEP = dict(lrs=[1e-3, 3e-3], seeds=[0, 1], local_hs=[1, 2])
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    from repro_torch.optim.api import tree_leaves
+
+    def leaves(st):
+        return (tree_leaves(st.params) + tree_leaves(st.opt_state)
+                + (tree_leaves(st.residual) if st.residual is not None
+                   else []))
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b),
+                                                   strict=True))
+
+
+def _sweep_checks(sess, rs, cfg, steps, c0, d0, launches) -> None:
+    """Phase 10's checks on one rank: one executor build for the grid,
+    finite losses, one data draw a step, the scan launches the code
+    makes for B members."""
+    import numpy as np
+    c1 = sess.cache_stats()
+    if c1["misses"] - c0["misses"] != 1:
+        raise AssertionError(f"the grid built {c1['misses'] - c0['misses']}"
+                             " executors, not one")
+    if not np.isfinite(rs.losses).all() or rs.losses.shape != (len(rs),
+                                                              steps):
+        raise AssertionError(f"sweep losses {rs.losses}")
+    if sess.draw_count - d0 != steps:
+        raise AssertionError(f"{sess.draw_count - d0} data draws in "
+                             f"{steps} grid steps: one a step, not B")
+    want = len(rs) * expected_scan_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{launches} scan launches in the sweep, the "
+                             f"code makes {want} for {len(rs)} members")
+
+
+def smoke_sweep(mesh, dev, schedule) -> dict:
+    """Phase 10b, on each of phase 9's ranks: Sweep(lrs, seeds, local_hs)
+    at SMOKE width with phase 9's periods and int8 root; every member
+    torch.equal to its standalone run (params, optimizer state, residual
+    and losses)."""
+    import torch
+    from repro_torch.api import Sweep
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.optim import make_adamw
+    cfg = recurrentgemma_2b.SMOKE
+    sess = _smoke_session(mesh, dev, cfg, make_adamw(lr=1e-3), TRAIN_PERIODS,
+                          schedule)
+    c0, d0 = sess.cache_stats(), sess.draw_count
+    torch.cuda.synchronize()
+    rg.LAUNCHES = 0
+    rs = sess.sweep(Sweep(**SMOKE_SWEEP), steps=SWEEP_STEPS)
+    torch.cuda.synchronize()
+    launches = rg.LAUNCHES
+    _sweep_checks(sess, rs, cfg, SWEEP_STEPS, c0, d0, launches)
+    for i, pt in enumerate(rs.points):
+        one = sess.run(steps=SWEEP_STEPS, key=pt.seed, lr=pt.lr,
+                       local_h=pt.local_h)
+        if not _states_equal(one.state, rs.member_state(i)) or [
+                h["loss"] for h in one.history] != rs.losses[i].tolist():
+            raise AssertionError(f"SMOKE sweep member {i} ({pt}) differs "
+                                 f"from its standalone run")
+    return {"members": len(rs), "launches": launches,
+            "losses": rs.losses.tolist()}
+
+
+def _sweep_rank(rank: int, world: int, root: str) -> None:
+    """One replica of phase 10, in a spawned process on card 0: the
+    full-width sweep, its checks and the standalone runs of members 0 and
+    3.  Each rank saves its numbers; a failed check fails the spawn.  The
+    data draws and the local steps are timed on the card's clock by CUDA
+    events recorded around each call, read after the sweep: the engine
+    itself takes no host synchronize for them."""
+    import os
+    from datetime import timedelta
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.api import Problem, Session, Sweep, Topology
+    from repro_torch.core.engine import lm as lm_mod
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.optim import make_adafactor
+    from repro_torch.runtime import ranks
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ranks.init(rank, world, f"file://{root}/pg", backend="gloo",
+               timeout=timedelta(seconds=TRAIN_SPAWN_TIMEOUT))
+    mesh = init_device_mesh("cuda", SWEEP_MESH,
+                            mesh_dim_names=("pod", "data", "model"))
+    cfg = _train_cfg()
+    prob = Problem.lm(cfg, make_adafactor(), batch=SWEEP_BATCH,
+                      seq=TRAIN_SEQ, seed=0)
+    topo = Topology.from_mesh(mesh, sync_axes=("data", "pod"),
+                              periods=SWEEP_PERIODS)
+    sess = Session.compile(prob, topo, backend="mesh", mesh=mesh,
+                           device=dev)
+    stats = {}
+    spans = {"draw": [], "local": []}
+
+    def on_card_clock(fn, name):
+        def timed(*args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return timed
+
+    c0, d0 = sess.cache_stats(), sess.draw_count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rg.LAUNCHES = 0
+    local_step = lm_mod.LMStep.local_step
+    sess._batch_at = on_card_clock(sess._batch_at, "draw")
+    lm_mod.LMStep.local_step = on_card_clock(local_step, "local")
+    t0 = time.perf_counter()
+    try:
+        rs = sess.sweep(Sweep(lrs=SWEEP_LRS, seeds=SWEEP_SEEDS),
+                        steps=SWEEP_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        lm_mod.LMStep.local_step = local_step
+        del sess._batch_at
+    stats["sweep_s"] = time.perf_counter() - t0
+    stats["launches"] = rg.LAUNCHES
+    stats["peak"] = torch.cuda.max_memory_allocated()
+    _sweep_checks(sess, rs, cfg, SWEEP_STEPS, c0, d0, stats["launches"])
+    stats["step_s"] = list(rs.step_seconds)
+    stats["draw_s"] = [e0.elapsed_time(e1) / 1e3 for e0, e1 in spans["draw"]]
+    stats["local_s"] = [e0.elapsed_time(e1) / 1e3
+                        for e0, e1 in spans["local"]]
+    stats["sync_s"], stats["sync_n"] = sess.sync_seconds(), sess.sync_counts()
+    stats["losses"] = rs.losses.tolist()
+    stats["points"] = [(p.lr, p.seed) for p in rs.points]
+    stats["best"] = rs.best()
+    # members 0 and 3 (other lr and seed) against their standalone runs;
+    # the other members are dropped first
+    for i in range(len(rs)):
+        if i not in SWEEP_CHECKED:
+            rs.states[i] = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats["standalone_equal"] = []
+    for i in SWEEP_CHECKED:
+        pt = rs.points[i]
+        n0 = rg.LAUNCHES
+        one = sess.run(steps=SWEEP_STEPS, key=pt.seed, lr=pt.lr)
+        same = _states_equal(one.state, rs.member_state(i)) and [
+            h["loss"] for h in one.history] == rs.losses[i].tolist()
+        if not same:
+            raise AssertionError(f"sweep member {i} ({pt}) differs from its "
+                                 f"standalone run")
+        stats["standalone_equal"].append(i)
+        stats.setdefault("standalone_launches", []).append(rg.LAUNCHES - n0)
+        stats.setdefault("standalone_step_s", []).append(
+            [h["sec"] for h in one.history])
+        del one
+        rs.states[i] = None
+        torch.cuda.empty_cache()
+    stats["standalone_peak"] = torch.cuda.max_memory_allocated()
+    stats["total_s"] = time.perf_counter() - t_start
+    torch.save(stats, f"{root}/sweep_stats{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def lm_sweep_path(dev, card: str) -> dict:
+    """Phase 10 (see the module docstring): two gloo ranks share the card;
+    returns each rank's scan launches and the timings."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.runtime import ranks
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "sweep_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = _train_cfg()
+    ranks.spawn(_sweep_rank, SWEEP_WORLD, args=(SWEEP_WORLD, str(root)),
+                timeout=TRAIN_SPAWN_TIMEOUT)
+    stats = [torch.load(root / f"sweep_stats{r}.pt", weights_only=False)
+             for r in range(SWEEP_WORLD)]
+    shutil.rmtree(root, ignore_errors=True)
+    B = len(SWEEP_LRS) * len(SWEEP_SEEDS)
+    n_params = cfg.param_count()
+    print(f"sweep path: recurrentgemma-2b at full width cut to "
+          f"{cfg.num_layers} layers ({n_params} parameters, "
+          f"{n_params * 4 / 2**30:.2f} GiB f32 a member), Adafactor, "
+          f"Sweep(lrs={SWEEP_LRS}, seeds={SWEEP_SEEDS}) = {B} members on "
+          f"each of {SWEEP_WORLD} gloo ranks time-sharing one card, "
+          f"(pod, data) = {SWEEP_MESH[:2]}, periods {SWEEP_PERIODS}, "
+          f"uncompressed, batch {SWEEP_BATCH} x {TRAIN_SEQ}, {SWEEP_STEPS} "
+          f"grid steps; one executor build, one data draw a step")
+    print(f"sweep path: losses by member {stats[0]['points']}: "
+          f"{[[f'{x:.4f}' for x in row] for row in stats[0]['losses']]}, "
+          f"best member {stats[0]['best']}")
+    for r, s in enumerate(stats):
+        warm = s["step_s"][1:]
+        sync_n = max(sum(s["sync_n"]), 1)
+        alone = [[f"{x:.3f}" for x in row] for row in s["standalone_step_s"]]
+        print(f"sweep path rank {r}: {s['launches']} scan launches ({B} x "
+              f"{expected_scan_launches(cfg, SWEEP_STEPS)} from the code), "
+              f"grid steps {[f'{x:.3f}' for x in s['step_s']]} s "
+              f"({np.mean(warm):.3f} s warm = {np.mean(warm) / B:.3f} s a "
+              f"member), data draws {[f'{x:.3f}' for x in s['draw_s']]} s "
+              f"on the card's clock ({np.mean(s['draw_s'][1:]):.3f} s warm), "
+              f"local steps (forward + backward + Adafactor) "
+              f"{np.mean(s['local_s'][B:]):.3f} s a member warm on the "
+              f"card's clock (first step {np.mean(s['local_s'][:B]):.3f} s)"
+              f", syncs "
+              f"{sum(s['sync_s']):.3f} s over {sync_n} "
+              f"({sum(s['sync_s']) / sync_n:.3f} s each), whole sweep "
+              f"{s['sweep_s']:.1f} s with the inits; peak "
+              f"{s['peak'] / 2**30:.2f} GiB (standalone runs "
+              f"{s['standalone_peak'] / 2**30:.2f} GiB); members "
+              f"{s['standalone_equal']} torch.equal to their standalone runs"
+              f" (steps {alone} s); total {s['total_s']:.1f} s  [{card}]")
+    print(f"sweep path: phase 10 took {time.perf_counter() - t_phase:.1f} s"
+          f"  [{card}]")
+    return {"launches": [s["launches"] for s in stats],
+            "standalone_launches": [s["standalone_launches"] for s in stats],
+            "expected_per_rank": B * expected_scan_launches(cfg,
+                                                            SWEEP_STEPS)}
 
 
 def time_reverse_scan(dev, card: str) -> dict:
@@ -2167,8 +2461,10 @@ def train_path(dev, card: str) -> dict:
               f"{per_round[r]:.3f} s per outer round, syncs "
               f"{[f'{x:.3f}' for x in s['sync_s']]} s over "
               f"{s['sync_n']} (data, pod), {tok / warm[r]:.1f} tokens/s, "
-              f"peak memory {s['peak'] / 2**30:.2f} GiB, init "
-              f"{s['init_s']:.1f} s, run {s['run_s']:.1f} s, total "
+              f"peak memory {s['peak'] / 2**30:.2f} GiB, process start "
+              f"{s['init_s']:.1f} s, model init from PRNGKey(0) "
+              f"{s['init_card_s']:.3f} s (peak {s['init_peak'] / 2**30:.3f}"
+              f" GiB), run {s['run_s']:.1f} s, total "
               f"{s['total_s']:.1f} s  [{card}]")
     total_tok = TRAIN_WORLD * tok / max(warm)
     print(f"train path: {total_tok:.1f} tokens/s in total (4 processes "
@@ -2182,7 +2478,16 @@ def train_path(dev, card: str) -> dict:
           f"{stats[0]['star_err']:.3e}; resume torch.equal; straggler "
           f"participants {stats[0]['straggler_participants']}; phase 9 "
           f"took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    sm = stats[0]["smoke_sweep"]
+    print(f"smoke sweep (phase 10b, on phase 9's ranks): Sweep("
+          f"{SMOKE_SWEEP}) at SMOKE width, periods {TRAIN_PERIODS}, int8 "
+          f"root: {sm['members']} members, one executor build, one data "
+          f"draw a step, scan launches per rank "
+          f"{[s['smoke_sweep']['launches'] for s in stats]}, every member "
+          f"torch.equal to its standalone run")
     return {"launches": [s["launches"] for s in stats],
+            "smoke_sweep_launches": [s["smoke_sweep"]["launches"]
+                                     for s in stats],
             "expected_per_rank": want,
             "sec_per_step_warm": warm, "sec_per_round": per_round,
             "sync_s": [s["sync_s"] for s in stats],
@@ -2233,7 +2538,33 @@ def main() -> int:
                               m_per_worker=m_leaf)
     sched = Schedule(rounds=rounds, level_rounds=[2], local_steps=8192)
     torch.cuda.reset_peak_memory_stats()
-    sess = Session.compile(problem, topo, sched, backend="cuda", device=dev)
+    # a second compile of the same problem takes the executor from the
+    # host cache (the first builds it)
+    host_mod.clear_executor_cache()
+    compiled = []
+    for _ in range(2):
+        c0 = Session.cache_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = Session.compile(problem, topo, sched, backend="cuda",
+                              device=dev)
+        torch.cuda.synchronize()
+        c1 = Session.cache_stats()
+        compiled.append((one, time.perf_counter() - t0,
+                         {k: c1[k] - c0[k] for k in ("hits", "misses",
+                                                     "size")}))
+    sess = compiled[0][0]
+    cache = {"compile_s": [c[1] for c in compiled],
+             "deltas": [c[2] for c in compiled]}
+    print(f"main path: Session.compile {compiled[0][1]:.4f} s building the "
+          f"executor (cache delta {compiled[0][2]}), {compiled[1][1]:.4f} s "
+          f"taking it from the host cache (delta {compiled[1][2]})  [{card}]")
+    if compiled[0][2]["misses"] != 1 or compiled[1][2] != {
+            "hits": 1, "misses": 0, "size": 0} or \
+            compiled[1][0].executor is not sess.executor:
+        raise AssertionError(f"the second compile did not hit the host "
+                             f"executor cache: {cache['deltas']}")
+    del compiled, one
     solve_ticks = int(sess.executor.solves.sum()) * (rounds + more)
     torch.cuda.synchronize()
     kernel.LAUNCHES = 0
@@ -2360,6 +2691,10 @@ def main() -> int:
     # ---- 9. TreeSync LM training, one rank per replica ----------------------
     torch.cuda.empty_cache()
     trained = train_path(dev, card)
+
+    # ---- 10. the LM sweep, one executor per grid ---------------------------
+    torch.cuda.empty_cache()
+    swept_lm = lm_sweep_path(dev, card)
     reverse = time_reverse_scan(dev, card)
     # the flash row is the serving path's (bf16) kernel
     lm_rows = [dict(
@@ -2369,7 +2704,12 @@ def main() -> int:
         **({"launches_by_path": {
             "serve": lm_launches[name],
             **{f"train_rank{r}": n
-               for r, n in enumerate(trained["launches"])}},
+               for r, n in enumerate(trained["launches"])},
+            **{f"smoke_sweep_rank{r}": n
+               for r, n in enumerate(trained["smoke_sweep_launches"])},
+            **{f"sweep_rank{r}": n
+               for r, n in enumerate(swept_lm["launches"])}},
+            "sweep_expected_per_rank": swept_lm["expected_per_rank"],
             "train_expected_per_rank": trained["expected_per_rank"],
             "reverse_time": reverse} if name == "rglru_scan" else {}))
         for name, pkg, src, replaces in (

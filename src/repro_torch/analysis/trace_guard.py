@@ -12,10 +12,10 @@ nearest cached one.
 Three guards, bundled by :class:`TraceGuard`:
 
   * :func:`no_retrace` -- a context manager holding an executor-cache
-    miss budget (default 0) over a region, across the mesh and LM caches
-    (``core/engine/mesh.py``, ``core/engine/lm.py``; the SDCA host
-    executors are built per session and cached nowhere); exceeding it
-    raises :class:`UnexpectedRetraceError` with the key diffs.
+    miss budget (default 0) over a region, across the host, mesh and LM
+    caches (``core/engine/host.py``, ``core/engine/mesh.py``,
+    ``core/engine/lm.py``); exceeding it raises
+    :class:`UnexpectedRetraceError` with the key diffs.
   * host-sync guard -- ``torch.cuda.set_sync_debug_mode("error")`` scoped
     to an executor dispatch region: a ``.item()``, ``float()`` or a copy
     to the host of a card tensor inside it raises :class:`HostSyncError`.
@@ -63,9 +63,12 @@ class NonFiniteError(FloatingPointError):
 # ---------------------------------------------------------------------------
 def _caches():
     """(stats, keys, miss log) of each executor cache."""
+    from repro_torch.core.engine import host as host_mod
     from repro_torch.core.engine import lm as lm_mod
     from repro_torch.core.engine import mesh as mesh_mod
     return [
+        (host_mod.host_executor_cache_stats, host_mod.executor_cache_keys,
+         host_mod.host_executor_miss_log),
         (mesh_mod.mesh_executor_cache_stats, mesh_mod.mesh_executor_cache_keys,
          lambda: list(mesh_mod._MISS_LOG)),
         (lm_mod.lm_executor_cache_stats, lm_mod.lm_executor_cache_keys,
@@ -92,7 +95,7 @@ def _key_diff(new: dict, cached: List[dict]) -> Optional[dict]:
 
 @contextlib.contextmanager
 def no_retrace(budget: int = 0) -> Iterator[None]:
-    """Assert at most ``budget`` executor-cache misses (mesh and LM
+    """Assert at most ``budget`` executor-cache misses (host, mesh and LM
     caches) happen inside the ``with`` body; raise
     :class:`UnexpectedRetraceError` with key diffs otherwise."""
     caches = _caches()

@@ -36,9 +36,12 @@ same calls; ``runtime/ranks.py`` spawns and joins them on one host).
 LM training is the second workload on the same engine:
 ``Problem.lm(cfg, optimizer, batch=8, seq=128)`` compiled with
 ``backend="mesh"`` returns an :class:`LMSession` (one rank per replica)
-driven by the same Schedule / planner / straggler / checkpoint machinery.
+driven by the same Schedule / planner / straggler / checkpoint machinery;
+``LMSession.sweep(Sweep(lrs=, seeds=, local_hs=))`` runs an LM grid as B
+members on each rank through one executor and returns an
+:class:`LMRunSet`.
 """
-from repro_torch.api.lm import LMResult, LMSession           # noqa: F401
+from repro_torch.api.lm import LMResult, LMRunSet, LMSession  # noqa: F401
 from repro_torch.api.problem import LMProblem, Problem        # noqa: F401
 from repro_torch.api.schedule import DelayModel, Schedule     # noqa: F401
 from repro_torch.api.session import Session, solve            # noqa: F401
@@ -50,7 +53,7 @@ from repro_torch.runtime.fault import (                       # noqa: F401
     run_with_faults)
 
 __all__ = ["Problem", "LMProblem", "Topology", "Schedule", "DelayModel",
-           "Session", "LMSession", "LMResult",
+           "Session", "LMSession", "LMResult", "LMRunSet",
            "SolveResult", "Sweep", "RunSet", "solve", "sweep",
            "CheckpointPolicy", "ElasticSession", "FaultModel",
            "MembershipLog", "run_with_faults"]

@@ -24,12 +24,11 @@ global batch, and takes the periods as a runtime operand, so
 
 Every rank makes the same calls in the same order (compile builds the
 sync groups, a collective).  With no process group, ``make_host_mesh()``
-is a one-rank mesh: one replica, no syncs.  Parameters come from a
-``torch.Generator`` seeded with the problem's seed (the reference draws
-them from a ``jax.random`` key, so the two packages' fresh states differ;
-``api.convert.lm_state_from_reference`` starts the port from a reference
-state).  The fused ``sweep`` (B members stacked on each rank) is the next
-item of the ROADMAP's LM queue.
+is a one-rank mesh: one replica, no syncs.  Parameters are drawn from
+``PRNGKey(problem.seed)`` (or a run's ``key=``) as the reference draws
+them, within a few float32 ulp (``core/prng.py``).  ``sweep`` runs an
+(lr x seed x local_h) grid as B members on each rank through one batched
+executor, one data draw per step for all of them.
 """
 from __future__ import annotations
 
@@ -46,6 +45,7 @@ from repro_torch.analysis import plan_check
 from repro_torch.analysis import trace_guard as guard_mod
 from repro_torch.api.schedule import Schedule
 from repro_torch.api.topology import Topology
+from repro_torch.core import prng
 from repro_torch.core.engine import lm as lm_mod
 from repro_torch.core.engine import plan as plan_mod
 from repro_torch.core.engine.method import get_method
@@ -78,6 +78,34 @@ class LMResult:
         return lm_mod.consensus_params(self.state, self.comm)
 
 
+@dataclasses.dataclass
+class LMRunSet:
+    """An LM sweep on this rank: the members' configs (``points``), their
+    final states (``states``, this rank's replica of each member), the
+    (B, T) float32 loss history (each step's replica mean), the members'
+    learning rates and the host seconds of each grid step (its data draw
+    and every member's step and syncs)."""
+    points: List[Any]
+    states: List[TreeSyncState]
+    losses: np.ndarray               # (B, T) float32
+    lrs: List[Optional[float]]
+    step_seconds: List[float] = dataclasses.field(default_factory=list)
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    @property
+    def final_losses(self) -> np.ndarray:
+        return self.losses[:, -1]
+
+    def best(self) -> int:
+        """Index of the member with the lowest final loss."""
+        return int(np.nanargmin(self.final_losses))
+
+    def member_state(self, i: int) -> TreeSyncState:
+        return self.states[i]
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -88,7 +116,7 @@ def _device(device) -> torch.device:
 class LMSession:
     """Compiled LM training program: (LMProblem, Topology, Schedule) on
     the mesh backend.  Mirrors :class:`repro_torch.api.session.Session`'s
-    surface (``run`` / ``resume`` / ``cache_stats``)."""
+    surface (``run`` / ``resume`` / ``sweep`` / ``cache_stats``)."""
 
     def __init__(self, problem, topology, resolved, plan, sview, mesh,
                  sync_axes: Tuple[str, ...], device):
@@ -118,6 +146,8 @@ class LMSession:
         self.comm = lm_mod.get_comm(mesh, self._axes)
         self.replica = 0 if self.comm is None else self.comm.replica
         self.last_executor = None
+        # the data draws this session made
+        self.draw_count = 0
 
     # ------------------------------------------------------------------
     @classmethod
@@ -220,19 +250,15 @@ class LMSession:
     # ------------------------------------------------------------------
     def init_state(self, key=None, *, seed: Optional[int] = None
                    ) -> TreeSyncState:
-        """This rank's replica of a fresh state: parameters drawn from
-        ``key`` (a ``torch.Generator``) or from a generator on the
-        session's device seeded with ``key`` / ``seed`` (an int; default
-        the problem's seed)."""
-        if isinstance(key, torch.Generator):
-            gen = key
-        else:
-            s = self.problem.seed if key is None and seed is None else (
-                int(seed) if seed is not None else int(key))
-            gen = torch.Generator(self.device).manual_seed(s)
+        """This rank's replica of a fresh state on the session's device,
+        drawn as the reference's ``init_state``: from ``key`` (a port key
+        or a jax key's two words; an int is a seed), else from
+        ``PRNGKey(seed)``, by default ``PRNGKey(problem.seed)``."""
+        key = prng.as_key(key if key is not None else (
+            self.problem.seed if seed is None else int(seed)))
         return lm_mod.init_lm_state(
-            self.problem.cfg, self.problem.optimizer, gen,
-            compression=self._compression)
+            self.problem.cfg, self.problem.optimizer, key,
+            compression=self._compression, device=self.device)
 
     def _executor(self, *, masked: bool = False, with_lr: bool = False,
                   batched: bool = False):
@@ -254,6 +280,7 @@ class LMSession:
     def _batch_at(self, step: int):
         p = self.problem
         rows = lm_mod.replica_rows(p.batch, self.n_replicas, self.replica)
+        self.draw_count += 1
         return lm_batch(p.cfg, p.batch, p.seq, step, seed=p.seed, rows=rows,
                         device=self.device)
 
@@ -350,8 +377,7 @@ class LMSession:
             exec_fn = self._executor(masked=masked, with_lr=lr is not None)
         self._built.add(variant)
         self.last_executor = exec_fn
-        exec_fn.sync_seconds = [0.0] * L
-        exec_fn.sync_count = [0] * L
+        exec_fn.reset_timers()
         part = np.ones((R,), np.float32) if masked else None
         lr_arg = None if lr is None else float(lr)
 
@@ -471,10 +497,58 @@ class LMSession:
                                          for e in meta.get("history", [])])
 
     # ------------------------------------------------------------------
-    def sweep(self, *args, **kwargs):
-        """The fused (lr x seed x local_h) LM sweep stacks B members on
-        each rank; it is the next item of the ROADMAP's LM queue."""
-        raise NotImplementedError(
-            "LMSession.sweep (B members stacked on each rank, one step "
-            "per grid) is not ported yet (ROADMAP A9.1: the LM sweep); run the "
-            "members one session.run at a time")
+    def sweep(self, spec=None, *, lrs=None, seeds=None, local_hs=None,
+              rounds: Optional[int] = None, steps: Optional[int] = None,
+              ) -> LMRunSet:
+        """Run an (lr x seed x local_h) grid through ONE cached executor
+        (the ``batched`` variant): B members on each rank, each with its
+        own state, periods row and lr, one data draw per step shared by
+        all of them (seeds vary the init key, as the reference's sweep
+        does; the stream belongs to the problem).  Each member equals its
+        standalone ``run(steps=, key=PRNGKey(seed), lr=, local_h=)`` bit
+        for bit.  ``spec`` is an ``api/sweep.py::Sweep`` (axes ``lrs`` /
+        ``seeds`` / ``local_hs``; ``lams`` / ``schedules`` are SDCA axes
+        and refused here), or pass the axes directly."""
+        from repro_torch.api.sweep import Sweep
+        if spec is None:
+            spec = Sweep(lrs=lrs, seeds=seeds, local_hs=local_hs)
+        if spec.lams is not None or spec.schedules is not None:
+            raise ValueError(
+                "LM sweeps batch lrs=, seeds=, and local_hs= (runtime "
+                "operands of one executor); lams= has no LM meaning and a "
+                "schedules= axis changes the compiled program -- run one "
+                "sweep per schedule")
+        if spec.continuation or spec.resume is not None:
+            raise ValueError(
+                "continuation/resume are SDCA sweep features; LM sweeps "
+                "run straight grids")
+        points = spec.expand(0.0)
+        B = len(points)
+        L = len(self._level_sizes)
+        spr = prod(self.sview.periods)
+        if steps is not None:
+            total = int(steps)
+        else:
+            T = self.resolved.rounds if rounds is None else int(rounds)
+            total = T * spr
+
+        # a member's seed is its init key (None: the problem's seed)
+        states = [self.init_state(pt.seed) for pt in points]
+        periods_b = [self._run_periods(pt.local_h)[:L] for pt in points]
+        with_lr = spec.lrs is not None
+        lr_b = [pt.lr for pt in points] if with_lr else None
+
+        exec_fn = self._executor(with_lr=with_lr, batched=True)
+        self.last_executor = exec_fn
+        exec_fn.reset_timers()
+        losses, seconds = [], []
+        for i in range(total):
+            t0 = time.perf_counter()
+            states, metrics = exec_fn(states, self._batch_at(i), periods_b,
+                                      None, lr_b)
+            losses.append(metrics["loss"].float().cpu().numpy())
+            seconds.append(time.perf_counter() - t0)
+        return LMRunSet(points=points, states=states,
+                        losses=np.stack(losses, axis=1) if losses
+                        else np.zeros((B, 0), np.float32),
+                        lrs=[pt.lr for pt in points], step_seconds=seconds)

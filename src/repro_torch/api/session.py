@@ -136,6 +136,18 @@ class Session:
         """The mesh keywords of ``Method.executor`` (empty off the mesh)."""
         return _executor_kw(self.mesh_options)
 
+    def _fetch_executor(self):
+        """This session's executor from the cache (built on a miss)."""
+        return _method_executor(self.problem, self.plan, self.backend,
+                                self.acceleration, self.mesh_options)
+
+    @staticmethod
+    def cache_stats() -> dict:
+        """Executor-cache counters of the engine: ``{hits, misses, size}``
+        over the host, mesh and LM caches, and ``by_backend`` columns
+        (``core/engine/host.py::executor_cache_stats``)."""
+        return host_mod.executor_cache_stats()
+
     @property
     def writer(self) -> bool:
         """Whether this process writes the files a run saves: always off
@@ -207,8 +219,6 @@ class Session:
                      mesh_use_kernel=mesh_use_kernel, mesh_sync=mesh_sync))
         resolved = schedule.resolve(topology)
         acceleration = schedule.acceleration
-        method = get_method("sdca_acc" if acceleration is not None
-                            else "sdca")
         plan = plan_mod.compile_tree(resolved.chunk_tree,
                                      weighting=resolved.weighting,
                                      compression=resolved.compression)
@@ -223,8 +233,7 @@ class Session:
             mesh_kw = dict(mesh=mesh, mesh_axes=mesh_axes,
                            mesh_use_kernel=mesh_use_kernel,
                            mesh_sync=mesh_sync)
-        ex = method.executor(plan=plan, loss=problem.loss, backend=backend,
-                             device=problem.device, **_executor_kw(mesh_kw))
+        ex = _method_executor(problem, plan, backend, acceleration, mesh_kw)
         sess = cls(problem, topology, resolved, backend, plan, ex,
                    acceleration=acceleration, mesh_options=mesh_kw)
         sess.fitted_C = fitted_C
@@ -395,6 +404,14 @@ class Session:
             straggler.bind(self.topology.leaf_sync_delays(), t_compute,
                            t_lp=t_lp)
 
+        guard = self._guard
+        if guard is not None and guard.error_on_retrace:
+            # strict revalidation: the executor this session bound at
+            # compile time must still be in its cache -- the re-fetch has
+            # a zero miss budget, so an eviction or a key that drifted
+            # mid-session raises here
+            with guard.retrace_region(0):
+                self._fetch_executor()
         history: list = []
         clock = {"async": t0_time, "sync": t0_time}
         ex = self.executor
@@ -764,6 +781,15 @@ def solve(
                     record_history=record_history,
                     history_every=history_every, on_round=on_round,
                     straggler=straggler, lam=lam, local_h=local_h)
+
+
+def _method_executor(problem, plan, backend: str, acceleration, mesh_kw: dict):
+    """The executor of a session's method (``sdca``, or ``sdca_acc`` with
+    an acceleration) from the engine's cache, built on a miss: what
+    :meth:`Session.compile` binds and a strict run re-fetches."""
+    method = get_method("sdca_acc" if acceleration is not None else "sdca")
+    return method.executor(plan=plan, loss=problem.loss, backend=backend,
+                           device=problem.device, **_executor_kw(mesh_kw))
 
 
 def _executor_kw(mesh_kw: dict) -> dict:

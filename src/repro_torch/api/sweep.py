@@ -46,10 +46,10 @@ group runs through the batched mesh executor: on every rank, one
 ``sdca_block`` launch per solve tick covers the rank's leaf for all B
 configs, and the syncs run config by config, so each member equals its
 standalone mesh run bit for bit; fleet files are written by the first
-leaf's rank.  The LM learning-rate axis (``lrs=``) belongs to the fused
-LM sweep (``LMSession.sweep``, B members stacked on each rank), the next
-item of the ROADMAP's LM queue; until then an LM session's ``sweep``
-raises.
+leaf's rank.  The LM learning-rate axis (``lrs=``) belongs to the LM
+sweep (``api/lm.py::LMSession.sweep``: B members on each rank, one
+batched executor, one data draw a step for all of them); an SDCA sweep
+refuses it.
 """
 from __future__ import annotations
 
@@ -83,12 +83,13 @@ class SweepPoint:
     the session's own schedule), ``seed`` an int or a PRNG key (``None`` =
     the default key, as in ``Session.run``), ``local_h`` the runtime
     local-iteration count (scalar or per-leaf; ``None`` = the session
-    schedule's own H)."""
+    schedule's own H), ``lr`` an LM sweep's learning rate."""
     index: int
     lam: float
     seed: Optional[object] = None
     schedule: Optional[int] = None
     local_h: Optional[object] = None
+    lr: Optional[float] = None
 
     def key(self) -> Tensor:
         if self.seed is None:
@@ -107,8 +108,11 @@ class SweepPoint:
         if h is not None:
             h = int(h) if np.ndim(h) == 0 else \
                 [int(v) for v in np.asarray(h).reshape(-1)]
-        return {"lam": float(self.lam), "seed": seed,
-                "schedule": self.schedule, "local_h": h}
+        out = {"lam": float(self.lam), "seed": seed,
+               "schedule": self.schedule, "local_h": h}
+        if self.lr is not None:        # LM-only axis; SDCA dicts unchanged
+            out["lr"] = float(self.lr)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +126,11 @@ class Sweep:
     * ``local_hs`` -- runtime local-iteration counts (scalars or per-leaf
       sequences; default: the schedule's own H); compile the session with
       a covering ``Schedule(h_cap=...)``;
+    * ``lrs`` -- learning rates, an LM sweep's axis
+      (``api/lm.py::LMSession.sweep``; an SDCA sweep refuses it);
     * ``mode`` -- ``"grid"``: the cartesian product of the given axes
-      (schedules outermost, then lams, then local_hs, then seeds);
+      (schedules outermost, then lams, then lrs, then local_hs, then
+      seeds);
       ``"zip"``: elementwise (all given axes of one length);
     * ``continuation=True`` -- a warm-started regularization path over
       the lambda axis (descending), per (schedule, local_h, seed) chain;
@@ -137,6 +144,7 @@ class Sweep:
     seeds: Optional[Sequence] = None
     schedules: Optional[Sequence[Schedule]] = None
     local_hs: Optional[Sequence] = None
+    lrs: Optional[Sequence[float]] = None
     mode: str = "grid"
     continuation: bool = False
     resume: Optional[Union[str, os.PathLike]] = None
@@ -146,17 +154,18 @@ class Sweep:
             raise ValueError(f"mode must be 'grid' or 'zip', got "
                              f"{self.mode!r}")
         if all(ax is None for ax in (self.lams, self.seeds,
-                                     self.schedules, self.local_hs)):
+                                     self.schedules, self.local_hs,
+                                     self.lrs)):
             raise ValueError("a Sweep needs at least one axis: lams=, "
-                             "seeds=, schedules=, or local_hs=")
+                             "seeds=, schedules=, local_hs=, or lrs=")
         for name, ax in (("lams", self.lams), ("seeds", self.seeds),
                          ("schedules", self.schedules),
-                         ("local_hs", self.local_hs)):
+                         ("local_hs", self.local_hs), ("lrs", self.lrs)):
             if ax is not None and len(ax) == 0:
                 raise ValueError(f"{name} must be non-empty when given")
         if self.mode == "zip":
             sizes = {len(ax) for ax in (self.schedules, self.lams,
-                                        self.local_hs, self.seeds)
+                                        self.lrs, self.local_hs, self.seeds)
                      if ax is not None}
             if len(sizes) > 1:
                 raise ValueError(
@@ -173,9 +182,9 @@ class Sweep:
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        """Lengths of the given axes, (schedules, lams, local_hs, seeds)
-        order for ``"grid"``; the common length for ``"zip"``."""
-        sizes = [len(ax) for ax in (self.schedules, self.lams,
+        """Lengths of the given axes, (schedules, lams, lrs, local_hs,
+        seeds) order for ``"grid"``; the common length for ``"zip"``."""
+        sizes = [len(ax) for ax in (self.schedules, self.lams, self.lrs,
                                     self.local_hs, self.seeds)
                  if ax is not None]
         if self.mode == "zip":
@@ -193,19 +202,24 @@ class Sweep:
                     seed=self.seeds[i] if self.seeds is not None else None,
                     schedule=i if self.schedules is not None else None,
                     local_h=(self.local_hs[i]
-                             if self.local_hs is not None else None))
+                             if self.local_hs is not None else None),
+                    lr=(float(self.lrs[i])
+                        if self.lrs is not None else None))
                 for i in range(self.shape[0])
             ]
         scheds = (range(len(self.schedules))
                   if self.schedules is not None else [None])
         lams = ([float(v) for v in self.lams]
                 if self.lams is not None else [float(default_lam)])
+        lrs = ([float(v) for v in self.lrs]
+               if self.lrs is not None else [None])
         hs = list(self.local_hs) if self.local_hs is not None else [None]
         seeds = list(self.seeds) if self.seeds is not None else [None]
         return [
-            SweepPoint(index=i, lam=lam, seed=seed, schedule=si, local_h=h)
-            for i, (si, lam, h, seed) in enumerate(
-                itertools.product(scheds, lams, hs, seeds))
+            SweepPoint(index=i, lam=lam, seed=seed, schedule=si, local_h=h,
+                       lr=lr)
+            for i, (si, lam, lr, h, seed) in enumerate(
+                itertools.product(scheds, lams, lrs, hs, seeds))
         ]
 
 
@@ -606,6 +620,11 @@ def run_sweep(session, spec: Sweep, *, rounds=None, record_history=True,
     ``Sweep(resume=<dir>)`` of the identical spec (checked) continues the
     interrupted fleet with every member bit for bit its uninterrupted
     run."""
+    if spec.lrs is not None:
+        raise ValueError(
+            "lrs= is an LM-training axis (the optimizer step size); SDCA "
+            "has no learning rate -- sweep lams= instead, or compile an "
+            "LM session (Problem.lm) and sweep through it")
     points = spec.expand(float(session.problem.lam))
     policy = _fleet_policy(checkpoint, spec)
     resuming = spec.resume is not None

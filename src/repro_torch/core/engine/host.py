@@ -52,6 +52,7 @@ Flavors (``get_host_executor(batched=, accelerated=)``):
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -547,21 +548,134 @@ class HostExecutor(nn.Module):
                                        steps, lm, acceleration))
 
 
+# Executors are cached per (plan structure, loss, flags, device), so
+# repeated solves on one topology reuse one built executor; lambda, the
+# step and participation masks and the momentum coefficient are runtime
+# operands (a whole grid shares one executor).  LRU-bounded: schedule
+# sweeps still build a plan per configuration.  An executor holds no
+# per-run state (``Session.run`` threads ``init`` / ``step`` / ``finalize``
+# state explicitly; ``_lm_on`` keeps a device copy of lambda * m keyed by
+# its values), so two sessions may share one.
+_EXEC_CACHE: OrderedDict = OrderedDict()
+_EXEC_CACHE_MAX = 32
+# field names of the cache-key tuple, in order: the reference's, less its
+# ``record_history`` (the port's executors record no history), plus the
+# device the buffers live on -- the trace guard's miss diffs name them
+EXEC_KEY_FIELDS = ("plan_fingerprint", "loss", "gamma", "backend",
+                   "carry_state", "batched", "accelerated", "device")
+_EXEC_CACHE_STATS = {"hits": 0, "misses": 0}
+# per-backend breakdown (the port's "cuda" / "torch" host backends; the
+# mesh and LM caches report their own columns through
+# executor_cache_stats)
+_BACKEND_STATS = {b: {"hits": 0, "misses": 0} for b in BACKENDS}
+# bounded log of recent host misses: {"backend", "key"} entries
+_MISS_LOG: list = []
+_MISS_LOG_MAX = 64
+
+
+def _named_key(key) -> dict:
+    return dict(zip(EXEC_KEY_FIELDS, key, strict=True))
+
+
 def get_host_executor(plan: TreePlan, *, loss: Loss, backend: str = "cuda",
                       device="cuda", carry_state: bool = False,
                       batched: bool = False,
                       accelerated: bool = False) -> HostExecutor:
-    """Build the executor for ``plan`` on ``device`` (see
-    :class:`HostExecutor`), batched over a leading config axis and / or
-    accelerated as asked.  Every executor carries state: ``init(X,
-    alpha0, w0) -> state``, ``step(data, keys, state, participation,
-    steps, lm[, acceleration]) -> state`` and ``finalize(state) ->
-    (alpha, w)`` are its methods, so ``carry_state`` (the reference's flag
-    for that triple) is accepted only for parity with the reference's
-    signature and changes nothing."""
-    del carry_state
-    return HostExecutor(plan, loss=loss, backend=backend, device=device,
-                        batched=batched, accelerated=accelerated)
+    """Build (or fetch from the cache) the executor for ``plan`` on
+    ``device`` (see :class:`HostExecutor`), batched over a leading config
+    axis and / or accelerated as asked.  Every executor carries state:
+    ``init(X, alpha0, w0) -> state``, ``step(data, keys, state,
+    participation, steps, lm[, acceleration]) -> state`` and
+    ``finalize(state) -> (alpha, w)`` are its methods, so ``carry_state``
+    (the reference's flag for that triple) builds the same executor; it
+    is kept in the cache key, as the reference keys it."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use {BACKENDS}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    # loss keyed by (name, gamma): names encode their parameters, so
+    # per-call constructed losses still hit
+    key = (plan.fingerprint, loss.name, loss.gamma, backend,
+           bool(carry_state), bool(batched), bool(accelerated), str(dev))
+    ex = _EXEC_CACHE.get(key)
+    if ex is not None:
+        _EXEC_CACHE_STATS["hits"] += 1
+        _BACKEND_STATS[backend]["hits"] += 1
+        _EXEC_CACHE.move_to_end(key)
+        return ex
+    ex = HostExecutor(plan, loss=loss, backend=backend, device=dev,
+                      batched=batched, accelerated=accelerated)
+    # counted once the build succeeded, so a failing configuration's
+    # retries add no misses that never filled the cache
+    _EXEC_CACHE_STATS["misses"] += 1
+    _BACKEND_STATS[backend]["misses"] += 1
+    _MISS_LOG.append({"backend": backend, "key": _named_key(key)})
+    del _MISS_LOG[:-_MISS_LOG_MAX]
+    _EXEC_CACHE[key] = ex
+    while len(_EXEC_CACHE) > _EXEC_CACHE_MAX:
+        _EXEC_CACHE.popitem(last=False)
+    return ex
+
+
+def host_executor_cache_stats() -> dict:
+    """The host cache's own counters: {hits, misses, size}."""
+    return dict(_EXEC_CACHE_STATS, size=len(_EXEC_CACHE))
+
+
+def host_executor_miss_log() -> list:
+    """The host cache's newest misses (the trace guard reads each cache's
+    log on its own)."""
+    return list(_MISS_LOG)
+
+
+def executor_cache_stats() -> dict:
+    """Cumulative counters of every engine executor cache: top-level
+    ``{hits, misses, size}`` sum the host, mesh and LM caches, and
+    ``by_backend`` breaks hits and misses down per backend, so a strict
+    session or a benchmark can hold a miss budget for the backend it runs
+    on.  The columns are ``"cuda"`` (the host executor with the
+    ``sdca_block`` kernel; the reference's ``"pallas"``), ``"torch"``
+    (the host executor with its plain version; the reference's
+    ``"vmap"``), ``"mesh"`` and ``"lm"``."""
+    from repro_torch.core.engine import lm as lm_mod
+    from repro_torch.core.engine import mesh as mesh_mod
+    mesh_stats = mesh_mod.mesh_executor_cache_stats()
+    lm_stats = lm_mod.lm_executor_cache_stats()
+    by_backend = {k: dict(v) for k, v in _BACKEND_STATS.items()}
+    by_backend["mesh"] = {"hits": mesh_stats["hits"],
+                          "misses": mesh_stats["misses"]}
+    by_backend["lm"] = {"hits": lm_stats["hits"],
+                        "misses": lm_stats["misses"]}
+    return {
+        "hits": sum(v["hits"] for v in by_backend.values()),
+        "misses": sum(v["misses"] for v in by_backend.values()),
+        "size": len(_EXEC_CACHE) + mesh_stats["size"] + lm_stats["size"],
+        "by_backend": by_backend,
+    }
+
+
+def executor_cache_keys() -> list:
+    """The host cache's current keys as named dicts (see
+    ``EXEC_KEY_FIELDS``): what the trace guard diffs a miss against."""
+    return [_named_key(k) for k in _EXEC_CACHE]
+
+
+def executor_miss_log() -> list:
+    """Recent misses of the host and mesh caches, newest last (each
+    bounded at 64): ``{"backend": ..., "key": {field: value}}``."""
+    from repro_torch.core.engine import mesh as mesh_mod
+    return list(_MISS_LOG) + list(mesh_mod._MISS_LOG)
+
+
+def clear_executor_cache() -> None:
+    """Empty the host cache and zero its counters (the mesh and LM caches
+    have their own)."""
+    _EXEC_CACHE.clear()
+    _EXEC_CACHE_STATS.update(hits=0, misses=0)
+    for v in _BACKEND_STATS.values():
+        v.update(hits=0, misses=0)
+    _MISS_LOG.clear()
 
 
 def execute_plan(

@@ -38,6 +38,8 @@ when the step number is a multiple of ``cumprod(periods)[l]``.  Optional
 runtime operands, each a separate executor variant: ``masked=True`` (a
 per-replica (R,) participation mask, replicated on every rank) and
 ``with_lr=True`` (a learning rate overriding the optimizer's schedule).
+``batched=True`` is a sweep's executor (:class:`BatchedLMStep`): B members
+on each rank, one shared batch, the members stepped one after another.
 """
 from __future__ import annotations
 
@@ -95,14 +97,15 @@ def clone_state(state: TreeSyncState) -> TreeSyncState:
                          int(state.step), clone_tree(state.residual))
 
 
-def init_lm_state(cfg: ModelConfig, optimizer: Optimizer,
-                  gen: torch.Generator, compression: str = "none"
+def init_lm_state(cfg: ModelConfig, optimizer: Optimizer, key,
+                  compression: str = "none", *, device="cuda"
                   ) -> TreeSyncState:
-    """A fresh replica: parameters drawn from ``gen`` on its device (every
-    rank draws the same ones from the same seed; the reference draws from a
-    ``jax.random`` key, so the numbers differ), in the reference's stacked
-    layout, and the optimizer's initial state."""
-    params = transformer.stack_blocks(transformer.init_params(cfg, gen))
+    """A fresh replica on ``device``: parameters drawn from the threefry
+    ``key`` as the reference's ``init_lm_state`` draws them (every rank
+    draws the same ones), in the reference's stacked layout, and the
+    optimizer's initial state."""
+    params = transformer.stack_blocks(transformer.init_params(
+        cfg, key, device=device))
     state = TreeSyncState(params=params, opt_state=optimizer.init(params),
                           step=0)
     if comp_mod.spec_name(*comp_mod.parse_spec(compression)) != "none":
@@ -310,6 +313,9 @@ class LMStep:
                            if self.use_comp else None)
         # seconds spent in each level's syncs (host clock, after a device
         # synchronize), and how many ran
+        self.reset_timers()
+
+    def reset_timers(self) -> None:
         self.sync_seconds = [0.0] * self.L
         self.sync_count = [0] * self.L
 
@@ -368,6 +374,39 @@ class LMStep:
         return {k: mean[i] for i, k in enumerate(names)}
 
 
+class BatchedLMStep(LMStep):
+    """B members of a sweep on this rank: ``step(states, batch, periods[,
+    participation][, lr]) -> (states, metrics)`` with ``states`` a list of
+    B :class:`TreeSyncState` (updated in place), ``periods`` one row of
+    per-level periods per member, ``lr`` one learning rate per member (a
+    (B,) sequence of floats; ``with_lr`` executors) and ``metrics`` the
+    members' replica means as (B,) tensors.
+
+    The batch is one draw shared by every member (the data stream belongs
+    to the problem).  The members then step one after another, each
+    through :meth:`LMStep.__call__` -- the same ``grads_of``, optimizer
+    update and level syncs, in the same order, as a standalone step -- so
+    each member equals its standalone run bit for bit, and gradients exist
+    for one member at a time.  A fused forward over the members would
+    need batched products whose sums differ from a standalone run's, and
+    the scan is a small share of a step."""
+
+    def __call__(self, states: List[TreeSyncState], batch, periods,
+                 participation=None, lr=None):
+        if len(periods) != len(states) or (lr is not None
+                                           and len(lr) != len(states)):
+            raise ValueError(f"{len(states)} members need as many period "
+                             f"rows and learning rates")
+        metrics = []
+        for b, state in enumerate(states):
+            _, m = LMStep.__call__(self, state, batch, periods[b],
+                                   participation,
+                                   None if lr is None else lr[b])
+            metrics.append(m)
+        return states, {k: torch.stack([m[k] for m in metrics])
+                        for k in metrics[0]}
+
+
 @torch.no_grad()
 def consensus_params(state: TreeSyncState, comm: Optional[LMComm] = None
                      ) -> PyTree:
@@ -408,11 +447,9 @@ def get_lm_executor(cfg: ModelConfig, optimizer: Optimizer, *,
                     mesh=None, axes: Sequence[str] = ()) -> LMStep:
     """Memoized :class:`LMStep` for one (config, variant, mesh).  Building
     one may build the mesh's sync groups, a collective.  ``batched=True``
-    (a fused sweep of B members on each rank) is the next slice's."""
-    if batched:
-        raise NotImplementedError(
-            "the fused LM sweep (B members stacked on each rank) is not "
-            "ported yet (ROADMAP A9.1: the LM sweep)")
+    gives the sweep's :class:`BatchedLMStep` (B members on each rank; B is
+    the length of the states it is called with, so one executor serves
+    every grid)."""
     axes = tuple(axes)
     mkey = None if mesh is None or not axes else _mesh_key(mesh, axes)
     key = (cfg, optimizer.name, optimizer.init, optimizer.update,
@@ -429,9 +466,9 @@ def get_lm_executor(cfg: ModelConfig, optimizer: Optimizer, *,
             reversed([c.size for c, _ in comm.level])):
         raise ValueError(f"level_sizes {tuple(level_sizes)} do not match "
                          f"the mesh's {axes}")
-    fn = LMStep(cfg, optimizer, comm=comm, compression=compression,
-                average_opt_state=average_opt_state, masked=masked,
-                with_lr=with_lr)
+    fn = (BatchedLMStep if batched else LMStep)(
+        cfg, optimizer, comm=comm, compression=compression,
+        average_opt_state=average_opt_state, masked=masked, with_lr=with_lr)
     _EXECUTOR_CACHE[key] = fn
     return fn
 

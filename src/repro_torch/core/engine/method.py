@@ -24,10 +24,11 @@ children.  Registered here:
                      one optimizer update on this rank's replica, combine
                      = a (masked) parameter / optimizer-state mean over
                      the level's sync group; mesh backend only, one rank
-                     per replica.  Its executors are cached, so it has
-                     ``cache_stats``.
+                     per replica.
 
-The SDCA host executors are built per session and kept in no cache.
+Every method's executors are cached; ``cache_stats`` reads the counters
+(the SDCA methods: the merged table of ``core/engine/host.py``; the LM
+method: its own cache's).
 """
 from __future__ import annotations
 
@@ -39,11 +40,15 @@ from repro_torch.core.engine import mesh as mesh_mod
 
 class Method:
     """A workload on the schedule IR: ``executor(**kw)`` returns the
-    executor for one (plan, backend, variant) tuple."""
+    executor for one (plan, backend, variant) tuple, ``cache_stats()``
+    its executor cache's counters."""
 
     name: str = "?"
 
     def executor(self, **kw):
+        raise NotImplementedError
+
+    def cache_stats(self) -> Dict:
         raise NotImplementedError
 
 
@@ -62,6 +67,9 @@ class SDCAMethod(Method):
             return mesh_mod.get_mesh_executor(plan, kw.pop("mesh", None),
                                               **kw)
         raise ValueError(f"sdca: unknown backend {backend!r}")
+
+    def cache_stats(self) -> Dict:
+        return host_mod.executor_cache_stats()
 
 
 class SDCAAccMethod(SDCAMethod):

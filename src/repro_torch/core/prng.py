@@ -18,9 +18,11 @@ on, the default there):
     multiply-add and floored at minval (jax's ``_uniform`` as XLA
     compiles it) -- bit-exact;
   * ``normal``: ``sqrt(2) * erfinv(u)`` over u uniform in the open
-    interval (-1, 1) (jax's ``_normal_real``).  ``torch.erfinv`` is not
-    XLA's polynomial, so the normals agree to a few float32 ulp, not
-    bit for bit.
+    interval (-1, 1) (jax's ``_normal_real``), erfinv by XLA's float32
+    polynomial (:func:`erfinv`); ``log1p`` is torch's, so the normals
+    agree to a float32 ulp or two, not bit for bit.  ``normal_blocked``
+    draws a large shape in row blocks from the whole draw's counters (the
+    model initializers' path).
 
 uint32 arithmetic is done on int64 tensors masked with ``0xFFFFFFFF``, so
 the same code runs on the CPU and on the card.  A key is an int64 tensor
@@ -71,7 +73,10 @@ def PRNGKey(seed: int) -> Tensor:
 
 def as_key(key) -> Tensor:
     """A key from a tensor, a numpy array or a sequence of uint32 words
-    (e.g. ``np.asarray(jax_key)``), as an int64 tensor."""
+    (e.g. ``np.asarray(jax_key)``), as an int64 tensor; an int is a seed,
+    ``PRNGKey(seed)``."""
+    if isinstance(key, (int, np.integer)):
+        return PRNGKey(int(key))
     if isinstance(key, Tensor):
         return key.to(torch.int64)
     return torch.from_numpy(np.asarray(key).astype(np.int64))
@@ -148,15 +153,42 @@ def uniform(key: Tensor, shape: Sequence[int] = (), minval: float = 0.0,
     return torch.maximum(lo, scaled)
 
 
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = np.float32(np.sqrt(2))
+# XLA's float32 erfinv (Giles' polynomials in w = -log1p(-x^2), one for w
+# < 5 in w - 2.5, one in sqrt(w) - 3), highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: Tensor) -> Tensor:
+    """float32 erfinv as XLA computes it for ``jax.lax.erf_inv``: the same
+    polynomials, each Horner step a fused multiply-add as XLA compiles it
+    (the float64 product of two float32 values is exact, so the float64
+    sum rounded once reproduces it).  Only ``log1p`` is torch's, so the
+    result agrees with jax's to an ulp or two where ``torch.erfinv``
+    (another polynomial) is off by tens of ulps in the tails."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = torch.where(lt, np.float32(a).item(), np.float32(b).item())
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
 def normal(key: Tensor, shape: Sequence[int] = ()) -> Tensor:
     """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) *
     erfinv(u)`` with u uniform over (nextafter(-1, 0), 1), as jax draws
     it.  The uniforms are exact; the result differs from jax's by the two
-    erfinv implementations, a few ulp."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
-                                          device=key.device)
+    ``log1p`` implementations inside :func:`erfinv`, an ulp or two."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return erfinv(u) * torch.tensor(_SQRT2, device=key.device)
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +285,48 @@ def categorical(key: Tensor, logits: Tensor, shape: Sequence[int],
         return torch.zeros((r1 - r0,) + shape[1:], dtype=torch.int32,
                            device=logits.device)
     return torch.cat(out).to(torch.int32).reshape((r1 - r0,) + shape[1:])
+
+
+# elements of one block of a blocked normal draw (a full-width embedding is
+# 655M counters; a block's int64 temporaries stay near 1 GiB)
+NORMAL_BLOCK = 1 << 24
+
+
+def normal_range(key: Tensor, start: int, count: int, device=None
+                 ) -> Tensor:
+    """Flat positions ``start .. start + count`` of ``jax.random.normal(
+    key, shape)`` for any shape holding them (one key, ``(2,)``): the
+    counters of the whole draw, the same arithmetic as :func:`normal`."""
+    u = _scale_to(_unit_floats(_bits_range(key, start, count, device)),
+                  _NORMAL_LO, 1.0)
+    return erfinv(u) * torch.tensor(_SQRT2, device=u.device)
+
+
+def normal_blocked(key: Tensor, shape: Sequence[int], device=None,
+                   dtype=torch.float32, scale=None,
+                   block_elems: int = NORMAL_BLOCK) -> Tensor:
+    """``(jax.random.normal(key, shape) * scale).astype(dtype)`` on
+    ``device`` (the key's by default), drawn in blocks of whole rows of
+    ``shape[0]`` of at most ``block_elems`` elements (one row when a row
+    is longer), each from the counters the whole draw would use: the
+    result equals :func:`normal` of the whole shape (scaled and cast),
+    and no temporary is larger than a block."""
+    shape = tuple(int(s) for s in shape)
+    dev = torch.device(device) if device is not None else key.device
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    flat = out.view(shape[0], -1) if shape else out.view(1, 1)
+    row = flat.shape[1]
+    rows = max(1, int(block_elems) // row)
+    for r0 in range(0, flat.shape[0], rows):
+        r1 = min(r0 + rows, flat.shape[0])
+        z = normal_range(key, r0 * row, (r1 - r0) * row, dev)
+        if scale is not None:
+            z = z * scale
+        flat[r0:r1].copy_(z.view(r1 - r0, row))
+        del z
+    return out
 
 
 def _round_bf16(x: Tensor) -> Tensor:

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compression as comp_mod
+from repro_torch.core import prng
 from repro_torch.core.engine import lm as lm_mod
 from repro_torch.core.engine.lm import (  # noqa: F401
     TreeSyncState, consensus_params, split_batch)
@@ -108,16 +109,14 @@ def replica_specs(*args, **kwargs):
     raise NotImplementedError(_TP)
 
 
-def init_state(cfg: ModelConfig, optimizer: Optimizer, gen, mesh,
-               ts: TreeSyncConfig) -> TreeSyncState:
-    """This rank's replica of a fresh state (``gen`` a ``torch.Generator``
-    or an int seed; parameters on the generator's device, the CPU for a
-    seed)."""
+def init_state(cfg: ModelConfig, optimizer: Optimizer, key, mesh,
+               ts: TreeSyncConfig, *, device="cuda") -> TreeSyncState:
+    """This rank's replica of a fresh state on ``device``: ``key`` a PRNG
+    key (``core/prng.py``, or a jax key's two words) or an int seed
+    (``PRNGKey(seed)``), drawn as the reference's ``init_state`` draws."""
     check_replica_mesh(mesh)
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator().manual_seed(int(gen))
-    return lm_mod.init_lm_state(cfg, optimizer, gen,
-                                compression=ts.compression)
+    return lm_mod.init_lm_state(cfg, optimizer, prng.as_key(key),
+                                compression=ts.compression, device=device)
 
 
 def make_treesync_step(cfg: ModelConfig, optimizer: Optimizer,

@@ -4,8 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --smoke --batch 4 --prompt-len 32 --gen 16
 
-Weights are drawn from a seeded generator at the config's shapes; the
-published checkpoints are not in the repository.
+Weights and prompts are drawn from ``PRNGKey(0)`` at the config's shapes,
+as the reference's CLI draws them; the published checkpoints are not in
+the repository.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.registry import ARCHS
+from repro_torch.core import prng
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer
 
@@ -73,16 +75,15 @@ def main(argv=None) -> None:
 
     mod = ARCHS[args.arch]
     cfg = mod.SMOKE if args.smoke else mod.FULL
-    gen = torch.Generator(device=args.device).manual_seed(0)
-    params = transformer.init_params(cfg, gen)
+    key = prng.PRNGKey(0)            # the reference's PRNGKey(0), reused
+    params = transformer.init_params(cfg, key, device=args.device)
     if cfg.input_mode == "embeddings":
-        prompts = {"embeds": 0.02 * torch.randn(
-            (args.batch, args.prompt_len, cfg.d_model), generator=gen,
-            device=args.device).to(torch.bfloat16)}
+        prompts = {"embeds": (0.02 * prng.normal_bf16(
+            key, (args.batch, args.prompt_len, cfg.d_model))).to(args.device)}
     else:
-        prompts = {"tokens": torch.randint(
-            0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
-            device=args.device)}
+        prompts = {"tokens": prng.randint(
+            key, (args.batch, args.prompt_len), 0,
+            cfg.vocab_size).to(args.device)}
     out, stats = generate(cfg, params, prompts, args.gen, device=args.device)
     print("generated:", tuple(out.shape), out[0, :8].tolist())
     print({k: round(v, 4) for k, v in stats.items()})

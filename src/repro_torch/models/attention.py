@@ -20,21 +20,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import dense_init, rms_norm, rope
+from repro_torch.models.common import dense_init, rms_norm, rope, split_keys
 
 Tensor = torch.Tensor
 NEG_INF = -2.0 ** 30
 
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+def init_attn_params(key, cfg: ModelConfig, dtype, device=None):
+    """Six keys from ``key``, used in the reference's order, on ``device``
+    (the key's by default)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ks = split_keys(key, 6)
+    dev = key.device if device is None else torch.device(device)
     p = {
-        "wq": dense_init(gen, (d, h * hd), dtype),
-        "wk": dense_init(gen, (d, kv * hd), dtype),
-        "wv": dense_init(gen, (d, kv * hd), dtype),
-        "wo": dense_init(gen, (h * hd, d), dtype),
+        "wq": dense_init(ks[0], (d, h * hd), dtype, device=dev),
+        "wk": dense_init(ks[1], (d, kv * hd), dtype, device=dev),
+        "wv": dense_init(ks[2], (d, kv * hd), dtype, device=dev),
+        "wo": dense_init(ks[3], (h * hd, d), dtype, device=dev),
     }
-    dev = gen.device
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kv * hd,), dtype=dtype, device=dev)

@@ -2,9 +2,11 @@
 package's ``models/common.py``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
+
+from repro_torch.core import prng
 
 Tensor = torch.Tensor
 
@@ -38,14 +40,21 @@ def rope(x: Tensor, positions: Tensor, theta: float = 10_000.0) -> Tensor:
     return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
 
 
-def dense_init(gen: torch.Generator, shape, dtype,
-               scale: Optional[float] = None) -> Tensor:
-    """N(0, 1) * scale (default fan_in^-1/2) drawn from ``gen``, on
-    ``gen``'s device."""
+def dense_init(key: Tensor, shape, dtype, scale: Optional[float] = None,
+               device=None) -> Tensor:
+    """``(jax.random.normal(key, shape) * scale).astype(dtype)``, scale
+    defaulting to fan_in^-1/2, on ``device`` (the key's by default): the
+    reference's draw from the same threefry key, within a few float32 ulp
+    (``core/prng.py::normal``), drawn in row blocks."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * s).to(dtype)
+    return prng.normal_blocked(key, shape, device=device, dtype=dtype,
+                               scale=s)
+
+
+def split_keys(key: Tensor, n: int) -> List[Tensor]:
+    """``list(jax.random.split(key, n))``."""
+    return list(prng.split(key, n))
 
 
 def cast_floats(tree, dtype):

@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, split_keys
 
 Tensor = torch.Tensor
 
@@ -21,18 +21,21 @@ def gelu(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype,
-                    d_ff: Optional[int] = None):
+def init_mlp_params(key, cfg: ModelConfig, dtype,
+                    d_ff: Optional[int] = None, device=None):
+    """Three keys from ``key``, used in the reference's order, on
+    ``device`` (the key's by default)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    ks = split_keys(key, 3)
     if cfg.mlp_type == "swiglu":
         return {
-            "w_gate": dense_init(gen, (d, f), dtype),
-            "w_up": dense_init(gen, (d, f), dtype),
-            "w_down": dense_init(gen, (f, d), dtype),
+            "w_gate": dense_init(ks[0], (d, f), dtype, device=device),
+            "w_up": dense_init(ks[1], (d, f), dtype, device=device),
+            "w_down": dense_init(ks[2], (f, d), dtype, device=device),
         }
     return {
-        "w_up": dense_init(gen, (d, f), dtype),
-        "w_down": dense_init(gen, (f, d), dtype),
+        "w_up": dense_init(ks[0], (d, f), dtype, device=device),
+        "w_down": dense_init(ks[1], (f, d), dtype, device=device),
     }
 
 
@@ -50,7 +53,7 @@ def ffn(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
                                        device=x.device)
 
 
-def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+def init_ffn_params(key, cfg: ModelConfig, dtype, device=None):
     if cfg.is_moe:
         raise NotImplementedError(_MOE)
-    return init_mlp_params(gen, cfg, dtype)
+    return init_mlp_params(key, cfg, dtype, device=device)

@@ -18,32 +18,54 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, split_keys
 from repro_torch.models.mlp import gelu
 
 Tensor = torch.Tensor
 _C = 8.0
 
 
-def init_rglru_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+def init_rglru_params(key, cfg: ModelConfig, dtype, device=None):
+    """Six keys from ``key``, used in the reference's order, on ``device``
+    (the key's by default)."""
     d, w = cfg.d_model, cfg.lru_width
+    ks = split_keys(key, 6)
+    dev = key.device if device is None else torch.device(device)
     return {
-        "w_in": dense_init(gen, (d, w), dtype),
-        "w_gate": dense_init(gen, (d, w), dtype),
-        "conv": dense_init(gen, (cfg.conv_width, w), dtype, scale=0.1),
-        "w_a": dense_init(gen, (w, w), dtype),
-        "w_x": dense_init(gen, (w, w), dtype),
+        "w_in": dense_init(ks[0], (d, w), dtype, device=dev),
+        "w_gate": dense_init(ks[1], (d, w), dtype, device=dev),
+        "conv": dense_init(ks[2], (cfg.conv_width, w), dtype, scale=0.1,
+                           device=dev),
+        "w_a": dense_init(ks[3], (w, w), dtype, device=dev),
+        "w_x": dense_init(ks[4], (w, w), dtype, device=dev),
         # Lambda parametrized so softplus(lam) spreads decays in (0.9, 0.999)
-        "lam": torch.linspace(-2.0, 2.0, w, dtype=torch.float32,
-                              device=gen.device),
-        "w_out": dense_init(gen, (w, d), dtype),
+        "lam": linspace(-2.0, 2.0, w, dev),
+        "w_out": dense_init(ks[5], (w, d), dtype, device=dev),
     }
+
+
+def linspace(start: float, stop: float, num: int, device) -> Tensor:
+    """``jnp.linspace(start, stop, num)`` in float32 as XLA compiles it:
+    ``start * (1 - s) + stop * s`` with ``s = i * float32(1 / (num -
+    1))`` (the division becomes a product by the reciprocal), the last
+    point ``stop`` itself.  XLA also fuses some of these products into
+    multiply-adds, differently with the vector width, so points near 0
+    agree to an ulp of the endpoints, not of the point."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    s = torch.arange(div, dtype=torch.float32, device=device) * float(
+        np.float32(1.0 / div))
+    out = start * (1.0 - s) + stop * s
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
 
 
 def _gates(p, u: Tensor) -> Tuple[Tensor, Tensor]:

@@ -27,11 +27,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import (cast_floats, dense_init, dtype_of,
-                                       rms_norm)
+                                      rms_norm, split_keys)
 from repro_torch.models.loss import chunked_xent
 
 Tensor = torch.Tensor
@@ -64,45 +65,56 @@ def block_layout(cfg: ModelConfig
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                   dtype) -> Dict:
-    dev = gen.device
+def _init_sublayer(key, cfg: ModelConfig, kind: str, dtype, device
+                   ) -> Dict:
+    """``k1, k2 = split(key)``: the mixer from k1, the FFN from k2."""
+    k1, k2 = split_keys(key, 2)
     p: Dict[str, Any] = {"ln1": torch.zeros((cfg.d_model,), dtype=dtype,
-                                            device=dev)}
+                                            device=device)}
     if kind == "attn":
-        p["mix"] = attn_mod.init_attn_params(gen, cfg, dtype)
+        p["mix"] = attn_mod.init_attn_params(k1, cfg, dtype, device)
     elif kind == "rec":
-        p["mix"] = rglru_mod.init_rglru_params(gen, cfg, dtype)
+        p["mix"] = rglru_mod.init_rglru_params(k1, cfg, dtype, device)
     else:
         raise _unported(kind)
-    p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
-    p["ffn"] = mlp_mod.init_ffn_params(gen, cfg, dtype)
+    p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    p["ffn"] = mlp_mod.init_ffn_params(k2, cfg, dtype, device=device)
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
-    """Random weights at the config's shapes, drawn from ``gen`` on its
-    device (the reference's initializers; ``jax.random`` and a
-    ``torch.Generator`` give different numbers)."""
+def init_params(cfg: ModelConfig, key, device="cuda") -> PyTree:
+    """Random weights at the config's shapes on ``device``, drawn as the
+    reference's ``init_params(cfg, key)`` draws them: ``k_emb, k_blocks,
+    k_tail, k_un = split(key, 4)``, block b from ``split(k_blocks,
+    n_full)[b]`` (the reference vmaps over those keys), the tail from
+    ``split_keys(k_tail, len(tail))`` -- within a few float32 ulp of the
+    reference's weights (``core/prng.py::normal``).  ``key`` is a port
+    key (``core/prng.py::PRNGKey``), a jax key's two words or an int
+    seed."""
     dtype = dtype_of(cfg.param_dtype)
+    dev = torch.device(device)
     pattern, n_full, tail = block_layout(cfg)
+    k_emb, k_blocks, k_tail, k_un = split_keys(prng.as_key(key), 4)
     params: Dict[str, Any] = {
-        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
-                            scale=0.02),
-        "final_ln": torch.zeros((cfg.d_model,), dtype=dtype,
-                                device=gen.device),
+        "embed": dense_init(k_emb, (cfg.vocab_size, cfg.d_model), dtype,
+                            scale=0.02, device=dev),
+        "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
     }
     if n_full:
-        params["blocks"] = [
-            {f"sub{i}": _init_sublayer(gen, cfg, kind, dtype)
-             for i, kind in enumerate(pattern)}
-            for _ in range(n_full)]
+        blocks = []
+        for bk in split_keys(k_blocks, n_full):
+            ks = split_keys(bk, len(pattern))
+            blocks.append({f"sub{i}": _init_sublayer(ks[i], cfg, kind, dtype,
+                                                     dev)
+                           for i, kind in enumerate(pattern)})
+        params["blocks"] = blocks
     if tail:
-        params["tail"] = [_init_sublayer(gen, cfg, kind, dtype)
-                          for kind in tail]
+        ks = split_keys(k_tail, len(tail))
+        params["tail"] = [_init_sublayer(ks[i], cfg, kind, dtype, dev)
+                          for i, kind in enumerate(tail)]
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                       dtype)
+        params["unembed"] = dense_init(k_un, (cfg.d_model, cfg.vocab_size),
+                                       dtype, device=dev)
     return params
 
 

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import recurrentgemma_2b  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rg  # noqa: E402
@@ -215,7 +216,7 @@ def test_generate_on_the_card_matches_the_cpu(impl, cuda_device):
     cfg = dataclasses.replace(recurrentgemma_2b.SMOKE,
                               activation_dtype="float32",
                               attention_impl=impl)
-    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    params = transformer.init_params(cfg, prng.PRNGKey(0), device="cpu")
     on_card = _to(params, cuda_device)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 64)).astype(np.int32))
@@ -244,8 +245,8 @@ def test_bf16_prefill_takes_the_tensor_core_route(cuda_device):
     attention layer goes through the tensor-core kernel, every recurrence
     through the scan's TMA route, and the greedy tokens are in range."""
     cfg = dataclasses.replace(recurrentgemma_2b.SMOKE, attention_impl="flash")
-    params = transformer.init_params(
-        cfg, torch.Generator(cuda_device).manual_seed(0))
+    params = transformer.init_params(cfg, prng.PRNGKey(0),
+                                     device=cuda_device)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 96)).astype(np.int32))
     n_attn = sum(k == "attn" for k in cfg.layer_kinds())
@@ -357,3 +358,41 @@ def test_one_train_step_on_one_replica(cuda_device):
     for x, y in zip(tree_leaves(gk), tree_leaves(gp), strict=True):
         err = float((x - y).abs().max())
         assert err <= 1e-2 * max(float(y.abs().max()), 1e-12), err
+
+
+def test_key_init_on_the_card_matches_the_cpu(cuda_device):
+    """init_params from a threefry key on the card: the CPU's draw within
+    4 float32 ulp, the tolerance the CPU holds against jax (the integer
+    draws and uniforms are exact; each device's log1p inside erfinv is
+    within an ulp of the true value, and the tails amplify it), the
+    layout equal; a seeded TreeSync state lands on the card by
+    default."""
+    from repro_torch.core import treesync as tsy
+    from repro_torch.optim import make_adafactor
+    cfg = recurrentgemma_2b.SMOKE
+    got = transformer.init_params(cfg, prng.PRNGKey(3), device=cuda_device)
+    want = transformer.init_params(cfg, prng.PRNGKey(3), device="cpu")
+    gl, wl = list(_leaf_list(got)), list(_leaf_list(want))
+    assert len(gl) == len(wl)
+    for a, b in zip(gl, wl):
+        assert a.device.type == "cuda" and a.shape == b.shape
+        assert a.dtype == b.dtype
+        x, y = a.cpu().double().numpy(), b.double().numpy()
+        ulp = np.spacing(np.maximum(np.abs(x), np.abs(y)).astype(np.float32))
+        ulps = np.abs(x - y) / np.maximum(ulp.astype(np.float64), 1e-45)
+        assert ulps.max(initial=0.0) <= 4, (tuple(a.shape), ulps.max())
+    mesh = type("M", (), {"mesh_dim_names": ("data",), "shape": (1,)})()
+    ts = tsy.TreeSyncConfig(sync_axes=("data",), periods=(2,))
+    st = tsy.init_state(cfg, make_adafactor(), 7, mesh, ts)
+    assert all(t.device.type == "cuda" for t in _leaf_list(st.params))
+
+
+def _leaf_list(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_list(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaf_list(v)
+    else:
+        yield tree

@@ -542,8 +542,9 @@ def test_lm_sessions_compile_on_the_mesh_backend_only():
     sess = Session.compile(prob, None, backend="mesh", device="cpu",
                            mesh=make_host_mesh(device_type="cpu"))
     assert sess.n_replicas == 1 and sess.writer
-    with pytest.raises(NotImplementedError, match="LM sweep"):
-        sess.sweep(lrs=[0.1])
+    # the LM sweep runs on the mesh backend's one-rank mesh too
+    rs = sess.sweep(lrs=[0.1], steps=1)
+    assert rs.losses.shape == (1, 1) and np.isfinite(rs.losses).all()
 
 
 def test_a_codec_below_the_root_is_refused():
@@ -564,9 +565,11 @@ def test_state_round_trip_through_the_reference_layout():
     """lm_state_to_reference of per-replica states is the stacked state
     lm_state_from_reference takes rows of."""
     from repro_torch.core.engine.lm import init_lm_state
+    from repro_torch.core.prng import PRNGKey
     cfg = dataclasses.replace(ModelConfig(**CFG_KW), num_layers=3)
-    states = [init_lm_state(cfg, make_adamw(), torch.Generator().manual_seed(
-        s), compression="int8") for s in range(2)]
+    states = [init_lm_state(cfg, make_adamw(), PRNGKey(s),
+                            compression="int8", device="cpu")
+              for s in range(2)]
     stacked = lm_state_to_reference(states)
     for r, st in enumerate(states):
         back = lm_state_from_reference(stacked, r, device="cpu")

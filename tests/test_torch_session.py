@@ -239,3 +239,141 @@ def test_unported_options_raise():
         Session.compile(Problem(X[:-1], y[:-1]), topo, device="cpu")
     with pytest.raises(ValueError):
         Session.compile(Problem(X, y), topo, backend="vmap", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the host executor cache (tests/test_api.py:146-172, tests/test_analysis.py)
+# ---------------------------------------------------------------------------
+def _star_session(strict=False, lam=0.07, accel=None):
+    topo = Topology.star(3, 30, rounds=4, local_steps=50)
+    X, y = data(90, d=6)
+    return Session.compile(Problem(X, y, lam=lam), topo,
+                           Schedule(acceleration=accel), backend="torch",
+                           device="cpu", strict=strict)
+
+
+def test_executor_cache_hits_on_repeated_solves():
+    """Repeated Session.compile on the same tree reuses ONE executor (a
+    hit, no rebuild), and the legacy engine.solve rides the same cache."""
+    from repro_torch.core import engine
+    s1 = _star_session()
+    before = Session.cache_stats()
+    s2 = _star_session()
+    res1 = s1.run(record_history=False)
+    res2 = s2.run(record_history=False)
+    after = Session.cache_stats()
+    assert after["misses"] == before["misses"], "executor was rebuilt"
+    assert after["hits"] >= before["hits"] + 1
+    assert s1.executor is s2.executor
+    assert torch.equal(res1.alpha, res2.alpha)
+
+    before = Session.cache_stats()
+    res = engine.solve(s1.topology.tree, s1.problem.X, s1.problem.y,
+                       loss=s1.problem.loss, lam=0.07, record_history=False,
+                       backend="torch")
+    after = Session.cache_stats()
+    assert after["misses"] == before["misses"]
+    assert torch.equal(res.alpha, res1.alpha)
+
+
+def test_engine_solve_is_the_references_shim():
+    """engine.solve: the reference's signature (the card backend by
+    default) and its result on the same tree."""
+    import inspect
+
+    from repro.core import engine as jengine
+    from repro_torch.core import engine
+    sig = inspect.signature(engine.solve)
+    jsig = inspect.signature(jengine.solve)
+    assert list(jsig.parameters) == list(sig.parameters)[:len(jsig.parameters)]
+    assert sig.parameters["backend"].default == "cuda"
+    jtopo = JTopology.star(3, 30, rounds=4, local_steps=50)
+    X, y = data(90, d=6)
+    want = jengine.solve(jtopo.tree, X, y,
+                         loss=JProblem(X, y, lam=0.07).loss, lam=0.07,
+                         key=jax.random.PRNGKey(3))
+    got = engine.solve(port_topology_of(jtopo).tree, torch.from_numpy(X),
+                       torch.from_numpy(y),
+                       loss=Problem(X, y, lam=0.07).loss, lam=0.07,
+                       key=prng.PRNGKey(3), backend="torch")
+    assert_close_runs(got, want)
+
+
+def port_topology_of(jtopo) -> Topology:
+    return Topology.from_json(jtopo.to_json())
+
+
+def test_cache_stats_has_a_column_per_backend():
+    stats = Session.cache_stats()
+    assert set(stats) == {"hits", "misses", "size", "by_backend"}
+    assert set(stats["by_backend"]) == {"cuda", "torch", "mesh", "lm"}
+    b = stats["by_backend"]
+    assert stats["hits"] == sum(v["hits"] for v in b.values())
+    assert stats["misses"] == sum(v["misses"] for v in b.values())
+    s = _star_session()
+    assert s._fetch_executor() is s.executor
+    assert Session.cache_stats()["by_backend"]["torch"]["hits"] >= \
+        b["torch"]["hits"] + 1
+    from repro_torch.core.engine.method import get_method
+    assert get_method("sdca").cache_stats() == Session.cache_stats()
+    keys = thost.executor_cache_keys()
+    assert keys and set(keys[0]) == set(thost.EXEC_KEY_FIELDS)
+
+
+def test_no_rebuild_across_lambda_local_h_and_acceleration():
+    s1 = _star_session(lam=0.05)
+    s2 = _star_session(lam=0.8)
+    assert s1.executor is s2.executor, "lambda leaked into the cache key"
+    before = Session.cache_stats()
+    s1.run(key=prng.PRNGKey(0), record_history=False, local_h=10)
+    s1.run(key=prng.PRNGKey(0), record_history=False, local_h=[5, 20, 50])
+    s1.run(key=prng.PRNGKey(0), record_history=False, lam=0.3)
+    assert Session.cache_stats()["misses"] == before["misses"]
+    a1 = _star_session(accel=0.5)
+    before = Session.cache_stats()
+    a2 = _star_session(accel=0.2, lam=0.3)
+    a1.run(record_history=False, acceleration=0.0)
+    a1.run(record_history=False, acceleration=0.9)
+    a2.run(record_history=False)
+    assert a1.executor is a2.executor
+    assert Session.cache_stats()["misses"] == before["misses"]
+    assert a1.executor is not s1.executor
+
+
+def test_strict_catches_a_forced_host_rebuild():
+    """Evicting the session's executor forces a rebuild on the next run:
+    strict mode raises UnexpectedRetraceError naming the host backend (and
+    the session runs again after), a non-strict session rebuilds
+    silently; strict and plain runs are bit-equal."""
+    from repro_torch.analysis import UnexpectedRetraceError
+    sess = _star_session(strict=True)
+    first = sess.run(key=prng.PRNGKey(0))
+    plain = _star_session().run(key=prng.PRNGKey(0))
+    assert torch.equal(first.alpha, plain.alpha)
+    thost.clear_executor_cache()
+    with pytest.raises(UnexpectedRetraceError, match="cache miss") as e:
+        sess.run(key=prng.PRNGKey(0))
+    assert e.value.misses[0]["backend"] == "torch"
+    assert "plan_fingerprint" in e.value.misses[0]["key"]
+    again = sess.run(key=prng.PRNGKey(0))      # the rebuilt entry hits
+    assert torch.equal(again.alpha, first.alpha)
+    loose = _star_session()
+    thost.clear_executor_cache()
+    loose.run(key=prng.PRNGKey(0))            # no raise
+
+
+def test_no_retrace_reports_the_host_keys_diff():
+    from repro_torch.analysis import UnexpectedRetraceError, no_retrace
+    s = _star_session()
+    thost.get_host_executor(s.plan, loss=s.problem.loss, backend="torch",
+                            device="cpu")
+    with no_retrace():
+        thost.get_host_executor(s.plan, loss=s.problem.loss,
+                                backend="torch", device="cpu")
+    with pytest.raises(UnexpectedRetraceError) as e:
+        with no_retrace():
+            thost.get_host_executor(s.plan, loss=s.problem.loss,
+                                    backend="torch", device="cpu",
+                                    batched=True)
+    assert e.value.misses[-1]["diff"] == {"batched": (True, False)}
+    assert thost.executor_miss_log()[-1]["key"]["batched"] is True

@@ -380,3 +380,43 @@ def test_batched_cuda_backend_on_cpu_tensors_runs_the_plain_version():
                         device="cpu").sweep(lams=[0.1, 0.2])
     assert kernel.LAUNCHES == n0
     assert torch.equal(a.alphas, b.alphas)
+
+
+# ---------------------------------------------------------------------------
+# the host executor cache under sweeps (tests/test_sweep.py:146-151,
+# 234-238, 292-294)
+# ---------------------------------------------------------------------------
+def test_one_batched_build_per_sweep_grid():
+    topo = JTopology.star(3, 30, rounds=4, local_steps=30)
+    X, y = data(90, 6)
+    s1 = Session.compile(Problem(X, y, lam=0.05), port(topo),
+                         backend="torch", device="cpu")
+    s2 = Session.compile(Problem(X, y, lam=0.8), port(topo),
+                         backend="torch", device="cpu")
+    assert s1.executor is s2.executor, \
+        "lambda leaked into the executor cache key"
+    thost.clear_executor_cache()
+    before = Session.cache_stats()
+    s1.sweep(lams=[0.01, 0.1, 1.0, 10.0], record_history=False)
+    mid = Session.cache_stats()
+    assert mid["misses"] == before["misses"] + 1   # the batched flavor
+    s2.sweep(lams=[0.02, 0.2, 2.0], record_history=False)
+    after = Session.cache_stats()
+    assert after["misses"] == mid["misses"], \
+        "a second lambda grid rebuilt the batched executor"
+
+
+def test_runtime_h_changes_and_h_grids_build_nothing():
+    topo = JTopology.star(3, 16, rounds=4, local_steps=8)
+    sess, _ = sessions(topo, Schedule(h_cap=16), JSchedule(h_cap=16), d=6)
+    key = prng.PRNGKey(0)
+    sess.run(key=key, record_history=False)
+    sess.sweep(lams=[0.1], local_hs=[2, 4], record_history=False)
+    before = Session.cache_stats()
+    sess.run(key=key, local_h=4, record_history=False)
+    sess.run(key=key, local_h=16, record_history=False)
+    sess.run(key=key, local_h=[1, 8, 16], record_history=False)
+    assert Session.cache_stats()["misses"] == before["misses"], \
+        "a runtime-H change rebuilt an executor"
+    sess.sweep(lams=[0.1], local_hs=[3, 5, 7], record_history=False)
+    assert Session.cache_stats()["misses"] == before["misses"]
