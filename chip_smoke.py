@@ -129,8 +129,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card: f32 (CUDA-core kernel) and bf16 (tensor-core kernel); causal
      with and without a window, non-causal; GQA H/KV in {10/1, 32/8, 4/4,
      8/2, 4/1}; seq_offset > 0; d in {16, 64, 80, 128, 256}; lengths that
-     are not multiples of a tile; and at B=1, S=4096, H=10, KV=1, d=256,
-     window 2048, bf16;
+     are not multiples of a tile; phase 11's models' shapes on both
+     routes: GQA 40/8, 48/8 and 56/8 at d 128, 32/32 at d 64, and 32/8 at
+     d 80 with a window of 4096 at S = 4096; and at B=1, S=4096, H=10,
+     KV=1, d=256, window 2048, bf16;
   6. hold the rglru_scan kernel against its plain version on the card,
      bit for bit (torch.equal), on both routes with the launch counted on
      the route route() names: small shapes (S not a multiple of a 32-step
@@ -187,10 +189,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  10. the LM sweep at full width: phase 9's model (912,304,640 parameters,
      3.40 GiB f32), Adafactor, two gloo ranks sharing the card as (pod,
      data) = (1, 2), periods (2,), uncompressed, batch 2 x 2048 (one
-     sequence a rank), 4 grid steps of LMSession.sweep(Sweep(lrs=[1e-3,
-     3e-3], seeds=[0, 1])) (B = 4 members on each rank).  Cut against
-     phase 9: no int8 root (a residual per member would add 13.6 GiB a
-     rank) and two ranks, not four.  Checks on each rank: one executor
+     sequence a rank), 2 grid steps of LMSession.sweep(Sweep(lrs=[1e-3,
+     3e-3], seeds=[0, 1])) (B = 4 members on each rank; the first
+     without a sync, the second with one).  Cut against phase 9: no int8
+     root (a residual per member would add 13.6 GiB a rank) and two
+     ranks, not four; cut from 4 grid steps to 2 to keep the script near
+     half its time limit.  Checks on each rank: one executor
      build for the grid (cache_stats), every loss finite, one data draw a
      grid step (not B), scan launches = B x the code's count; members 0
      and 3 (other lr and seed) torch.equal in params, optimizer state and
@@ -198,7 +202,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the seconds of each grid step, the data draw and a member's local
      step (CUDA events the script records around them), a sync, and the
      peak per rank; then the reverse-time launch's ms
-     at (1, 2048, 2560) beside the forward's, with its bytes bound.
+     at (1, 2048, 2560) beside the forward's, with its bytes bound;
+ 11. the other architectures' serving paths, through repro_torch.launch.
+     serve.generate at batch 4, 4096-token prompts and 32 generated
+     tokens, weights drawn on the card from PRNGKey(0) (the init's
+     seconds by CUDA events and its peak printed), prompts from the same
+     key.  The launch counts are zeroed before and read after a
+     prefill-only generate and the whole request; each leg prints its
+     prefill seconds, decode tokens/s and peak memory.  (a) h2o-danube-
+     1.8b whole (24 layers, d_model 2560, 32/8 heads of 80, window 4096,
+     attention_impl="flash"; the decode ring wraps): 24 flash launches in
+     prefill, all on the tensor-core route, none in decode; the same
+     prefill through xla_chunked within LM_TOL.  (b) dbrx-132b at full
+     width (d_model 6144, 48/8 heads of 128, 16 experts of d_ff 10752,
+     top 4, bf16) cut to DBRX_LAYERS = 2 layers (the whole model is
+     ~246 GiB): 2 flash launches in prefill, none in decode; C in
+     prefill and in a decode step, the share of tokens whose kept
+     experts agree between the kernel and plain routes; rows whose last
+     position kept the same experts within LM_TOL, and the plain route
+     with the kernel route's experts pinned within LM_TOL on every row.
+     (c) rwkv6-1.6b whole (24 layers, d_model 2048, f32): no flash or
+     scan launch; a 4080-token prefill plus 16 teacher-forced decode
+     steps within RWKV_TOL of a 4096-token prefill, at the config's bf16
+     activations and at float32.  One warm prefill of each leg runs under
+     torch.profiler (a 1024-token one for rwkv6).  The flash kernel is
+     timed at (a)'s and (b)'s prefill shapes beside its plain version,
+     its bound and one SDPA call.  Prints the phase's seconds.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -208,7 +237,9 @@ sdca_block row's launches are phase 3's run; its launches_by_path gives
 every path's launches and leaves per launch -- phase 3b's pilot and run,
 3c's two sweeps, 3d's straggler and accelerated runs, 3e's checkpoint,
 kill-and-resume, elastic and fleet legs, 3f's mesh run per rank -- and
-"batched" the batched launch's ms, bound and error; the rglru_scan row's
+"batched" the batched launch's ms, bound and error; the flash row's
+launches_by_path gives the serving path's and phase 11's requests, and
+its by_shape phase 11's prefill shapes; the rglru_scan row's
 launches_by_path gives the serving path's and, per rank, phase 9's, 10b's
 and 10's) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
@@ -1491,13 +1522,21 @@ def check_flash(dev) -> float:
              (1, 64, 320, 4, 4, 256, True, 100, 256),
              (1, 96, 200, 32, 8, 80, False, 50, 60),
              (1, 130, 300, 8, 2, 128, True, None, 5),
-             (1, 70, 130, 4, 1, 16, True, 40, 10)]
+             (1, 70, 130, 4, 1, 16, True, 40, 10),
+             # phase 11's models: GQA groups 5, 6 and 7 at d 128 (qwen2.5,
+             # dbrx, yi / llava), MHA at d 64 (musicgen), and h2o-danube's
+             # d 80 (the 128-wide panel with zero fill) with its window
+             (1, 200, 200, 40, 8, 128, True, None, 0),
+             (1, 160, 300, 48, 8, 128, True, 100, 140),
+             (2, 130, 130, 56, 8, 128, True, None, 0),
+             (1, 150, 150, 32, 32, 64, True, None, 0),
+             (1, 4096, 4096, 32, 8, 80, True, 4096, 0)]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for B, Sq, Sk, H, KV, D, causal, window, off in cases + [
                 (1, 4096, 4096, 10, 1, 256, True, 2048, 0)]:
-            if Sq == 4096 and dtype != torch.bfloat16:
+            if D == 256 and Sq == 4096 and dtype != torch.bfloat16:
                 continue
             q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
             k = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
@@ -1637,18 +1676,14 @@ def serve_path(dev, card: str) -> dict:
                                       cfg.vocab_size).to(dev)}
 
     # prefill only (gen_tokens=1: no decode step), also the warm-up
-    fa.LAUNCHES = rg.LAUNCHES = 0
-    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
-    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
+    _zero_lm_counts()
     _, cold = generate(cfg, params, prompts, 1, device=dev)
     pre = (fa.LAUNCHES, rg.LAUNCHES)
     pre_routes = dict(fa.LAUNCHES_BY_ROUTE)
     pre_scan_routes = dict(rg.LAUNCHES_BY_ROUTE)
     # the whole request: prefill then 31 decode steps
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = rg.LAUNCHES = 0
-    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
-    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
+    _zero_lm_counts()
     toks, stats = generate(cfg, params, prompts, gen, device=dev)
     launches = {"flash_attention": fa.LAUNCHES, "rglru_scan": rg.LAUNCHES}
     routes = dict(fa.LAUNCHES_BY_ROUTE)
@@ -1742,34 +1777,49 @@ def _leaves(tree):
         yield tree
 
 
-def time_lm_kernels(dev, card: str) -> dict:
-    """Phase 8: the two LM kernels at the serving shape, warm, beside their
-    plain versions, their bounds and (flash) one SDPA call."""
+def time_flash(dev, card: str, B: int, S: int, H: int, KV: int, D: int,
+               win, label: str, seed: int = 8) -> dict:
+    """The bf16 flash kernel warm (CUDA events) at one causal shape, beside
+    its plain version, its bound and one F.scaled_dot_product_attention
+    call with the same band mask (a yardstick only: the port never calls
+    it).  Where the plain version's (B, H, S, S) float32 scores would not
+    fit beside the other temporaries, it runs one batch row a call (the
+    same work, B calls)."""
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rglru import kernel as rg
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
-    n0 = (fa.LAUNCHES, rg.LAUNCHES)
-    out = {}
-    g = torch.Generator(device=dev).manual_seed(8)
-    B, S, H, KV, D, win = 4, 4096, 10, 1, 256, 2048
+    n0 = (fa.LAUNCHES, dict(fa.LAUNCHES_BY_ROUTE))
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
     k = torch.randn(B, S, KV, D, generator=g, device=dev).bfloat16()
     v = torch.randn(B, S, KV, D, generator=g, device=dev).bfloat16()
     run = lambda: fa.flash_attention_kernel(q, k, v, causal=True,  # noqa: E731
                                             window=win)
-    plain = lambda: attention_ref(q, k, v, causal=True,  # noqa: E731
-                                  window=win, seq_offset=0)
+    by_row = B * H * S * S * 4 > 4 * 2 ** 30
+
+    def plain():
+        if not by_row:
+            return attention_ref(q, k, v, causal=True, window=win,
+                                 seq_offset=0)
+        return torch.cat([attention_ref(q[b: b + 1], k[b: b + 1],
+                                        v[b: b + 1], causal=True,
+                                        window=win, seq_offset=0)
+                          for b in range(B)])
+
     got, want = run(), plain()
     err = float((got.float() - want.float()).abs().max())
+    if not err <= FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {label}: {err}")
     ms = time_ms(run, 10)
     plain_ms = time_plain_ms(plain, 2)
     pos = torch.arange(S, device=dev)
-    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < win)
+    band = pos[:, None] >= pos[None, :]
+    if win is not None:
+        band &= pos[:, None] - pos[None, :] < win
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=band, enable_gqa=True)
@@ -1786,27 +1836,42 @@ def time_lm_kernels(dev, card: str) -> dict:
     backend = sdpa_kernels[0].key if sdpa_kernels else "not measured"
     # visible (query, key) pairs of this causal band; QK^T and PV each 2d
     # flops a pair; bytes: q, k, v read once, out written once
-    pairs = sum(min(i + 1, win) for i in range(S))
+    pairs = sum(min(i + 1, win or S) for i in range(S))
     flops = 4 * D * pairs * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    out["flash_attention"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=library_ms, max_abs_err=err)
-    print(f"flash_attention at the serving shape (B={B} S={S} H={H} KV={KV} "
-          f"d={D} window={win} bf16, tensor-core kernel): kernel "
+    print(f"flash_attention at {label} (B={B} S={S} H={H} KV={KV} d={D} "
+          f"window={win} bf16, tensor-core kernel): kernel "
           f"{ms:.4f} ms/launch ({100 * max(t_ops, t_bytes) / ms:.1f}% of "
           f"its bound, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (band mask, "
-          f"enable_gqa; its top kernel: {backend[:90]}; max abs diff from "
-          f"plain {lib_err:.3e}), bound {max(t_ops, t_bytes):.4f} ms "
-          f"(operations {t_ops:.4f} ms: {flops} flop over {pairs} visible "
-          f"pairs per (b, h) at the bf16 tensor-core peak; bytes "
-          f"{t_bytes:.4f} ms: {nbytes} B), max_abs_err {err:.3e}  [{card}]")
-    del q, k, v, got, want, lib, band, qt, kt, vt
+          f"{plain_ms:.3f} ms{' (one batch row a call)' if by_row else ''}, "
+          f"SDPA {library_ms:.4f} ms (band mask, enable_gqa; its top "
+          f"kernel: {backend[:90]}; max abs diff from plain {lib_err:.3e}), "
+          f"bound {max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f} ms: "
+          f"{flops} flop over {pairs} visible pairs per (b, h) at the bf16 "
+          f"tensor-core peak; bytes {t_bytes:.4f} ms: {nbytes} B), "
+          f"max_abs_err {err:.3e}  [{card}]")
+    fa.LAUNCHES = n0[0]
+    fa.LAUNCHES_BY_ROUTE.update(n0[1])
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=library_ms, max_abs_err=err)
 
+
+def time_lm_kernels(dev, card: str) -> dict:
+    """Phase 8: the two LM kernels at the serving shape, warm, beside their
+    plain versions, their bounds and (flash) one SDPA call."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    n0 = (fa.LAUNCHES, rg.LAUNCHES)
+    B, S = 4, 4096
+    out = {"flash_attention": time_flash(dev, card, B, S, 10, 1, 256, 2048,
+                                         "the serving shape")}
+    g = torch.Generator(device=dev).manual_seed(8)
     W = 2560
     a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
     b = torch.randn(B, S, W, generator=g, device=dev)
@@ -2139,11 +2204,12 @@ def _train_rank(rank: int, world: int, root: str) -> None:
 SWEEP_WORLD = 2          # gloo ranks sharing the card, one per replica
 SWEEP_MESH = (1, 2, 1)   # (pod, data, model): one sync level
 SWEEP_PERIODS = (2,)
-SWEEP_STEPS = 4
+SWEEP_STEPS = 2          # one grid step without a sync, one with
 SWEEP_BATCH = 2          # one 2048-token sequence a rank
 SWEEP_LRS, SWEEP_SEEDS = [1e-3, 3e-3], [0, 1]
 SWEEP_CHECKED = (0, 3)   # members held to their standalone runs
 SMOKE_SWEEP = dict(lrs=[1e-3, 3e-3], seeds=[0, 1], local_hs=[1, 2])
+SMOKE_SWEEP_STEPS = 4    # 10b: one outer round of periods (2, 2), int8 root
 
 
 def _states_equal(a, b) -> bool:
@@ -2195,12 +2261,12 @@ def smoke_sweep(mesh, dev, schedule) -> dict:
     c0, d0 = sess.cache_stats(), sess.draw_count
     torch.cuda.synchronize()
     rg.LAUNCHES = 0
-    rs = sess.sweep(Sweep(**SMOKE_SWEEP), steps=SWEEP_STEPS)
+    rs = sess.sweep(Sweep(**SMOKE_SWEEP), steps=SMOKE_SWEEP_STEPS)
     torch.cuda.synchronize()
     launches = rg.LAUNCHES
-    _sweep_checks(sess, rs, cfg, SWEEP_STEPS, c0, d0, launches)
+    _sweep_checks(sess, rs, cfg, SMOKE_SWEEP_STEPS, c0, d0, launches)
     for i, pt in enumerate(rs.points):
-        one = sess.run(steps=SWEEP_STEPS, key=pt.seed, lr=pt.lr,
+        one = sess.run(steps=SMOKE_SWEEP_STEPS, key=pt.seed, lr=pt.lr,
                        local_h=pt.local_h)
         if not _states_equal(one.state, rs.member_state(i)) or [
                 h["loss"] for h in one.history] != rs.losses[i].tolist():
@@ -2497,6 +2563,310 @@ def train_path(dev, card: str) -> dict:
             "peak_bytes": [s["peak"] for s in stats]}
 
 
+# ---- phase 11: the other architectures' serving paths ------------------------
+ARCH_B, ARCH_S, ARCH_GEN = 4, 4096, 32
+DBRX_LAYERS = 2          # dbrx-132b at full width, cut in depth to fit
+# rwkv6-1.6b's last logits, a 4080-token prefill plus 16 teacher-forced
+# decode steps against a 4096-token prefill, as a share of max|prefill
+# logits|.  At its bf16 activations through 24 layers the chunked WKV
+# (float32 within-chunk products) and the sequential state update round
+# y to bf16 from float32 values summed in other orders, and each flipped
+# rounding rides through the later layers: measured 2.9e-2 and 3.2e-2 on
+# the CPU at 24 layers of d_model 128 and 256 (argmax agreement 0.75).
+# At float32 activations the same comparison sees only the sums' order
+# through 24 layers
+RWKV_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
+
+
+def _zero_lm_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
+
+
+def _lm_counts() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    return {"flash": fa.LAUNCHES, "flash_routes": dict(fa.LAUNCHES_BY_ROUTE),
+            "scan": rg.LAUNCHES}
+
+
+def _serve_leg(cfg, dev, card: str) -> dict:
+    """One phase-11 leg through repro_torch.launch.serve.generate: weights
+    drawn on the card from PRNGKey(0) (CUDA events, peak), prompts from
+    the same key, a prefill-only generate (the warm-up) and the whole
+    request (prefill, then ARCH_GEN - 1 decode steps), each between a
+    zeroing and a reading of the launch counts.  Checks: the prefill
+    launches one flash kernel per attention layer, all on the tensor-core
+    route, and no scan; decode launches nothing; tokens in range."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    key = prng.PRNGKey(0)
+    params, init = init_on_card(lambda: transformer.init_params(
+        cfg, key, device=dev))
+    n_params = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"arch {cfg.name}: {cfg.num_layers} layers, {n_params} "
+          f"parameters ({nbytes / 2**30:.3f} GiB, {cfg.param_dtype}) drawn "
+          f"on the card from PRNGKey(0) in {init['s']:.3f} s, peak "
+          f"{init['peak'] / 2**30:.3f} GiB during the init  [{card}]")
+    prompts = {"tokens": prng.randint(key, (ARCH_B, ARCH_S), 0,
+                                      cfg.vocab_size).to(dev)}
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds()) \
+        if cfg.attention_impl == "flash" else 0
+    _zero_lm_counts()
+    _, cold = generate(cfg, params, prompts, 1, device=dev)
+    pre = _lm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    toks, stats = generate(cfg, params, prompts, ARCH_GEN, device=dev)
+    whole = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"arch {cfg.name}: batch {ARCH_B}, prompt {ARCH_S}, {ARCH_GEN} "
+          f"generated: prefill {stats['prefill_s']:.4f} s (cold "
+          f"{cold['prefill_s']:.4f} s), decode {stats['decode_s']:.4f} s = "
+          f"{stats['tok_per_s']:.2f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches in prefill {pre}, in the whole "
+          f"request {whole}  [{card}]")
+    want = {"flash": n_attn, "flash_routes": {"wgmma": n_attn, "f32": 0},
+            "scan": 0}
+    if pre != want or whole != want:
+        raise AssertionError(f"{cfg.name}: launches in prefill {pre} and "
+                             f"in the request {whole}, expected {want} in "
+                             f"each (decode launches nothing)")
+    if tuple(toks.shape) != (ARCH_B, ARCH_GEN) or toks.dtype != torch.int32 \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)} "
+                             f"{toks.dtype} or out of the vocabulary")
+    return dict(params=params, prompts=prompts, launches=whole["flash"],
+                prefill_s=stats["prefill_s"], tok_per_s=stats["tok_per_s"],
+                peak=peak, init_s=init["s"])
+
+
+def _check_logits(name: str, logits, B: int, V: int) -> None:
+    import torch
+    if tuple(logits.shape) != (B, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} logits {tuple(logits.shape)} not "
+                             f"finite or of the wrong shape")
+
+
+def _routes_recorded(fn):
+    """Run ``fn()`` with models.mlp.route recording each MoE layer's
+    gate_idx; returns (fn's result, [gate_idx per MoE call])."""
+    from repro_torch.models import mlp
+    seen, route = [], mlp.route
+
+    def recording(p, cfg, xf):
+        probs, gate_w, gate_idx = route(p, cfg, xf)
+        seen.append(gate_idx)
+        return probs, gate_w, gate_idx
+
+    mlp.route = recording
+    try:
+        return fn(), seen
+    finally:
+        mlp.route = route
+
+
+def _routes_pinned(fn, pinned):
+    """Run ``fn()`` with each MoE layer's experts pinned to ``pinned``'s
+    (the gate weights still this run's probabilities at them), so that
+    two routes of the model dispatch every token alike."""
+    import torch
+    from repro_torch.models import mlp
+    it, route = iter(pinned), mlp.route
+
+    def replaying(p, cfg, xf):
+        probs, _, _ = route(p, cfg, xf)
+        gate_idx = next(it)
+        return probs, torch.gather(probs, -1, gate_idx), gate_idx
+
+    mlp.route = replaying
+    try:
+        return fn()
+    finally:
+        mlp.route = route
+
+
+def _prefill_only(cfg, params, prompts) -> None:
+    import torch
+    from repro_torch.models import transformer
+    with torch.no_grad():
+        transformer.prefill(cfg, params, prompts)
+
+
+def arch_path(dev, card: str) -> dict:
+    """Phase 11: h2o-danube-1.8b whole, dbrx-132b at full width cut to
+    DBRX_LAYERS layers, rwkv6-1.6b whole, each served through generate
+    (see the module docstring).  Returns the flash launches per leg and
+    the kernel's times at the h2o and dbrx prefill shapes."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import dbrx_132b, h2o_danube_1_8b, rwkv6_1_6b
+    from repro_torch.models import mlp, transformer
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "flash_shapes": {}}
+    B, S = ARCH_B, ARCH_S
+
+    # ---- (a) h2o-danube-1.8b, whole: d 80 on the 128-wide panel ----------
+    cfg = dataclasses.replace(h2o_danube_1_8b.FULL, attention_impl="flash")
+    leg = _serve_leg(cfg, dev, card)
+    params, prompts = leg["params"], leg["prompts"]
+    with torch.no_grad():
+        logits, cache = transformer.prefill(cfg, params, prompts,
+                                            max_len=S + ARCH_GEN)
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        dlogits, _ = transformer.decode_step(cfg, params, cache, nxt)
+        del cache
+        plain, _ = transformer.prefill(
+            dataclasses.replace(cfg, attention_impl="xla_chunked"), params,
+            prompts, max_len=S + ARCH_GEN)
+    for name, t in (("prefill", logits), ("decode", dlogits), ("plain", plain)):
+        _check_logits(f"{cfg.name} {name}", t, B, cfg.vocab_size)
+    err, scale = float((logits - plain).abs().max()), float(plain.abs().max())
+    print(f"arch {cfg.name}: last-position logits, kernel route vs plain "
+          f"route: max abs diff {err:.4e}, max|plain| {scale:.4e} "
+          f"(tolerance {LM_TOL} x max|plain|), argmax agreement "
+          f"{float((logits.argmax(-1) == plain.argmax(-1)).float().mean()):.2f}"
+          f"  [{card}]")
+    if not err <= LM_TOL * scale:
+        raise AssertionError(f"{cfg.name}: the kernel route's logits "
+                             f"disagree with the plain route's")
+    profile_window(lambda: _prefill_only(cfg, params, prompts),
+                   f"{cfg.name}, one warm prefill (B={B}, S={S})", card)
+    out["launches"][cfg.name] = leg["launches"]
+    del params, prompts, leg, logits, dlogits, plain
+    torch.cuda.empty_cache()
+    out["flash_shapes"]["h2o-danube-1.8b prefill"] = time_flash(
+        dev, card, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        cfg.window, "h2o-danube-1.8b's prefill shape")
+    torch.cuda.empty_cache()
+
+    # ---- (b) dbrx-132b at full width, DBRX_LAYERS layers: MoE ------------
+    cfg = dataclasses.replace(dbrx_132b.FULL, num_layers=DBRX_LAYERS,
+                              attention_impl="flash")
+    leg = _serve_leg(cfg, dev, card)
+    params, prompts = leg["params"], leg["prompts"]
+    c_pre, c_dec = mlp.capacity(cfg, B * S), mlp.capacity(cfg, B)
+    with torch.no_grad():
+        logits, routes = _routes_recorded(lambda: transformer.prefill(
+            cfg, params, prompts, max_len=S + ARCH_GEN)[0])
+        plain_cfg = dataclasses.replace(cfg, attention_impl="xla_chunked")
+        plain, plain_routes = _routes_recorded(lambda: transformer.prefill(
+            plain_cfg, params, prompts, max_len=S + ARCH_GEN)[0])
+        pinned = _routes_pinned(lambda: transformer.prefill(
+            plain_cfg, params, prompts, max_len=S + ARCH_GEN)[0], routes)
+    for name, t in (("prefill", logits), ("plain", plain),
+                    ("pinned", pinned)):
+        _check_logits(f"{cfg.name} {name}", t, B, cfg.vocab_size)
+    # a token whose k-th and (k+1)-th experts are nearly tied can take
+    # another expert on the plain route: its FFN output then moves by its
+    # smaller gate weight times the difference of two experts' outputs, a
+    # share of the row's hidden state, not a rounding; and a flip moves
+    # the later tokens of its experts one slot, which can carry one across
+    # the capacity.  So rows whose last position kept the same experts in
+    # every layer on both routes are held to LM_TOL (earlier flips reach
+    # the last position only through the second layer's attention, whose
+    # output is a small share of a residual stream the experts' outputs
+    # dominate), and the plain route with every layer's experts pinned to
+    # the kernel route's is held to LM_TOL on every row
+    K = cfg.experts_per_token
+
+    def kept_experts(gate_idx):
+        """(T, K) expert ids with -1 where the capacity dropped one."""
+        keep = mlp.slots(gate_idx, cfg.num_experts, c_pre)[2]
+        return torch.where(keep.view(-1, K), gate_idx, -1).sort(-1).values
+
+    pairs = [(kept_experts(a), kept_experts(b))
+             for a, b in zip(routes, plain_routes, strict=True)]
+    share = [float((a == b).all(-1).float().mean()) for a, b in pairs]
+    last = [b * S + S - 1 for b in range(B)]
+    rows_same = [all(torch.equal(a[t], b_[t]) for a, b_ in pairs)
+                 for t in last]
+    kept = [int((a >= 0).sum()) for a, _ in pairs]
+    scale = float(plain.abs().max())
+    row_err = (logits - plain).abs().amax(-1)
+    pin_err = float((logits - pinned).abs().max())
+    print(f"arch {cfg.name}: capacity C = {c_pre} slots an expert in "
+          f"prefill (T = {B * S}), C = {c_dec} in a decode step (T = {B}); "
+          f"assignments kept per layer {kept} of {B * S * K}; share of "
+          f"tokens whose kept experts agree between the kernel and plain "
+          f"routes per layer {share}; "
+          f"last-position rows routed alike {rows_same}; max abs logits "
+          f"diff per row {[f'{float(e):.4e}' for e in row_err]}, with "
+          f"experts pinned {pin_err:.4e}; max|plain| {scale:.4e} "
+          f"(tolerance {LM_TOL} x max|plain|)  [{card}]")
+    if not pin_err <= LM_TOL * scale or not all(
+            float(e) <= LM_TOL * scale
+            for e, alike in zip(row_err, rows_same, strict=True) if alike):
+        raise AssertionError(f"{cfg.name}: the kernel route's logits "
+                             f"disagree with the plain route's")
+    profile_window(lambda: _prefill_only(cfg, params, prompts),
+                   f"{cfg.name}, one warm prefill (B={B}, S={S})", card)
+    out["launches"][cfg.name] = leg["launches"]
+    out["dbrx"] = dict(C_prefill=c_pre, C_decode=c_dec, agree=share,
+                       rows_alike=rows_same)
+    del params, prompts, leg, logits, plain, pinned, routes, plain_routes, \
+        pairs
+    torch.cuda.empty_cache()
+    out["flash_shapes"]["dbrx-132b prefill"] = time_flash(
+        dev, card, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        cfg.window, "dbrx-132b's prefill shape")
+    torch.cuda.empty_cache()
+
+    # ---- (c) rwkv6-1.6b, whole: no attention, no kernel -------------------
+    cfg = rwkv6_1_6b.FULL
+    leg = _serve_leg(cfg, dev, card)
+    params, prompts = leg["params"], leg["prompts"]
+    cut = S - 16
+    for act in ("bfloat16", "float32"):
+        acfg = dataclasses.replace(cfg, activation_dtype=act)
+        with torch.no_grad():
+            want, _ = transformer.prefill(acfg, params, prompts)
+            _, cache = transformer.prefill(
+                acfg, params, {"tokens": prompts["tokens"][:, :cut]},
+                max_len=S)
+            for t in range(cut, S):
+                got, cache = transformer.decode_step(
+                    acfg, params, cache, prompts["tokens"][:, t: t + 1])
+        for name, t in (("prefill", want), ("decode", got)):
+            _check_logits(f"{cfg.name} {act} {name}", t, B, cfg.vocab_size)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"arch {cfg.name}: at {act} activations, a {cut}-token "
+              f"prefill and {S - cut} teacher-forced decode steps against a "
+              f"{S}-token prefill: last logits max abs diff {err:.4e}, "
+              f"max|prefill| {scale:.4e} (tolerance {RWKV_TOL[act]} x "
+              f"max|prefill|), argmax agreement "
+              f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.2f}"
+              f"  [{card}]")
+        if not err <= RWKV_TOL[act] * scale:
+            raise AssertionError(f"{cfg.name}: prefill then decode "
+                                 f"disagrees with the longer prefill at "
+                                 f"{act} activations")
+        del cache
+
+    def short_prefill():
+        with torch.no_grad():
+            transformer.prefill(cfg, params,
+                                {"tokens": prompts["tokens"][:, :1024]})
+
+    profile_window(short_prefill, f"{cfg.name}, one warm 1024-token prefill "
+                   f"(B={B}; 64 chunks x {cfg.num_layers} layers of the WKV "
+                   f"loop)", card)
+    out["launches"][cfg.name] = leg["launches"]
+    del params, prompts, leg
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"arch path: phase 11 took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2696,11 +3066,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     swept_lm = lm_sweep_path(dev, card)
     reverse = time_reverse_scan(dev, card)
-    # the flash row is the serving path's (bf16) kernel
+
+    # ---- 11. the other architectures: dense, MoE, RWKV6 -------------------
+    torch.cuda.empty_cache()
+    arched = arch_path(dev, card)
+    lm["flash_attention"]["max_abs_err"] = max(
+        [lm["flash_attention"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in arched["flash_shapes"].values()])
+    # the flash row is the serving path's (bf16) kernel; its
+    # launches_by_path adds phase 11's requests, by_shape its prefill shapes
     lm_rows = [dict(
         name=name, route="cuda",
         source=f"src/repro_torch/kernels/{pkg}/csrc/{src}.cu",
         replaces=replaces, launches=lm_launches[name], **lm[name],
+        **({"launches_by_path": {"serve": lm_launches[name],
+                                 **arched["launches"]},
+            "by_shape": arched["flash_shapes"]}
+           if name == "flash_attention" else {}),
         **({"launches_by_path": {
             "serve": lm_launches[name],
             **{f"train_rank{r}": n

@@ -16,14 +16,18 @@ from repro_torch.optim.api import tree_leaves, tree_unflatten
 def grads_of(cfg: ModelConfig, params, batch, plain_recurrence: bool = False):
     """(grads shaped like ``params``, metrics) of ``forward_train``'s total
     loss; the parameters are used through aliases that require grad, so
-    the caller's tensors are left as they are."""
+    the caller's tensors are left as they are.  A parameter the loss does
+    not reach (the token embedding of a model fed embeddings) gets a zero
+    gradient, as under ``jax.grad``."""
     flat = tree_leaves(params)
     live = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
         total, metrics = transformer.forward_train(
             cfg, tree_unflatten(params, live), batch, plain_recurrence)
-        grads = torch.autograd.grad(total, live)
-    return (tree_unflatten(params, list(grads)),
+        grads = torch.autograd.grad(total, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(live, grads, strict=True)]
+    return (tree_unflatten(params, grads),
             {k: v.detach() for k, v in metrics.items()})
 
 

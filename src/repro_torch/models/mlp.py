@@ -1,5 +1,14 @@
-"""Feed-forward layers: the dense SwiGLU / GELU MLPs of the JAX package's
-``models/mlp.py``.  Its capacity-based top-k MoE is not ported yet."""
+"""Feed-forward layers: SwiGLU / GELU MLPs and capacity-based top-k MoE
+(the JAX package's ``models/mlp.py``).
+
+The MoE dispatches tokens by scatter (GShard-style, static capacity):
+each kept (token, expert) assignment is written into an (E, C, D) buffer,
+the experts run as three batched products, and the results are gathered
+back with the combine weights.  Routing follows the reference exactly:
+the router in float32, top-k with ties to the lower expert index, the
+position inside an expert a cumulative sum over the flattened (token, k)
+order, assignments past the capacity dropped.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -12,15 +21,15 @@ from repro_torch.models.common import dense_init, split_keys
 
 Tensor = torch.Tensor
 
-_MOE = ("mixture-of-experts FFNs are not ported yet (ROADMAP A9: dbrx-132b "
-        "and arctic-480b come after the dense architectures)")
-
 
 def gelu(x: Tensor) -> Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
 
 
+# ---------------------------------------------------------------------------
+# dense MLPs
+# ---------------------------------------------------------------------------
 def init_mlp_params(key, cfg: ModelConfig, dtype,
                     d_ff: Optional[int] = None, device=None):
     """Three keys from ``key``, used in the reference's order, on
@@ -45,15 +54,110 @@ def mlp(p, cfg: ModelConfig, x: Tensor) -> Tensor:
     return gelu(x @ p["w_up"]) @ p["w_down"]
 
 
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def init_moe_params(key, cfg: ModelConfig, dtype, device=None):
+    """Five keys from ``key`` in the reference's order: router (float32),
+    the three expert weights (E, d, f) / (E, f, d), and the dense residual
+    MLP when ``cfg.moe_dense_ff`` (arctic)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    ks = split_keys(key, 5)
+    p = {
+        "router": dense_init(ks[0], (d, e), torch.float32, device=device),
+        "w_gate": dense_init(ks[1], (e, d, f), dtype, device=device),
+        "w_up": dense_init(ks[2], (e, d, f), dtype, device=device),
+        "w_down": dense_init(ks[3], (e, f, d), dtype, device=device),
+    }
+    if cfg.moe_dense_ff:
+        p["dense"] = init_mlp_params(ks[4], cfg, dtype,
+                                     d_ff=cfg.moe_dense_ff, device=device)
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: the reference's
+    ``max(int(capacity_factor * T * K / E), 1)`` in Python float
+    arithmetic.  A decode step has T = batch, so C is small there and the
+    reference drops most assignments; so does the port."""
+    return max(int(cfg.capacity_factor * tokens * cfg.experts_per_token
+                   / cfg.num_experts), 1)
+
+
+def route(p, cfg: ModelConfig, xf: Tensor
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """xf: (T, D) -> (probs (T, E), gate_w (T, K), gate_idx (T, K)).
+
+    The router runs in float32 (the reference promotes the activation-
+    dtype router weight to float32 there).  ``jax.lax.top_k`` takes the K
+    largest with ties to the lower index; a stable descending sort does
+    the same, where ``torch.topk`` promises no order for ties."""
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    gate_idx = order[:, : cfg.experts_per_token]
+    return probs, torch.gather(probs, -1, gate_idx), gate_idx
+
+
+def slots(gate_idx: Tensor, num_experts: int, cap: int
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The flattened (token, k) assignments -> (expert ids, slot in the
+    expert clipped to [0, cap), keep mask): an assignment's position is
+    the count of earlier assignments to its expert in (token, k) order,
+    and those at or past ``cap`` are dropped."""
+    eids = gate_idx.reshape(-1)
+    onehot = F.one_hot(eids, num_experts)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    keep = (pos < cap) & (pos >= 0)
+    return eids, torch.clamp(pos, 0, cap - 1), keep
+
+
+def moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """x: (B, S, D) -> ((B, S, D), aux_loss).  Top-k routing, static
+    capacity, scatter dispatch; optional parallel dense residual branch
+    (arctic).  The Switch-style load-balance loss shares the routing
+    decision."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, D)
+
+    probs, gate_w, gate_idx = route(p, cfg, xf)
+    frac = torch.mean(F.one_hot(gate_idx, E).float(), dim=(0, 1))
+    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    gate_w = gate_w / (torch.sum(gate_w, dim=-1, keepdim=True) + 1e-9)
+
+    C = capacity(cfg, T)
+    eids, slot, keep = slots(gate_idx, E, C)
+    # kept (expert, slot) pairs are unique, so writing the kept rows is the
+    # reference's scatter-add into zeros; dropped rows go to a spare row
+    # past the buffer, which is cut off
+    flat = torch.where(keep, eids * C + slot, E * C)
+    tok_rep = torch.repeat_interleave(xf, K, dim=0)
+    buf = x.new_zeros((E * C + 1, D)).index_copy(0, flat, tok_rep)
+    buf = buf[: E * C].view(E, C, D)
+
+    # batched expert FFN: (E, C, D) x (E, D, F)
+    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    out_buf = torch.bmm(h, p["w_down"]).reshape(E * C, D)
+
+    # gather back and combine
+    out_tok = out_buf[eids * C + slot] * keep[:, None].to(x.dtype)
+    out = (out_tok.reshape(T, K, D) * gate_w[..., None].to(x.dtype)).sum(1)
+    if cfg.moe_dense_ff:
+        out = out + mlp(p["dense"], cfg, xf)
+    return out.reshape(B, S, D), aux
+
+
 def ffn(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     """Returns (out, moe_aux_loss); aux is 0 for dense FFNs."""
     if cfg.is_moe:
-        raise NotImplementedError(_MOE)
+        return moe(p, cfg, x)
     return mlp(p, cfg, x), torch.zeros((), dtype=torch.float32,
                                        device=x.device)
 
 
 def init_ffn_params(key, cfg: ModelConfig, dtype, device=None):
     if cfg.is_moe:
-        raise NotImplementedError(_MOE)
+        return init_moe_params(key, cfg, dtype, device=device)
     return init_mlp_params(key, cfg, dtype, device=device)

@@ -1,6 +1,7 @@
-"""The decoder-only model of the JAX package's ``models/transformer.py``, for
-the ``attn`` and ``rec`` sub-layer kinds (dense GQA attention and RG-LRU
-hybrids such as recurrentgemma-2b).
+"""The decoder-only model of the JAX package's ``models/transformer.py``,
+for every sub-layer kind: dense GQA attention (qk-norm / QKV-bias /
+sliding-window variants) with a dense or MoE FFN, RG-LRU hybrids such as
+recurrentgemma-2b, and RWKV-6.
 
 Layers are grouped into repeating *pattern blocks* (``cfg.block_pattern``)
 plus a tail.  Parameters are a dict laid out as the reference's, except
@@ -31,6 +32,7 @@ from repro_torch.core import prng
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (cast_floats, dense_init, dtype_of,
                                       rms_norm, split_keys)
 from repro_torch.models.loss import chunked_xent
@@ -38,13 +40,12 @@ from repro_torch.models.loss import chunked_xent
 Tensor = torch.Tensor
 PyTree = Any
 
-KINDS = ("attn", "rec")
+KINDS = ("attn", "rec", "rwkv")
 
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"sub-layer kind {kind!r} is not ported yet (ROADMAP A9); the port "
-        f"serves {KINDS}")
+def _unknown(kind: str) -> ValueError:
+    return ValueError(f"unknown sub-layer kind {kind!r}; the kinds are "
+                      f"{KINDS}")
 
 
 def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -67,7 +68,8 @@ def block_layout(cfg: ModelConfig
 # ---------------------------------------------------------------------------
 def _init_sublayer(key, cfg: ModelConfig, kind: str, dtype, device
                    ) -> Dict:
-    """``k1, k2 = split(key)``: the mixer from k1, the FFN from k2."""
+    """``k1, k2 = split(key)``: the mixer from k1, the FFN from k2 (an
+    ``rwkv`` sub-layer has its channel mix inside ``mix`` and no FFN)."""
     k1, k2 = split_keys(key, 2)
     p: Dict[str, Any] = {"ln1": torch.zeros((cfg.d_model,), dtype=dtype,
                                             device=device)}
@@ -75,10 +77,13 @@ def _init_sublayer(key, cfg: ModelConfig, kind: str, dtype, device
         p["mix"] = attn_mod.init_attn_params(k1, cfg, dtype, device)
     elif kind == "rec":
         p["mix"] = rglru_mod.init_rglru_params(k1, cfg, dtype, device)
+    elif kind == "rwkv":
+        p["mix"] = rwkv_mod.init_rwkv_params(k1, cfg, dtype, device)
     else:
-        raise _unported(kind)
+        raise _unknown(kind)
     p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    p["ffn"] = mlp_mod.init_ffn_params(k2, cfg, dtype, device=device)
+    if kind != "rwkv":
+        p["ffn"] = mlp_mod.init_ffn_params(k2, cfg, dtype, device=device)
     return p
 
 
@@ -184,8 +189,13 @@ def _sublayer_train(p, cfg: ModelConfig, kind: str, x: Tensor,
         x = x + attn_mod.attend(p["mix"], cfg, h, positions)
     elif kind == "rec":
         x = x + rglru_mod.rglru_block(p["mix"], cfg, h, plain_recurrence)
+    elif kind == "rwkv":
+        x = x + rwkv_mod.time_mix(p["mix"], cfg, h)
+        h2 = rms_norm(x, p["ln2"])
+        x = x + rwkv_mod.channel_mix(p["mix"], cfg, h2)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        raise _unported(kind)
+        raise _unknown(kind)
     h2 = rms_norm(x, p["ln2"])
     out, aux = mlp_mod.ffn(p["ffn"], cfg, h2)
     return x + out, aux
@@ -270,7 +280,10 @@ def _init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
     if kind == "rec":
         return rglru_mod.init_rglru_cache(cfg, batch, dtype=dtype,
                                           device=device)
-    raise _unported(kind)
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_cache(cfg, batch, dtype=dtype,
+                                        device=device)
+    raise _unknown(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -301,8 +314,14 @@ def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
         o, cache = attn_mod.decode_attention(p["mix"], cfg, h, pos, cache)
     elif kind == "rec":
         o, cache = rglru_mod.rglru_decode(p["mix"], cfg, h, cache)
+    elif kind == "rwkv":
+        o, cache = rwkv_mod.time_mix_decode(p["mix"], cfg, h, cache)
+        x = x + o
+        h2 = rms_norm(x, p["ln2"])
+        o, cache = rwkv_mod.channel_mix_decode(p["mix"], cfg, h2, cache)
+        return x + o, cache
     else:
-        raise _unported(kind)
+        raise _unknown(kind)
     x = x + o
     h2 = rms_norm(x, p["ln2"])
     x = x + mlp_mod.ffn(p["ffn"], cfg, h2)[0]
@@ -379,11 +398,30 @@ def _sublayer_prefill(p, cfg: ModelConfig, kind: str, x: Tensor,
         cache = {"h": hseq[:, -1].clone(),
                  "conv": padded[:, padded.shape[1] - (cw - 1):].clone()}
         x = x + ((hseq.to(x.dtype) * gate) @ pm["w_out"])
+    elif kind == "rwkv":
+        return _rwkv_prefill(p, cfg, x)
     else:
-        raise _unported(kind)
+        raise _unknown(kind)
     h2 = rms_norm(x, p["ln2"])
     x = x + mlp_mod.ffn(p["ffn"], cfg, h2)[0]
     return x, cache
+
+
+def _rwkv_prefill(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, PyTree]:
+    """Run the rwkv sub-layer over the prompt, returning the terminal
+    state: the WKV state (float32) and the last position's two token-shift
+    inputs, in the activation dtype as the reference keeps them."""
+    h = rms_norm(x, p["ln1"])
+    pm = p["mix"]
+    # the reference's _wkv_chunked_with_state, which raises here (a
+    # ValueError) unless the prompt is a multiple of rwkv6.CHUNK long
+    o, state = rwkv_mod.time_mix_with_state(pm, cfg, h)
+    x = x + o
+    h2 = rms_norm(x, p["ln2"])
+    x = x + rwkv_mod.channel_mix(pm, cfg, h2)
+    # clones, so the cache does not hold the whole sequence alive
+    return x, {"wkv": state, "tm_prev": h[:, -1].clone(),
+               "cm_prev": h2[:, -1].clone()}
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor],

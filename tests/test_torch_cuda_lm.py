@@ -2,11 +2,12 @@
 RG-LRU scan kernels against their plain versions over the shape and dtype
 grid chip_smoke.py runs, the wrappers' checks, ``launch/serve.generate``
 on the card against its CPU run with the launch counts of prefill and
-decode, and the training path: the scan's reverse-time launch against the
-plain backward recurrence, gradients through the kernel (forward and
-reverse launches) against autograd through the plain scan, and one
-training step of one replica.  Every test here needs an NVIDIA GPU and
-skips without one; the file imports no JAX:
+decode (recurrentgemma, MoE, RWKV6, and a head dim of 80 on the
+tensor-core kernel), and the training path: the scan's reverse-time
+launch against the plain backward recurrence, gradients through the
+kernel (forward and reverse launches) against autograd through the
+plain scan, and one training step of one replica.  Every test here
+needs an NVIDIA GPU and skips without one; the file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_lm.py
 """
@@ -18,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import recurrentgemma_2b  # noqa: E402
+from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -260,6 +262,55 @@ def test_bf16_prefill_takes_the_tensor_core_route(cuda_device):
     assert rg.LAUNCHES_BY_ROUTE == {"tma": n_rec, "cp_async": 0}
     assert fa.LAUNCHES == n_attn
     assert bool(((got >= 0) & (got < cfg.vocab_size)).all())
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b", "rwkv6-1.6b"])
+def test_moe_and_rwkv_generate_on_the_card_match_the_cpu(arch, cuda_device):
+    """MoE (dbrx, arctic) and RWKV6 SMOKE at float32 activations with
+    attention_impl "flash": prefill logits on the card against the CPU
+    run, greedy tokens equal; the prefill launches the flash kernel once
+    per attention layer (none for RWKV6), decode launches nothing."""
+    cfg = dataclasses.replace(ARCHS[arch].SMOKE, activation_dtype="float32",
+                              attention_impl="flash")
+    params = transformer.init_params(cfg, prng.PRNGKey(0), device="cpu")
+    on_card = _to(params, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    got, _ = serve.generate(cfg, on_card, {"tokens": toks}, 8,
+                            device=cuda_device)
+    assert (fa.LAUNCHES, rg.LAUNCHES) == (n_attn, 0)
+    want, _ = serve.generate(cfg, params, {"tokens": toks}, 8, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    dl, _ = transformer.prefill(cfg, on_card, {"tokens": toks.to(
+        cuda_device)})
+    cl, _ = transformer.prefill(cfg, params, {"tokens": toks})
+    torch.testing.assert_close(dl.cpu(), cl, rtol=1e-4, atol=1e-4)
+
+
+def test_head_dim_80_prefill_takes_the_tensor_core_route(cuda_device):
+    """h2o-danube SMOKE widened to two heads of 80 (GQA 2/1, window 16) at
+    its bf16 activations: every prefill attention layer goes through the
+    tensor-core kernel's 128-wide panel, and the last-position logits
+    match the plain chunked route within 5% of their largest magnitude
+    (chip_smoke.py's LM_TOL)."""
+    cfg = dataclasses.replace(ARCHS["h2o-danube-1.8b"].SMOKE, d_model=160,
+                              num_heads=2, num_kv_heads=1, head_dim=80,
+                              attention_impl="flash")
+    params = transformer.init_params(cfg, prng.PRNGKey(0),
+                                     device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32)).to(cuda_device)
+    fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
+    with torch.no_grad():
+        got, _ = transformer.prefill(cfg, params, {"tokens": toks})
+        want, _ = transformer.prefill(
+            dataclasses.replace(cfg, attention_impl="xla_chunked"), params,
+            {"tokens": toks})
+    assert fa.LAUNCHES_BY_ROUTE == {"wgmma": cfg.num_layers, "f32": 0}
+    err = float((got - want).abs().max())
+    assert err <= 5e-2 * float(want.abs().max()), err
 
 
 def _to(tree, device):

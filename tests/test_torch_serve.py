@@ -237,13 +237,26 @@ def test_init_params_has_the_reference_layout_and_count(params):
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttr.init_params(dataclasses.replace(tconfigs.SMOKE, is_rwkv=True),
-                        0, device="cpu")
+    """The kinds once refused here (RWKV6 and MoE FFNs, ROADMAP A9.3 and
+    A9.4) now run: recurrentgemma SMOKE made attention-free RWKV, and
+    with 4 experts of top 2, inits and generates in range; only an
+    unknown sub-layer kind raises."""
     moe = dataclasses.replace(tconfigs.SMOKE, num_experts=4,
                               experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttr.init_params(moe, 0, device="cpu")
+    rwkv = dataclasses.replace(tconfigs.SMOKE, is_rwkv=True)
+    for cfg in (rwkv, moe):
+        params = ttr.init_params(cfg, 0, device="cpu")
+        out, _ = tserve.generate(cfg, params,
+                                 {"tokens": torch.from_numpy(_tokens(2, 16))},
+                                 3, device="cpu")
+        assert out.shape == (2, 3)
+        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        assert ("ffn" in params["blocks"][0]["sub0"]) == cfg.is_moe
+    assert ttr.block_layout(rwkv)[0] == ("rwkv",)
+    with pytest.raises(ValueError, match="unknown sub-layer kind"):
+        ttr.init_cache(dataclasses.replace(tconfigs.SMOKE,
+                                           block_pattern=("conv",)),
+                       1, 8, device="cpu")
 
 
 def test_entry_points_default_to_the_card(capsys):

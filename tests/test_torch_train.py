@@ -267,8 +267,19 @@ def test_flash_attention_refuses_autograd():
 
 
 def test_unported_kinds_name_the_roadmap():
-    cfg = dataclasses.replace(ModelConfig(**TINY), is_rwkv=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tt._sublayer_train({"ln1": torch.zeros(32), "mix": {}}, cfg, "rwkv",
-                           torch.zeros((1, 4, 32)),
-                           torch.zeros((1, 4), dtype=torch.int32))
+    """The rwkv kind, once refused here naming ROADMAP A9, now trains: its
+    sub-layer runs forward and backward with a finite output and no MoE
+    aux; only an unknown kind raises."""
+    cfg = dataclasses.replace(ModelConfig(**TINY), is_rwkv=True,
+                              rwkv_head_dim=8)
+    p = tt._init_sublayer(tt.prng.PRNGKey(0), cfg, "rwkv", torch.float32,
+                          "cpu")
+    x = torch.randn((1, 16, 32), requires_grad=True)
+    pos = torch.zeros((1, 16), dtype=torch.int32)
+    out, aux = tt._sublayer_train(p, cfg, "rwkv", x, pos)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert float(aux) == 0.0
+    (g,) = torch.autograd.grad(out.sum(), [x])
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    with pytest.raises(ValueError, match="unknown sub-layer kind"):
+        tt._sublayer_train(p, cfg, "conv", x, pos)
