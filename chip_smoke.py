@@ -228,6 +228,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      torch.profiler (a 1024-token one for rwkv6).  The flash kernel is
      timed at (a)'s and (b)'s prefill shapes beside its plain version,
      its bound and one SDPA call.  Prints the phase's seconds.
+ 12. tensor parallelism inside a replica through launch/steps.py::
+     build_cell, gloo ranks sharing the card (one card holds one NCCL
+     rank): (a) recurrentgemma-2b FULL (26 layers, attention_impl=
+     "flash") on (data, model) = (1, 2), two ranks: phase 7's PRNGKey(0)
+     weights drawn whole on each rank and cut to its shards, build_cell's
+     prefill at batch 4 x 4096 (phase 7's prompts) then 16 greedy decode
+     steps.  The counts are zeroed before the prefill: each rank must
+     launch flash 8 times at its local (B 4, S 4096, H 5, KV 1, d 256) and
+     the scan 18 times at (4, 4096, 1280), and nothing in decode; the
+     gathered last-position logits within LM_TOL of phase 7's (passed
+     through build/tp_smoke/) and equal on both ranks; the share of greedy
+     tokens agreeing with phase 7's is printed, with prefill seconds,
+     decode tokens/s, collective seconds by axis and peak memory per
+     rank.  (b) phase 9's model (full width, one (rec, rec, attn) block),
+     AdamW (get_optimizer), on (data, model) = (2, 2), four ranks, global
+     batch 4 x 2048 from PRNGKey(1), two steps: the loss of step 1 within
+     TP_LOSS_RTOL and every rank's parameter shards after it within
+     TP_PARAM_TOL of the port's single-rank make_train_step (run first in
+     this process), scan launches the code's count at (2, 2048, 1280);
+     step seconds, collective seconds by axis and peak per rank.  (c)
+     flash at (4, 4096, 5, 1, 256, window 2048) and the scan at (4, 4096,
+     1280), the TP local shapes, timed as in phase 8.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -241,11 +263,14 @@ kill-and-resume, elastic and fleet legs, 3f's mesh run per rank -- and
 launches_by_path gives the serving path's and phase 11's requests, and
 its by_shape phase 11's prefill shapes; the rglru_scan row's
 launches_by_path gives the serving path's and, per rank, phase 9's, 10b's
-and 10's) and, last, the device line.  Needs
+and 10's; both add phase 12's per rank, "tp_by_shape" phase 12(a)'s local
+shapes and "tp_local_shape" phase 12(c)'s timing) and, last, the device
+line.  Needs
 one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -1649,8 +1674,10 @@ def init_on_card(fn):
                  "peak": torch.cuda.max_memory_allocated()}
 
 
-def serve_path(dev, card: str) -> dict:
-    """Phase 7: recurrentgemma-2b at full width through generate."""
+def serve_path(dev, card: str, phase7_file: Path) -> dict:
+    """Phase 7: recurrentgemma-2b at full width through generate; its
+    kernel route's last-position logits and the request's tokens go to
+    ``phase7_file`` for phase 12(a)."""
     import dataclasses
     import torch
     from repro_torch.configs import recurrentgemma_2b
@@ -1739,6 +1766,8 @@ def serve_path(dev, card: str) -> dict:
                 not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} logits {tuple(t.shape)} not "
                                  f"finite or of the wrong shape")
+    phase7_file.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"logits": logits.cpu(), "tokens": toks.cpu()}, phase7_file)
     err = float((logits - plain).abs().max())
     scale = float(plain.abs().max())
     agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
@@ -1862,17 +1891,27 @@ def time_flash(dev, card: str, B: int, S: int, H: int, KV: int, D: int,
 def time_lm_kernels(dev, card: str) -> dict:
     """Phase 8: the two LM kernels at the serving shape, warm, beside their
     plain versions, their bounds and (flash) one SDPA call."""
-    import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rglru import kernel as rg
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
     n0 = (fa.LAUNCHES, rg.LAUNCHES)
     B, S = 4, 4096
     out = {"flash_attention": time_flash(dev, card, B, S, 10, 1, 256, 2048,
                                          "the serving shape")}
+    out["rglru_scan"] = time_scan(dev, card, B, S, 2560, "the serving shape")
+    fa.LAUNCHES, rg.LAUNCHES = n0
+    return out
+
+
+def time_scan(dev, card: str, B: int, S: int, W: int, label: str) -> dict:
+    """The scan kernel warm (CUDA events) at (B, S, W) f32, bit-equal to
+    its plain version, beside the plain version's time and its bound."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    n0 = rg.LAUNCHES
     g = torch.Generator(device=dev).manual_seed(8)
-    W = 2560
     a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g, device=dev)
     b = torch.randn(B, S, W, generator=g, device=dev)
     h0 = torch.zeros(B, W, device=dev)
@@ -1881,8 +1920,8 @@ def time_lm_kernels(dev, card: str) -> dict:
     want = rglru_scan_ref(a, b, h0)
     err = max_err(got, want)
     if not all(torch.equal(x, y) for x, y in zip(got, want)):
-        raise AssertionError("rglru_scan is not bit-equal to its plain "
-                             "version at the serving shape")
+        raise AssertionError(f"rglru_scan is not bit-equal to its plain "
+                             f"version at {label}")
     ms = time_ms(lambda: rg.rglru_scan_kernel(a, b, h0), 20)
     plain_ms = time_plain_ms(lambda: rglru_scan_ref(a, b, h0), 1)
     # the card's practical rate for the scan's traffic: an elementwise
@@ -1896,11 +1935,7 @@ def time_lm_kernels(dev, card: str) -> dict:
     flops = 2 * a.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    out["rglru_scan"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, max_abs_err=err)
-    print(f"rglru_scan at the serving shape (B={B} S={S} W={W} f32, {name} "
+    print(f"rglru_scan at {label} (B={B} S={S} W={W} f32, {name} "
           f"route): kernel {ms:.4f} ms/launch "
           f"({nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
           f"{100 * max(t_ops, t_bytes) / ms:.1f}% of its bound), plain "
@@ -1911,8 +1946,10 @@ def time_lm_kernels(dev, card: str) -> dict:
           f"b, out=) {stream_ms:.4f} ms "
           f"({3 * a.numel() * 4 / (stream_ms * 1e-3) / 1e12:.3f} TB/s)  "
           f"[{card}]")
-    fa.LAUNCHES, rg.LAUNCHES = n0
-    return out
+    rg.LAUNCHES = n0
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, max_abs_err=err)
 
 
 # ---- phase 9: TreeSync LM training, one rank per replica -------------------
@@ -2584,6 +2621,8 @@ def _zero_lm_counts():
     fa.LAUNCHES = rg.LAUNCHES = 0
     fa.LAUNCHES_BY_ROUTE.update(wgmma=0, f32=0)
     rg.LAUNCHES_BY_ROUTE.update(tma=0, cp_async=0)
+    fa.LAUNCHES_BY_SHAPE.clear()
+    rg.LAUNCHES_BY_SHAPE.clear()
 
 
 def _lm_counts() -> dict:
@@ -2867,6 +2906,387 @@ def arch_path(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 12: tensor parallelism inside a replica ----------------------------
+TP_SERVE_MESH = (1, 2)         # (data, model)
+TP_TRAIN_MESH = (2, 2)
+TP_PROMPT, TP_DECODE = 4096, 16
+TP_MAX_LEN = 4096 + 32         # phase 7's cache length (prompt + 32)
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 2048, 2
+TP_SPAWN_TIMEOUT = 600.0
+# the sharded train step against the single-rank step: the reference's own
+# tolerances for its sharded step (tests/test_sharding.py)
+TP_LOSS_RTOL = 1e-3
+TP_PARAM_TOL = dict(rtol=5e-3, atol=1e-3)
+# and what scales with the gradient, which the parameters cannot show
+# (AdamW's first step moves every entry by about lr, inside that atol):
+# each leaf's moments mu = (1 - b1) g and nu = (1 - b2) g^2 and its update
+# p1 - p0, norm-relative (tests/test_torch_tp.py's BF16_NORM_REL and
+# UPDATE_NORM_REL; a halved gradient is 0.5 / 0.75 off in the moments, an
+# update left out 1, a reversed one 2)
+TP_MOMENT_NORM_REL = 0.1
+TP_UPDATE_NORM_REL = 0.5
+
+
+def _tp_mesh(shape):
+    import torch
+    from repro_torch.launch.mesh import RankMesh
+    n = shape[0] * shape[1]
+    return RankMesh(torch.arange(n).reshape(shape), ("data", "model"),
+                    device_type="cuda")
+
+
+def _tp_start(rank: int, world: int, root: str):
+    """Join the gloo group of a phase-12 rank on card 0."""
+    import os
+    from datetime import timedelta
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    from repro_torch.runtime import ranks
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks.init(rank, world, f"file://{root}/pg", backend="gloo",
+               timeout=timedelta(seconds=TP_SPAWN_TIMEOUT))
+    return torch.device("cuda", 0)
+
+
+def _kernel_counts() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    return {name: {"launches": mod.LAUNCHES,
+                   "by_route": dict(mod.LAUNCHES_BY_ROUTE),
+                   "by_shape": {"x".join(map(str, k)): v for k, v in
+                                mod.LAUNCHES_BY_SHAPE.items()}}
+            for name, mod in (("flash_attention", fa), ("rglru_scan", rg))}
+
+
+def _tp_serve_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 12(a), in a spawned process on card 0:
+    recurrentgemma-2b FULL on (data, model) = (1, 2) through build_cell's
+    prefill and decode programs."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import prng
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer
+    dev = _tp_start(rank, world, root)
+    cfg = dataclasses.replace(recurrentgemma_2b.FULL, attention_impl="flash")
+    mesh = _tp_mesh(TP_SERVE_MESH)
+    B = 4
+    pre = build_cell(cfg, ShapeSpec("tp_prefill", TP_MAX_LEN, B, "prefill"),
+                     mesh)
+    dec = build_cell(cfg, ShapeSpec("tp_decode", TP_MAX_LEN, B, "decode"),
+                     mesh)
+    ctx = pre.ctx
+    key = prng.PRNGKey(0)          # phase 7's weights and prompts
+    local, init = init_on_card(lambda: pre.local(
+        0, transformer.init_params(cfg, key, device=dev)))
+    torch.cuda.empty_cache()
+    prompts = {"tokens": prng.randint(key, (B, TP_PROMPT), 0,
+                                      cfg.vocab_size).to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    ctx.reset_timing()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = pre(local, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_counts = _kernel_counts()
+        pre_coll = dict(ctx.seconds)
+        ctx.reset_timing()
+        toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+        t0 = time.perf_counter()
+        for _ in range(TP_DECODE):
+            nxt, cache = dec(local, cache, toks[-1])
+            toks.append(nxt)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    stats = {"init": init, "prefill_s": prefill_s, "decode_s": decode_s,
+             "prefill_counts": pre_counts, "counts": _kernel_counts(),
+             "prefill_coll": pre_coll, "decode_coll": dict(ctx.seconds),
+             "decode_calls": dict(ctx.calls),
+             "peak": torch.cuda.max_memory_allocated(),
+             "logits": logits.cpu(), "tokens": torch.cat(toks, 1).cpu(),
+             "finite": bool(torch.isfinite(logits).all())}
+    torch.save(stats, f"{root}/serve{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _tp_train_batch(cfg, dev):
+    """Phase 12(b)'s global batch: next-token pairs drawn from PRNGKey(1)."""
+    from repro_torch.core import prng
+    seq = prng.randint(prng.PRNGKey(1), (TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1),
+                       0, cfg.vocab_size).to(dev)
+    return {"tokens": seq[:, :-1].contiguous(),
+            "labels": seq[:, 1:].contiguous()}
+
+
+def _tp_train_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 12(b), in a spawned process on card 0: phase 9's
+    model on (data, model) = (2, 2) through build_cell's train program,
+    two steps on the same global batch; saves its parameter and optimizer
+    state shards after step 1 for the parent to hold against the
+    single-rank step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import prng
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer
+    from repro_torch.optim import get_optimizer
+    from repro_torch.optim.api import tree_leaves
+    dev = _tp_start(rank, world, root)
+    cfg = _train_cfg()
+    opt = get_optimizer(cfg)
+    mesh = _tp_mesh(TP_TRAIN_MESH)
+    cell = build_cell(cfg, ShapeSpec("tp_train", TP_TRAIN_SEQ,
+                                     TP_TRAIN_BATCH, "train"), mesh,
+                      optimizer=opt)
+    ctx = cell.ctx
+    params, init = init_on_card(lambda: cell.local(
+        0, transformer.stack_blocks(transformer.init_params(
+            cfg, prng.PRNGKey(0), device=dev))))
+    torch.cuda.empty_cache()
+    # AdamW's state is zeros shaped like each shard: its init on the shards
+    # is the cut of its init on the whole
+    state = opt.init(params)
+    want = cell.local(1, cell.arg_shapes[1])
+    for a, b in zip(tree_leaves(state), tree_leaves(want), strict=True):
+        if tuple(a.shape) != tuple(b.shape):
+            raise AssertionError(f"optimizer state shard {tuple(a.shape)}, "
+                                 f"the spec cuts {tuple(b.shape)}")
+    batch = cell.local(2, _tp_train_batch(cfg, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    hist = []
+    for step in range(TP_TRAIN_STEPS):
+        ctx.reset_timing()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = cell(params, state, batch)
+        torch.cuda.synchronize()
+        hist.append({"sec": time.perf_counter() - t0,
+                     "loss": float(m["loss"]), "coll": dict(ctx.seconds),
+                     "calls": dict(ctx.calls)})
+        if step == 0:
+            torch.save({"params": params, "opt": state,
+                        "coords": ctx.coords}, f"{root}/params{rank}.pt")
+    stats = {"init": init, "history": hist, "counts": _kernel_counts(),
+             "peak": torch.cuda.max_memory_allocated(),
+             "specs": cell.in_shardings[0],
+             "ospecs": cell.in_shardings[1]}
+    torch.save(stats, f"{root}/train{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tp_path(dev, card: str, phase7_file: Path) -> dict:
+    """Phase 12: (a) the serving cell and (b) the train cell, gloo ranks
+    sharing the card; (c) the kernels timed at the TP local shapes."""
+    import shutil
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import get_optimizer
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.runtime import ranks
+    t_phase = time.perf_counter()
+    root = phase7_file.parent
+    out = {"launches": {}}
+
+    # ---- (a) serving: recurrentgemma-2b FULL on (1, 2) -----------------
+    for f in root.glob("*.pt"):
+        if f != phase7_file:
+            f.unlink()
+    n_ranks = TP_SERVE_MESH[0] * TP_SERVE_MESH[1]
+    ranks.spawn(_tp_serve_rank, n_ranks, args=(n_ranks, str(root)),
+                timeout=TP_SPAWN_TIMEOUT)
+    ref = torch.load(phase7_file, weights_only=False)
+    st = [torch.load(root / f"serve{r}.pt", weights_only=False)
+          for r in range(n_ranks)]
+    from repro_torch.configs import recurrentgemma_2b
+    cfg = recurrentgemma_2b.FULL
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
+    B = 4
+    want_shapes = {
+        "flash_attention": {f"{B}x{TP_PROMPT}x{TP_PROMPT}x"
+                            f"{cfg.num_heads // 2}x{cfg.num_kv_heads}x"
+                            f"{cfg.head_dim}": n_attn},
+        "rglru_scan": {f"{B}x{TP_PROMPT}x{cfg.lru_width // 2}": n_rec}}
+    for r, s in enumerate(st):
+        for name, n in (("flash_attention", n_attn), ("rglru_scan", n_rec)):
+            c = s["prefill_counts"][name]
+            if c["launches"] != n or c["by_shape"] != want_shapes[name]:
+                raise AssertionError(f"rank {r}'s prefill launched {name} "
+                                     f"{c}, the model's local shapes are "
+                                     f"{want_shapes[name]}")
+            if s["counts"][name]["launches"] != n:
+                raise AssertionError(f"rank {r}'s decode launched {name}")
+        if not s["finite"] or tuple(s["logits"].shape) != (B, cfg.vocab_size):
+            raise AssertionError(f"rank {r}'s logits "
+                                 f"{tuple(s['logits'].shape)} not finite")
+        out["launches"][f"tp_serve_rank{r}"] = {
+            k: s["counts"][k]["launches"] for k in s["counts"]}
+    if not torch.equal(st[0]["logits"], st[1]["logits"]):
+        raise AssertionError("the two ranks' gathered logits differ")
+    err = float((st[0]["logits"] - ref["logits"]).abs().max())
+    scale = float(ref["logits"].abs().max())
+    n_tok = TP_DECODE + 1
+    agree = float((st[0]["tokens"] == ref["tokens"][:, :n_tok]).float()
+                  .mean())
+    print(f"tp serve (phase 12a): {cfg.name} FULL on (data, model) = "
+          f"{TP_SERVE_MESH}, batch {B} x {TP_PROMPT}, {TP_DECODE} decode "
+          f"steps, two gloo ranks sharing the card; last-position logits "
+          f"vs phase 7's single-rank kernel route: max abs diff "
+          f"{err:.4e}, {100 * err / scale:.2f}% of max|phase 7| {scale:.4e}"
+          f" (tolerance {LM_TOL} x max); greedy tokens agreeing with phase "
+          f"7's {100 * agree:.1f}% of {B} x {n_tok}  [{card}]")
+    if not err <= LM_TOL * scale:
+        raise AssertionError("the sharded prefill's logits disagree with "
+                             "phase 7's")
+    for r, s in enumerate(st):
+        c = s["prefill_counts"]
+        print(f"tp serve rank {r}: prefill {s['prefill_s']:.4f} s "
+              f"(collectives {s['prefill_coll']} s), decode "
+              f"{s['decode_s']:.4f} s = "
+              f"{B * TP_DECODE / s['decode_s']:.2f} tokens/s (collectives "
+              f"{s['decode_coll']} s in {s['decode_calls']} calls); launches "
+              f"in prefill: flash {c['flash_attention']['launches']} "
+              f"{c['flash_attention']['by_route']} at "
+              f"{c['flash_attention']['by_shape']}, scan "
+              f"{c['rglru_scan']['launches']} {c['rglru_scan']['by_route']} "
+              f"at {c['rglru_scan']['by_shape']}, none in decode; init "
+              f"{s['init']['s']:.3f} s (peak {s['init']['peak'] / 2**30:.3f}"
+              f" GiB), peak after it {s['peak'] / 2**30:.3f} GiB  [{card}]")
+    out["serve"] = {"err_share": err / scale, "agree": agree,
+                    "by_shape": {k: st[0]["prefill_counts"][k]["by_shape"]
+                                 for k in want_shapes}}
+
+    # ---- (b) training: phase 9's model on (2, 2) -----------------------
+    tcfg = _train_cfg()
+    opt = get_optimizer(tcfg)
+    params = transformer.stack_blocks(transformer.init_params(
+        tcfg, prng.PRNGKey(0), device=dev))
+    batch = _tp_train_batch(tcfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_ref, o_ref, m_ref = make_train_step(tcfg, opt)(
+        params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_loss = float(m_ref["loss"])
+    del batch, m_ref
+    torch.cuda.empty_cache()
+    n_ranks = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    ranks.spawn(_tp_train_rank, n_ranks, args=(n_ranks, str(root)),
+                timeout=TP_SPAWN_TIMEOUT)
+
+    def norm_rel(a, b) -> float:
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / max(float(torch.linalg.vector_norm(b.double())),
+                           1e-30))
+
+    worst = 0.0
+    worst_moment, worst_update = (0.0, ""), (0.0, "")
+    want = expected_scan_launches(tcfg, TP_TRAIN_STEPS)
+    # one reverse-time launch per recurrent layer a step
+    rev = TP_TRAIN_STEPS * sum(k == "rec" for k in tcfg.layer_kinds())
+    for r in range(n_ranks):
+        s = torch.load(root / f"train{r}.pt", weights_only=False)
+        got = torch.load(root / f"params{r}.pt", weights_only=False,
+                         map_location=dev)
+        cut = functools.partial(sh.shard_tree, mesh=_tp_mesh(TP_TRAIN_MESH),
+                                coords=got["coords"])
+        mine, before = cut(p_ref, s["specs"]), cut(params, s["specs"])
+        for (path, a), b, z in zip(sh.flat_with_path(got["params"]),
+                                   tree_leaves(mine), tree_leaves(before),
+                                   strict=True):
+            excess = float(((a.float() - b.float()).abs()
+                            - TP_PARAM_TOL["rtol"] * b.float().abs()).max())
+            worst = max(worst, excess)
+            if excess > TP_PARAM_TOL["atol"]:
+                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
+                                     f"step 1 is off the single-rank step")
+            upd = norm_rel(a.float() - z.float(), b.float() - z.float())
+            worst_update = max(worst_update, (upd, sh.path_str(path)))
+            if not upd < TP_UPDATE_NORM_REL:
+                raise AssertionError(f"rank {r}'s update of "
+                                     f"{sh.path_str(path)} is {upd:.4f} "
+                                     f"off the single-rank step's")
+        n_moments = 0
+        for (path, a), b in zip(sh.flat_with_path(got["opt"]),
+                                tree_leaves(cut(o_ref, s["ospecs"])),
+                                strict=True):
+            if path[0] not in ("mu", "nu"):
+                continue
+            n_moments += 1
+            off = norm_rel(a, b)
+            worst_moment = max(worst_moment, (off, sh.path_str(path)))
+            if not off < TP_MOMENT_NORM_REL:
+                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
+                                     f"step 1 is {off:.4f} off the "
+                                     f"single-rank step's")
+        if n_moments != 2 * len(tree_leaves(mine)):
+            raise AssertionError(f"rank {r}'s optimizer state holds "
+                                 f"{n_moments} moments")
+        del got, mine, before
+        h = s["history"]
+        if abs(h[0]["loss"] - ref_loss) > TP_LOSS_RTOL * abs(ref_loss) or \
+                not all(math.isfinite(x["loss"]) for x in h):
+            raise AssertionError(f"rank {r}'s losses {[x['loss'] for x in h]}"
+                                 f" against the single-rank {ref_loss}")
+        c = s["counts"]["rglru_scan"]
+        if c["launches"] != want or c["by_shape"] != {
+                f"{TP_TRAIN_BATCH // TP_TRAIN_MESH[0]}x{TP_TRAIN_SEQ}x"
+                f"{tcfg.lru_width // TP_TRAIN_MESH[1]}": want}:
+            raise AssertionError(f"rank {r}'s scan launches {c}, the code "
+                                 f"makes {want}")
+        out["launches"][f"tp_train_rank{r}"] = {"rglru_scan": c["launches"]}
+        print(f"tp train rank {r} (phase 12b): losses "
+              f"{[round(x['loss'], 6) for x in h]} (single-rank step "
+              f"{ref_loss:.6f}), steps {[round(x['sec'], 3) for x in h]} s, "
+              f"collectives of the warm step {h[-1]['coll']} s in "
+              f"{h[-1]['calls']} calls, scan launches {c['launches']} "
+              f"{c['by_route']} at {c['by_shape']}: {c['launches'] - rev} "
+              f"forward (with the remat recompute) and {rev} reverse-time "
+              f"(the code's {want}), init "
+              f"{s['init']['s']:.3f} s (peak "
+              f"{s['init']['peak'] / 2**30:.3f} GiB), peak after it "
+              f"{s['peak'] / 2**30:.3f} GiB  [{card}]")
+    print(f"tp train (phase 12b): {tcfg.num_layers} layers at full width, "
+          f"AdamW, (data, model) = {TP_TRAIN_MESH}, global batch "
+          f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}; every rank's parameter "
+          f"shards after step 1 within rtol {TP_PARAM_TOL['rtol']} / atol "
+          f"{TP_PARAM_TOL['atol']} of the single-rank step's (largest "
+          f"excess over rtol {worst:.3e}); the gradients through the "
+          f"moments: largest leaf {worst_moment[0]:.4e} norm-relative "
+          f"({worst_moment[1]}; bound {TP_MOMENT_NORM_REL}); the updates "
+          f"p1 - p0: largest leaf {worst_update[0]:.4e} ({worst_update[1]};"
+          f" bound {TP_UPDATE_NORM_REL}); the single-rank step alone "
+          f"{ref_s:.3f} s  [{card}]")
+    out["train"] = {"moment_norm_rel": worst_moment[0],
+                    "update_norm_rel": worst_update[0], "excess": worst}
+    del p_ref, o_ref, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- (c) the kernels at the TP local shapes ------------------------
+    out["flash_attention"] = time_flash(dev, card, 4, 4096, 5, 1, 256, 2048,
+                                        "the TP local shape")
+    out["rglru_scan"] = time_scan(dev, card, 4, 4096, 1280,
+                                  "the TP local shape")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tp path: phase 12 took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3048,7 +3468,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. the serving path ---------------------------------------------------
-    lm_launches = serve_path(dev, card)
+    import shutil
+    tp_root = ROOT / "build" / "tp_smoke"
+    shutil.rmtree(tp_root, ignore_errors=True)
+    phase7_file = tp_root / "phase7.pt"
+    lm_launches = serve_path(dev, card, phase7_file)
     torch.cuda.empty_cache()
 
     # ---- 8. the LM kernels timed at the serving shape ------------------------
@@ -3073,6 +3497,16 @@ def main() -> int:
     lm["flash_attention"]["max_abs_err"] = max(
         [lm["flash_attention"]["max_abs_err"]]
         + [r["max_abs_err"] for r in arched["flash_shapes"].values()])
+
+    # ---- 12. tensor parallelism inside a replica --------------------------
+    torch.cuda.empty_cache()
+    tp = tp_path(dev, card, phase7_file)
+    for name in ("flash_attention", "rglru_scan"):
+        lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
+                                      tp[name]["max_abs_err"])
+    tp_paths = {name: {k: v[name] for k, v in tp["launches"].items()
+                       if name in v}
+                for name in ("flash_attention", "rglru_scan")}
     # the flash row is the serving path's (bf16) kernel; its
     # launches_by_path adds phase 11's requests, by_shape its prefill shapes
     lm_rows = [dict(
@@ -3080,8 +3514,11 @@ def main() -> int:
         source=f"src/repro_torch/kernels/{pkg}/csrc/{src}.cu",
         replaces=replaces, launches=lm_launches[name], **lm[name],
         **({"launches_by_path": {"serve": lm_launches[name],
-                                 **arched["launches"]},
-            "by_shape": arched["flash_shapes"]}
+                                 **arched["launches"],
+                                 **tp_paths[name]},
+            "by_shape": arched["flash_shapes"],
+            "tp_local_shape": tp[name],
+            "tp_by_shape": tp["serve"]["by_shape"][name]}
            if name == "flash_attention" else {}),
         **({"launches_by_path": {
             "serve": lm_launches[name],
@@ -3090,7 +3527,10 @@ def main() -> int:
             **{f"smoke_sweep_rank{r}": n
                for r, n in enumerate(trained["smoke_sweep_launches"])},
             **{f"sweep_rank{r}": n
-               for r, n in enumerate(swept_lm["launches"])}},
+               for r, n in enumerate(swept_lm["launches"])},
+            **tp_paths[name]},
+            "tp_local_shape": tp[name],
+            "tp_by_shape": tp["serve"]["by_shape"][name],
             "sweep_expected_per_rank": swept_lm["expected_per_rank"],
             "train_expected_per_rank": trained["expected_per_rank"],
             "reverse_time": reverse} if name == "rglru_scan" else {}))

@@ -251,6 +251,12 @@ class GroupComm:
         dist.all_reduce(buf, group=self.group)
         return buf[:, self.grank * p:(self.grank + 1) * p]
 
+    def all_reduce(self, x: Tensor) -> Tensor:
+        """The group's elementwise sum, on every member (a new tensor)."""
+        buf = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, group=self.group)
+        return buf
+
     def chunk(self, x: Tensor, p: int) -> Tensor:
         """This rank's (1, p) chunk of a group-uniform (1, d) vector,
         zero-padded to G p (no collective)."""

@@ -314,7 +314,7 @@ def normal_blocked(key: Tensor, shape: Sequence[int], device=None,
     shape = tuple(int(s) for s in shape)
     dev = torch.device(device) if device is not None else key.device
     out = torch.empty(shape, dtype=dtype, device=dev)
-    if out.numel() == 0:
+    if out.numel() == 0 or dev.type == "meta":   # meta: shape and dtype only
         return out
     flat = out.view(shape[0], -1) if shape else out.view(1, 1)
     row = flat.shape[1]

@@ -14,11 +14,13 @@ standard data parallelism, the paper's star-network special case.
 
 This module keeps the reference's legacy static-periods surface as thin
 shims: ``make_treesync_step`` is deprecated in favor of ``Problem.lm(...)``
-+ ``Session.compile(backend="mesh")`` (``api/lm.py``).  Tensor
-parallelism inside a replica (the reference's ``tp_rules`` /
-``replica_specs`` over the ``model`` axis) comes with
-``launch/sharding.py`` (ROADMAP); a mesh whose ``model`` axis is larger
-than 1 is refused until then.
++ ``Session.compile(backend="mesh")`` (``api/lm.py``).  The reference's
+specs of a replica's state, ``tp_rules`` / ``replica_specs`` (TP over
+``model`` inside each replica), are here as spec functions equal to the
+reference's.  The reference's LM engine never places its state by them,
+and neither does the port's: a TreeSync mesh whose ``model`` axis is
+larger than 1 is refused (ROADMAP A9.5b).  Tensor parallelism itself runs
+in ``launch/steps.py::build_cell``.
 """
 from __future__ import annotations
 
@@ -34,12 +36,14 @@ from repro_torch.core import prng
 from repro_torch.core.engine import lm as lm_mod
 from repro_torch.core.engine.lm import (  # noqa: F401
     TreeSyncState, consensus_params, split_batch)
+from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import axis_size
 from repro_torch.optim import Optimizer
 
-_TP = ("tensor parallelism over the mesh's 'model' axis is not ported yet "
-       "(ROADMAP A9.5: launch/sharding.py and models/shardctx.py); use a mesh "
-       "whose 'model' axis has size 1, one rank per replica")
+_TP = ("TreeSync with a 'model' axis inside a replica is not ported yet "
+       "(ROADMAP A9.5b: LMSession through replica_specs); use a mesh whose "
+       "'model' axis has size 1, one rank per replica, or "
+       "launch/steps.py::build_cell for tensor parallelism")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,16 +101,23 @@ def replica_count(ts: TreeSyncConfig, mesh) -> int:
     return n
 
 
-def tp_rules():
-    """The reference's param sharding inside one replica (TP over
-    ``model``): not ported (see the module docstring)."""
-    raise NotImplementedError(_TP)
+def tp_rules() -> sh.AxisRules:
+    """Param sharding inside one replica: TP over "model" only (the "data"
+    axis is occupied by the replica dim, so no FSDP)."""
+    return dataclasses.replace(sh.DEFAULT_RULES, embed=None,
+                               act_batch=("pod", "data"))
 
 
-def replica_specs(*args, **kwargs):
-    """The reference's specs of an (R, ...)-stacked tree: not ported (each
-    rank holds one replica; see the module docstring)."""
-    raise NotImplementedError(_TP)
+def replica_specs(cfg: ModelConfig, tree_shape, mesh, ts: TreeSyncConfig,
+                  base_rules=None):
+    """Specs for an (R, ...)-stacked tree: replica dim over the sync axes
+    (outermost level first, matching reshape order), rest per tp_rules."""
+    rules = base_rules or tp_rules()
+    base = sh.param_specs(cfg, tree_shape, mesh, rules)
+    rep_axes = tuple(reversed(_present_axes(ts, mesh)))  # (pod, data)
+    rep = rep_axes if len(rep_axes) > 1 else \
+        (rep_axes[0] if rep_axes else None)
+    return sh.map_with_path(lambda _p, spec: sh.P(rep, *spec), base)
 
 
 def init_state(cfg: ModelConfig, optimizer: Optimizer, key, mesh,

@@ -16,7 +16,8 @@ one, raising on anything else -- there is no fallback.  On CPU tensors it
 runs the plain version (``ref.attention_ref``), because only there is no
 kernel to launch.  ``LAUNCHES`` counts kernel launches and
 ``LAUNCHES_BY_ROUTE`` splits them by route, so a run can show that its
-attention went through the tensor-core kernel.
+attention went through the tensor-core kernel, and ``LAUNCHES_BY_SHAPE``
+by (B, Sq, Sk, H, KV, D).
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ Tensor = torch.Tensor
 
 LAUNCHES = 0            # kernel launches since the last reset
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "f32": 0}
+# launches by (B, Sq, Sk, H, KV, D): a tensor-parallel rank's local heads
+LAUNCHES_BY_SHAPE: dict = {}
 
 HEAD_DIMS = (16, 64, 80, 128, 256)   # the head dims the sources compile
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "f32"}
@@ -143,4 +146,6 @@ def flash_attention_kernel(q: Tensor, k: Tensor, v: Tensor, *,
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[name] += 1
+    key = (B, Sq, Sk, H, KV, D)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return out

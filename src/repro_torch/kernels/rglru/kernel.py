@@ -14,7 +14,7 @@ no fallback.  On CPU tensors it runs the plain version
 (``ref.rglru_scan_ref``), because only there is no kernel to launch.
 ``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_ROUTE`` splits them
 by route, so a run can show that its recurrences went through the kernel
-and which copies fed it.
+and which copies fed it; ``LAUNCHES_BY_SHAPE`` by (B, S, W).
 
 The launch writes into a fresh tensor through ctypes, so its output
 carries no autograd graph.  Models call it through ``ops.rglru_scan``,
@@ -38,6 +38,8 @@ Tensor = torch.Tensor
 
 LAUNCHES = 0            # kernel launches since the last reset
 LAUNCHES_BY_ROUTE = {"tma": 0, "cp_async": 0}
+# launches by (B, S, W): a tensor-parallel rank's local channels
+LAUNCHES_BY_SHAPE: dict = {}
 
 # the block's shape (the source's kConsumers, kRows, kStages)
 CONSUMERS = 2           # consumer warps a block, one channel a lane
@@ -149,4 +151,5 @@ def rglru_scan_kernel(a: Tensor, b: Tensor, h0: Tensor
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[name] += 1
+    LAUNCHES_BY_SHAPE[(B, S, W)] = LAUNCHES_BY_SHAPE.get((B, S, W), 0) + 1
     return h, h_last

@@ -7,6 +7,22 @@ blocks) so the (S x S) score matrix is never materialized;
 (``repro_torch.kernels.flash_attention``).  Decode attends a (possibly
 ring-buffered) KV cache.
 
+Under tensor parallelism (``models/shardctx.py``) each rank holds the
+column-parallel ``wq``/``wk``/``wv`` and the row-parallel ``wo`` that
+``launch/sharding.py`` cut for it, and the layout follows from their
+specs (``shardctx.split_over_model``): q over this rank's heads, k/v over
+its kv heads, or, when the kv heads fell back to replicated (kv = 1 at
+``model`` = 2), all of them projected and cut to the groups of the local
+q heads.  Attention
+(the chunked path or the flash kernel) runs on the local heads; ``wo``'s
+partial sums are reduced over ``model``.  A layer whose q heads fell back
+to replicated runs whole on every rank.  The decode cache splits its
+context slots over ``model`` (``cache_seq``): each rank scores every head
+against its own slots, the per-shard softmax maxima and sums are gathered,
+and each rank's probabilities are renormalized by the global ones before
+the partial outputs are summed -- the single-rank softmax, summed in
+another order.
+
 Products whose reference takes bf16 inputs with float32 accumulation are
 taken here on float32 copies of the inputs (a bf16 x bf16 product is exact
 in float32), rounded back where the reference's result is bf16; only the
@@ -20,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import shardctx
 from repro_torch.models.common import dense_init, rms_norm, rope, split_keys
 
 Tensor = torch.Tensor
@@ -48,24 +65,75 @@ def init_attn_params(key, cfg: ModelConfig, dtype, device=None):
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x: Tensor, positions: Tensor):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope + qk-norm."""
+def _kv_groups(cfg: ModelConfig, hq: int):
+    """The kv heads the local q heads read, when every kv head is here:
+    a slice of whole groups (aligned), or one kv head per q head."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    rep = h // kv
+    q0 = shardctx.model_rank() * hq
+    idx = [(q0 + j) // rep for j in range(hq)]
+    uniq = sorted(set(idx))
+    if hq % len(uniq) == 0 and idx == [g for g in uniq
+                                       for _ in range(hq // len(uniq))]:
+        return uniq
+    return idx
+
+
+def _heads_split(cfg: ModelConfig) -> Tuple[bool, bool]:
+    """Whether the specs split the q heads and the kv heads over
+    ``model``."""
+    return (shardctx.split_over_model(cfg, ("mix", "wq"), -1),
+            shardctx.split_over_model(cfg, ("mix", "wk"), -1))
+
+
+def _project_qkv(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                 full_kv: bool = False):
+    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,KV,hd) with rope + qk-norm,
+    over this rank's heads (see the module docstring); with ``full_kv``
+    also k/v over every kv head (for the decode cache)."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    tp, kv_split = _heads_split(cfg)
+    if kv_split and not tp:
+        raise NotImplementedError("kv heads split over 'model' with the q "
+                                  "heads replicated")
+    # under TP, replicated leaves used on this rank's heads only get
+    # partial gradients, summed over model (Megatron's f)
+    rep = shardctx.copy_to_model if tp else (lambda t: t)
+    kv_of = (lambda t: t) if kv_split else rep
+    x = rep(x)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ kv_of(p["wk"])
+    v = x @ kv_of(p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, h, hd)
-    k = k.reshape(B, S, kv, hd)
-    v = v.reshape(B, S, kv, hd)
+        q = q + (shardctx.model_share(cfg, ("mix", "bq"), p["bq"], -1)
+                 if tp else p["bq"])
+        k, v = k + kv_of(p["bk"]), v + kv_of(p["bv"])
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, rep(p["q_norm"]))
+        k = rms_norm(k, rep(p["k_norm"]))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if not full_kv:
+        if tp and not kv_split:
+            g = _kv_groups(cfg, q.shape[2])
+            k, v = k[:, :, g], v[:, :, g]
+        return q, k, v
+    if kv_split:
+        k, v = (shardctx.gather_from_model(t, 2) for t in (k, v))
     return q, k, v
+
+
+def _out_proj(p, cfg: ModelConfig, o: Tensor) -> Tensor:
+    """(..., Hq*hd) -> (..., D): the row-parallel ``wo``, its partial sums
+    reduced over ``model`` when the heads are split."""
+    if not _heads_split(cfg)[0]:
+        return o @ p["wo"]
+    wo = shardctx.model_share(cfg, ("mix", "wo"), p["wo"], 0)
+    return shardctx.reduce_from_model(o @ wo)
 
 
 def _masked_softmax(scores: Tensor, mask: Tensor) -> Tensor:
@@ -91,10 +159,11 @@ def attention_train(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
     einsums (query heads reshaped to (kv_heads, group)): K/V are never
     materialized at q-head width."""
     B, S, D = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rep = h // kv
+    hd = cfg.head_dim
     win = window if window is not None else cfg.window
     q, k, v = _project_qkv(p, cfg, x, positions)
+    h, kv = q.shape[2], k.shape[2]
+    rep = h // kv
     scale = hd ** -0.5
     qc = min(cfg.q_chunk_size, S)
     if S % qc:
@@ -114,7 +183,7 @@ def attention_train(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
         probs = _masked_softmax(s, mask)
         outs.append(_grouped_attend(probs, v).reshape(B, qc, h, hd))
     out = torch.cat(outs, dim=1).reshape(B, S, h * hd)
-    return out @ p["wo"]
+    return _out_proj(p, cfg, out)
 
 
 def attention_flash(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
@@ -132,11 +201,10 @@ def attention_flash(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
             "Train with attention_impl='xla_chunked', or run this forward "
             "under torch.no_grad()")
     B, S, D = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
     win = window if window is not None else cfg.window
     out = flash_attention(q, k, v, causal=True, window=win)
-    return out.reshape(B, S, h * hd) @ p["wo"]
+    return _out_proj(p, cfg, out.reshape(B, S, -1))
 
 
 def attend(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
@@ -165,33 +233,89 @@ def init_layer_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_slots(cfg: ModelConfig, max_len: int,
+                window: Optional[int] = None) -> Tuple[int, int, int]:
+    """(slots n, this rank's first slot, its slot count) of one layer's
+    cache: a ring of ``window`` slots for windowed layers, the context
+    slots split over ``cache_seq`` under a shard context."""
+    win = window if window is not None else cfg.window
+    n = min(max_len, win) if win is not None else max_len
+    s0, n_here = shardctx.local_range(n, "cache_seq")
+    return n, s0, n_here
+
+
 def decode_attention(p, cfg: ModelConfig, x: Tensor, pos: int, cache: dict,
-                     window: Optional[int] = None) -> Tuple[Tensor, dict]:
+                     window: Optional[int] = None,
+                     max_len: Optional[int] = None) -> Tuple[Tensor, dict]:
     """x: (B, 1, D); pos: int (the same position for the whole batch).
     Returns (out (B, 1, D), cache).  The new key and value are written
     into the cache's ring slot in place (the reference returns a new
-    cache); the returned dict holds the same tensors."""
+    cache); the returned dict holds the same tensors.  ``max_len`` (the
+    cache's context length) is needed only when the slots are split over
+    ``model``."""
     B = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, full_kv=True)
+    hq = q.shape[2]
+    tp = _heads_split(cfg)[0]
 
     k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
-    slot = pos % k.shape[1]  # ring for windowed layers; identity while pos < n
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    slot_pos[slot] = pos
-
-    # grouped-GQA scores: K/V streamed at kv-head width (never repeated)
-    qg = q.reshape(B, 1, kv, h // kv, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float()) * hd ** -0.5
+    if max_len is None:
+        if shardctx.model_size() > 1:
+            raise ValueError("decode under a 'model' axis needs max_len, "
+                             "the cache's context length")
+        n, s0, n_here = k.shape[1], 0, k.shape[1]
+    else:
+        n, s0, n_here = cache_slots(cfg, max_len, window)
+    if n_here != k.shape[1]:
+        raise ValueError(f"a cache of {k.shape[1]} slots here, the layer "
+                         f"has {n_here} of {n}")
+    slot = pos % n  # ring for windowed layers; identity while pos < n
+    if s0 <= slot < s0 + n_here:
+        k[:, slot - s0] = k_new[:, 0].to(k.dtype)
+        v[:, slot - s0] = v_new[:, 0].to(v.dtype)
+        slot_pos[slot - s0] = pos
     win = window if window is not None else cfg.window
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if win is not None:
         valid &= (pos - slot_pos) < win
-    probs = _masked_softmax(s, valid[None, None, None, None, :])
-    o = _grouped_attend(probs, v)
+    mask = valid[None, None, None, None, :]
+
+    if n_here == n:
+        # every slot here: the local q heads against their kv groups
+        if tp:
+            g = _kv_groups(cfg, hq)
+            kg, vg = k[:, :, g], v[:, :, g]
+        else:
+            kg, vg = k, v
+        # grouped-GQA scores: K/V streamed at kv-head width (never repeated)
+        qg = q.reshape(B, 1, kg.shape[2], hq // kg.shape[2], hd)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                         kg.float()) * hd ** -0.5
+        o = _grouped_attend(_masked_softmax(s, mask), vg)
+    else:
+        # slots split over model: every head against this rank's slots,
+        # renormalized by the gathered per-shard maxima and sums
+        q_all = shardctx.gather_from_model(q, 2) if tp else q
+        qg = q_all.reshape(B, 1, kv, h // kv, hd)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                         k.float()) * hd ** -0.5
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        e = torch.where(mask, torch.exp(s - m), 0.0)
+        ml = torch.stack([m, torch.sum(e, dim=-1, keepdim=True)])
+        ml = shardctx.gather_from_model(ml[None], 0)   # (tp, 2, ...)
+        m_all = torch.amax(ml[:, 0], dim=0)
+        l_all = torch.sum(ml[:, 1] * torch.exp(ml[:, 0] - m_all), dim=0)
+        probs = e * (torch.exp(m - m_all) / (l_all + 1e-30))
+        part = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype).float(),
+                            v.float())
+        o = shardctx.reduce_from_model(part).to(v.dtype)
+        if tp:
+            o = o.reshape(B, 1, h, hd)
+            o = o[:, :, shardctx.model_rank() * hq:][:, :, :hq]
     # a bf16 cache under f32 activations: o is promoted, as in jnp's matmul
     o = o.to(torch.promote_types(o.dtype, p["wo"].dtype))
-    out = o.reshape(B, 1, h * hd) @ p["wo"]
+    out = _out_proj(p, cfg, o.reshape(B, 1, hq * hd))
     return out, {"k": k, "v": v, "slot_pos": slot_pos}

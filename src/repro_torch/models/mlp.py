@@ -8,6 +8,14 @@ back with the combine weights.  Routing follows the reference exactly:
 the router in float32, top-k with ties to the lower expert index, the
 position inside an expert a cumulative sum over the flattened (token, k)
 order, assignments past the capacity dropped.
+
+With the batch rows split over a shard context's batch axes (FSDP, ``model``
+= 1), the routing is the whole batch's, as in the reference's global
+program: the capacity counts every rank's tokens, an assignment's slot
+counts the assignments of the ranks holding earlier rows (the gathered
+per-expert counts), and the load-balance loss's fractions and mean
+probabilities are sums over the batch axes.  Each rank dispatches its own
+tokens into the global slots.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import shardctx
 from repro_torch.models.common import dense_init, split_keys
 
 Tensor = torch.Tensor
@@ -48,10 +57,24 @@ def init_mlp_params(key, cfg: ModelConfig, dtype,
     }
 
 
-def mlp(p, cfg: ModelConfig, x: Tensor) -> Tensor:
+def mlp(p, cfg: ModelConfig, x: Tensor, leaf: Tuple[str, ...] = ("ffn",)
+        ) -> Tensor:
+    """The dense MLP (``leaf``: its parameters' path, ``("ffn", "dense")``
+    inside an MoE layer).  Under tensor parallelism
+    (``models/shardctx.py``) ``w_gate``/``w_up`` are column-parallel and
+    ``w_down`` row-parallel over the hidden dim when the specs split
+    ``w_up``'s; the partial sums are reduced over ``model``."""
+    tp = shardctx.split_over_model(cfg, leaf + ("w_up",), -1)
+    if tp:
+        x = shardctx.copy_to_model(x)
+        p = {n: shardctx.model_share(cfg, leaf + (n,), t,
+                                     0 if n == "w_down" else -1)
+             for n, t in p.items()}
     if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return gelu(x @ p["w_up"]) @ p["w_down"]
+        out = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        out = gelu(x @ p["w_up"]) @ p["w_down"]
+    return shardctx.reduce_from_model(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -99,15 +122,18 @@ def route(p, cfg: ModelConfig, xf: Tensor
     return probs, torch.gather(probs, -1, gate_idx), gate_idx
 
 
-def slots(gate_idx: Tensor, num_experts: int, cap: int
-          ) -> Tuple[Tensor, Tensor, Tensor]:
+def slots(gate_idx: Tensor, num_experts: int, cap: int,
+          before: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
     """The flattened (token, k) assignments -> (expert ids, slot in the
     expert clipped to [0, cap), keep mask): an assignment's position is
-    the count of earlier assignments to its expert in (token, k) order,
-    and those at or past ``cap`` are dropped."""
+    the count of earlier assignments to its expert in (token, k) order
+    (plus ``before[e]``, the assignments to expert e in earlier rows held
+    elsewhere), and those at or past ``cap`` are dropped."""
     eids = gate_idx.reshape(-1)
     onehot = F.one_hot(eids, num_experts)
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    if before is not None:
+        pos = pos + before[eids]
     keep = (pos < cap) & (pos >= 0)
     return eids, torch.clamp(pos, 0, cap - 1), keep
 
@@ -123,12 +149,25 @@ def moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     xf = x.reshape(T, D)
 
     probs, gate_w, gate_idx = route(p, cfg, xf)
-    frac = torch.mean(F.one_hot(gate_idx, E).float(), dim=(0, 1))
-    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    onehot = F.one_hot(gate_idx, E)
+    chunk, chunks = shardctx.batch_rows()
+    before = None
+    if chunks == 1:
+        frac = torch.mean(onehot.float(), dim=(0, 1))
+        aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+        C = capacity(cfg, T)
+    else:   # the whole batch's routing (see the module docstring)
+        counts = onehot.sum(dim=(0, 1))
+        every = shardctx.gather_from_batch(counts[None], 0)   # (chunks, E)
+        before = every[:chunk].sum(0)
+        T_all = T * chunks
+        frac = every.sum(0).float() / (T_all * K)
+        aux = E * torch.sum(
+            frac * shardctx.reduce_from_batch(probs.sum(0)) / T_all)
+        C = capacity(cfg, T_all)
     gate_w = gate_w / (torch.sum(gate_w, dim=-1, keepdim=True) + 1e-9)
 
-    C = capacity(cfg, T)
-    eids, slot, keep = slots(gate_idx, E, C)
+    eids, slot, keep = slots(gate_idx, E, C, before)
     # kept (expert, slot) pairs are unique, so writing the kept rows is the
     # reference's scatter-add into zeros; dropped rows go to a spare row
     # past the buffer, which is cut off
@@ -145,7 +184,7 @@ def moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     out_tok = out_buf[eids * C + slot] * keep[:, None].to(x.dtype)
     out = (out_tok.reshape(T, K, D) * gate_w[..., None].to(x.dtype)).sum(1)
     if cfg.moe_dense_ff:
-        out = out + mlp(p["dense"], cfg, xf)
+        out = out + mlp(p["dense"], cfg, xf, leaf=("ffn", "dense"))
     return out.reshape(B, S, D), aux
 
 

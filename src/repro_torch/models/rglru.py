@@ -13,6 +13,15 @@ Over a sequence the recurrence h_t = a_t h_{t-1} + b_t (h_0 = 0) runs in
 where the reference uses ``jax.lax.associative_scan``; its backward is
 the same kernel run in reverse time.  Decode carries
 (h, conv tail) state, O(1) per token.
+
+Under tensor parallelism (``models/shardctx.py``) the channels W are split
+over ``model`` where the specs split them: ``w_in``, ``w_gate`` and
+``conv`` are column-parallel, the conv output is gathered over ``model``
+before the dense (W, W) gate GEMMs ``w_a``/``w_x`` (whose outputs are
+column-split), the recurrence runs on the local (B, S, W/tp) channels
+(the kernel, and in training ``RGLRUScan``), and ``w_out`` is
+row-parallel with its partial sums reduced over ``model``.  A leaf that
+fell back to replicated is cut to the local channels at use.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.models import shardctx
 from repro_torch.models.common import dense_init, split_keys
 from repro_torch.models.mlp import gelu
 
@@ -68,8 +78,25 @@ def linspace(start: float, stop: float, num: int, device) -> Tensor:
                                       device=device)])
 
 
-def _gates(p, u: Tensor) -> Tuple[Tensor, Tensor]:
+# the leaves with a channel dim, and which dim it is
+_CHANNEL_DIMS = {"w_in": -1, "w_gate": -1, "conv": -1, "w_a": -1, "w_x": -1,
+                 "lam": -1, "w_out": 0}
+
+
+def local_channels(p, cfg: ModelConfig):
+    """(``p`` over this rank's channels, whether they are split): split
+    when the specs split ``w_in``'s channels over ``model``; the leaves
+    as their specs cut them, a replicated one cut at use."""
+    if not shardctx.split_over_model(cfg, ("mix", "w_in"), -1):
+        return p, False
+    return {n: (shardctx.model_share(cfg, ("mix", n), t, _CHANNEL_DIMS[n])
+                if n in _CHANNEL_DIMS else t) for n, t in p.items()}, True
+
+
+def _gates(p, u: Tensor, u_all: Tensor = None) -> Tuple[Tensor, Tensor]:
     """u: (..., W) conv output -> (a_t, b_t) of the recurrence, float32.
+    Under tensor parallelism u is this rank's channels and ``u_all`` every
+    channel (the gate GEMMs' input).
 
     ``p["lam"]`` arrives in the activation dtype (``cast_floats`` rounds it
     as the reference does), so softplus runs in that dtype.  ``F.softplus``
@@ -77,8 +104,9 @@ def _gates(p, u: Tensor) -> Tuple[Tensor, Tensor]:
     logaddexp(x, 0); the two differ by under 1e-8 there, and lam lies in
     [-2, 2] anyway."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_a"].float())
-    i = torch.sigmoid(uf @ p["w_x"].float())
+    gf = uf if u_all is None else u_all.float()
+    r = torch.sigmoid(gf @ p["w_a"].float())
+    i = torch.sigmoid(gf @ p["w_x"].float())
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
@@ -110,12 +138,17 @@ def rglru_block(p, cfg: ModelConfig, x: Tensor, plain: bool = False
     """x: (B, S, D) -> (B, S, D), parallel over channels; differentiable
     through the kernel (``kernels.rglru.ops.RGLRUScan``), or with
     ``plain=True`` through the plain recurrence."""
+    p, tp = local_channels(p, cfg)
+    if tp:
+        x = shardctx.copy_to_model(x)
     u = x @ p["w_in"]  # (B, S, W)
     gate = gelu(x @ p["w_gate"])
     conv, _ = causal_conv(u, p["conv"])
-    a, b = _gates(p, conv)
+    a, b = _gates(p, conv, shardctx.gather_from_model(conv, -1)
+                  if tp else None)
     h = linear_recurrence(a, b, plain).to(x.dtype)
-    return (h * gate) @ p["w_out"]
+    out = (h * gate) @ p["w_out"]
+    return shardctx.reduce_from_model(out) if tp else out
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -132,13 +165,17 @@ def rglru_decode(p, cfg: ModelConfig, x: Tensor, cache: dict
                  ) -> Tuple[Tensor, dict]:
     """x: (B, 1, D) -> (B, 1, D); O(1) state update.  The conv is the
     reference's einsum over the cw taps: summed in float32, rounded once
-    to x's dtype."""
+    to x's dtype.  The cache holds this rank's channels."""
+    p, tp = local_channels(p, cfg)
     u = (x @ p["w_in"])[:, 0]  # (B, W)
     gate = gelu(x @ p["w_gate"])[:, 0]
     hist = torch.cat([cache["conv"], u[:, None]], dim=1)  # (B, cw, W)
     conv = torch.einsum("bcw,cw->bw", hist.float(),
                         p["conv"].float()).to(hist.dtype)
-    a, b = _gates(p, conv)
+    a, b = _gates(p, conv, shardctx.gather_from_model(conv, -1)
+                  if tp else None)
     h = a * cache["h"] + b
     out = ((h.to(x.dtype) * gate) @ p["w_out"])[:, None]
+    if tp:
+        out = shardctx.reduce_from_model(out)
     return out, {"h": h, "conv": hist[:, 1:]}

@@ -6,11 +6,20 @@ recurrentgemma-2b, and RWKV-6.
 Layers are grouped into repeating *pattern blocks* (``cfg.block_pattern``)
 plus a tail.  Parameters are a dict laid out as the reference's, except
 that ``blocks`` is a list with one dict per block where the reference
-stacks them on a leading axis; the blocks run as a Python loop.  The
-reference's ``shardctx.constrain`` has no counterpart: the port runs on
-one device.  Two modes: prefill (a full-sequence forward that builds the
-decode cache) and decode (one token against the cache; O(1) state for the
-recurrent layers).
+stacks them on a leading axis; the blocks run as a Python loop.  Two
+modes: prefill (a full-sequence forward that builds the decode cache) and
+decode (one token against the cache; O(1) state for the recurrent
+layers).
+
+Inside ``models/shardctx.py::activation_sharding`` every function here
+runs on this rank's shards (``launch/steps.py::build_cell``): the batch
+rows are the rank's, each sub-layer is tensor-parallel as its leaves'
+specs split it, the embedding and unembedding are vocab-parallel (the
+lookup masked to the local vocab range and summed over ``model``; the
+logits gathered for the argmax; the cross entropy's max, logsumexp and
+target logit reduced over ``model``), and the loss is summed over the
+batch axes.  ``shardctx.constrain`` marks the reference's six block
+boundaries.
 
 Training (``forward_hidden`` / ``forward_train``, the reference's train
 mode) also takes the reference's own layout: ``blocks`` a dict of
@@ -33,6 +42,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import shardctx
 from repro_torch.models.common import (cast_floats, dense_init, dtype_of,
                                       rms_norm, split_keys)
 from repro_torch.models.loss import chunked_xent
@@ -129,11 +139,27 @@ def _unembed(cfg: ModelConfig, params) -> Tensor:
     return params["unembed"]
 
 
+def _vocab_split(cfg: ModelConfig) -> bool:
+    """Whether the unembedding's vocab dim is split over ``model``."""
+    if cfg.tie_embeddings:
+        return shardctx.split_over_model(cfg, ("embed",), 0)
+    return shardctx.split_over_model(cfg, ("unembed",), -1)
+
+
 def _embed_inputs(cfg: ModelConfig, params, batch) -> Tensor:
     dtype = dtype_of(cfg.activation_dtype)
     if cfg.input_mode == "embeddings" and "embeds" in batch:
         return batch["embeds"].to(dtype)
-    x = params["embed"][batch["tokens"].long()].to(dtype)
+    emb, tok = params["embed"], batch["tokens"].long()
+    if shardctx.split_over_model(cfg, ("embed",), 0):
+        # vocab-parallel: one rank owns each token's row, the others add 0
+        n = emb.shape[0]
+        local = tok - shardctx.model_rank() * n
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], emb[local.clamp(0, n - 1)], 0.0)
+        x = shardctx.reduce_from_model(x).to(dtype)
+    else:
+        x = emb[tok].to(dtype)
     if cfg.tie_embeddings:   # sqrt(d_model) taken in f32, rounded to dtype
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
                                         device=x.device)).to(dtype)
@@ -172,8 +198,12 @@ def block_params(params, i: int):
 
 def _logits(cfg: ModelConfig, params, h: Tensor) -> Tensor:
     """(B, D) final hidden states -> (B, V) float32 logits against the
-    float32 master embedding."""
-    return h.float() @ _unembed(cfg, params).float()
+    float32 master embedding (gathered over ``model`` when the vocab is
+    split)."""
+    logits = h.float() @ _unembed(cfg, params).float()
+    if _vocab_split(cfg):
+        logits = shardctx.gather_from_model(logits, -1)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +255,7 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, Tensor],
     kernel: the reference route for checking the kernel's gradients."""
     pattern, n_full, tail = block_layout(cfg)
     x = _embed_inputs(cfg, params, batch)
+    x = shardctx.constrain(x, "act_batch", "act_seq", "act_embed")
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
@@ -232,8 +263,9 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, Tensor],
                                  device=x.device).expand(B, S)
 
     def inner(blk, x):
-        return _block_train(blk, cfg, pattern, x, positions,
+        x, a = _block_train(blk, cfg, pattern, x, positions,
                             plain_recurrence)
+        return shardctx.constrain(x, "act_batch", "act_seq", "act_embed"), a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -248,6 +280,7 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, Tensor],
         x, a = _sublayer_train(params["tail"][i], cfg, kind, x, positions,
                                plain_recurrence)
         aux = aux + a
+        x = shardctx.constrain(x, "act_batch", "act_seq", "act_embed")
     return rms_norm(x, params["final_ln"]), aux
 
 
@@ -255,7 +288,8 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor],
                   plain_recurrence: bool = False
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Causal-LM loss. batch: tokens/embeds, labels, optional mask.
-    Returns (total, {"loss", "moe_aux", "tokens"})."""
+    Returns (total, {"loss", "moe_aux", "tokens"}).  Under a shard context
+    the sums run over every rank's rows (``shardctx.reduce_from_batch``)."""
     h, aux = forward_hidden(cfg, params, batch, plain_recurrence)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -263,7 +297,10 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor],
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     loss_sum, n = chunked_xent(h, _unembed(cfg, params), labels, mask,
-                               cfg.logits_chunk)
+                               cfg.logits_chunk,
+                               vocab_parallel=_vocab_split(cfg))
+    loss_sum = shardctx.reduce_from_batch(loss_sum)
+    n = shardctx.reduce_from_batch(n)
     loss = loss_sum / torch.clamp(n, min=1.0)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "moe_aux": aux, "tokens": n}
@@ -307,11 +344,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # decode
 # ---------------------------------------------------------------------------
 def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
-                     cache) -> Tuple[Tensor, PyTree]:
+                     cache, max_len: Optional[int] = None
+                     ) -> Tuple[Tensor, PyTree]:
     p = cast_floats(p, x.dtype)
     h = rms_norm(x, p["ln1"])
     if kind == "attn":
-        o, cache = attn_mod.decode_attention(p["mix"], cfg, h, pos, cache)
+        o, cache = attn_mod.decode_attention(p["mix"], cfg, h, pos, cache,
+                                             max_len=max_len)
     elif kind == "rec":
         o, cache = rglru_mod.rglru_decode(p["mix"], cfg, h, cache)
     elif kind == "rwkv":
@@ -328,13 +367,16 @@ def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
     return x, cache
 
 
-def decode_step(cfg: ModelConfig, params, cache: PyTree, tokens: Tensor
-                ) -> Tuple[Tensor, PyTree]:
+def decode_step(cfg: ModelConfig, params, cache: PyTree, tokens: Tensor,
+                max_len: Optional[int] = None) -> Tuple[Tensor, PyTree]:
     """One token per sequence. tokens: (B, 1) -> logits (B, V) float32 and
-    the cache one position on (attention caches are updated in place)."""
+    the cache one position on (attention caches are updated in place).
+    ``max_len`` (the cache's context length) is needed only under a shard
+    context whose ``model`` axis splits the cache's slots."""
     pattern, n_full, tail = block_layout(cfg)
     pos = cache["pos"]
     x = _embed_inputs(cfg, params, {"tokens": tokens})
+    x = shardctx.constrain(x, "act_batch", None, "act_embed")
     new_cache: Dict[str, Any] = {"pos": pos + 1}
     if n_full:
         new_cache["blocks"] = []
@@ -343,13 +385,14 @@ def decode_step(cfg: ModelConfig, params, cache: PyTree, tokens: Tensor
             ncache = {}
             for i, kind in enumerate(pattern):
                 x, ncache[f"sub{i}"] = _sublayer_decode(
-                    blk[f"sub{i}"], cfg, kind, x, pos, blk_cache[f"sub{i}"])
+                    blk[f"sub{i}"], cfg, kind, x, pos, blk_cache[f"sub{i}"],
+                    max_len)
             new_cache["blocks"].append(ncache)
     if tail:
         new_cache["tail"] = []
         for i, kind in enumerate(tail):
             x, c = _sublayer_decode(params["tail"][i], cfg, kind, x, pos,
-                                    cache["tail"][i])
+                                    cache["tail"][i], max_len)
             new_cache["tail"].append(c)
     h = rms_norm(x, params["final_ln"])
     return _logits(cfg, params, h[:, 0]), new_cache
@@ -361,16 +404,25 @@ def decode_step(cfg: ModelConfig, params, cache: PyTree, tokens: Tensor
 def _attn_prefill_cache(p, cfg: ModelConfig, h: Tensor, positions: Tensor,
                         max_len: int, dtype) -> PyTree:
     """Recompute k/v for the whole prompt and lay them out
-    ring-consistently."""
+    ring-consistently: every kv head, this rank's share of the slots."""
     B, S, _ = h.shape
-    _, k, v = attn_mod._project_qkv(p["mix"], cfg, h, positions)
-    cache = attn_mod.init_layer_cache(cfg, B, max_len, dtype=dtype,
-                                      device=h.device)
-    n = cache["k"].shape[1]
+    _, k, v = attn_mod._project_qkv(p["mix"], cfg, h, positions,
+                                    full_kv=True)
+    n, s0, n_here = attn_mod.cache_slots(cfg, max_len)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    cache = {
+        "k": torch.zeros((B, n_here, kv, hd), dtype=dtype, device=h.device),
+        "v": torch.zeros((B, n_here, kv, hd), dtype=dtype, device=h.device),
+        "slot_pos": torch.full((n_here,), -1, dtype=torch.int32,
+                               device=h.device),
+    }
     take = min(n, S)
-    src = slice(S - take, S)  # last `take` positions
+    src = torch.arange(S - take, S, device=h.device)  # last `take`
     pos_tail = positions[0, src]
     slots = (pos_tail % n).long()
+    if n_here < n:
+        mine = (slots >= s0) & (slots < s0 + n_here)
+        src, pos_tail, slots = src[mine], pos_tail[mine], slots[mine] - s0
     cache["k"][:, slots] = k[:, src].to(dtype)
     cache["v"][:, slots] = v[:, src].to(dtype)
     cache["slot_pos"][slots] = pos_tail.to(torch.int32)
@@ -387,17 +439,19 @@ def _sublayer_prefill(p, cfg: ModelConfig, kind: str, x: Tensor,
         cache = _attn_prefill_cache(p, cfg, h, positions, max_len, dtype)
         x = x + attn_mod.attend(p["mix"], cfg, h, positions)
     elif kind == "rec":
-        pm = p["mix"]
+        pm, tp = rglru_mod.local_channels(p["mix"], cfg)
         u = h @ pm["w_in"]
         gate = mlp_mod.gelu(h @ pm["w_gate"])
         cw = cfg.conv_width
         conv, padded = rglru_mod.causal_conv(u, pm["conv"])
-        a, b = rglru_mod._gates(pm, conv)
+        a, b = rglru_mod._gates(pm, conv, shardctx.gather_from_model(
+            conv, -1) if tp else None)
         hseq = rglru_mod.linear_recurrence(a, b, plain_recurrence)
         # clones, so the cache does not hold the whole sequence alive
         cache = {"h": hseq[:, -1].clone(),
                  "conv": padded[:, padded.shape[1] - (cw - 1):].clone()}
-        x = x + ((hseq.to(x.dtype) * gate) @ pm["w_out"])
+        out = (hseq.to(x.dtype) * gate) @ pm["w_out"]
+        x = x + (shardctx.reduce_from_model(out) if tp else out)
     elif kind == "rwkv":
         return _rwkv_prefill(p, cfg, x)
     else:
@@ -433,6 +487,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor],
     for checking the kernel path on the card)."""
     pattern, n_full, tail = block_layout(cfg)
     x = _embed_inputs(cfg, params, batch)
+    x = shardctx.constrain(x, "act_batch", "act_seq", "act_embed")
     B, S, _ = x.shape
     max_len = max_len or S
     positions = batch.get("positions")
@@ -451,6 +506,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor],
             ncache = {}
             for i, kind in enumerate(pattern):
                 x, ncache[f"sub{i}"] = run(blk[f"sub{i}"], kind, x)
+            x = shardctx.constrain(x, "act_batch", "act_seq", "act_embed")
             cache["blocks"].append(ncache)
     if tail:
         cache["tail"] = []

@@ -14,6 +14,14 @@ no temporary of a leaf's size exists -- a 2.4 GiB embedding's update
 takes a few hundred MiB.  The whole-leaf sums add the blocks' partial
 sums in order, where the reference reduces each leaf at once: the same
 numbers to float32 rounding.
+
+On shards (``shards=``, one ``models/shardctx.py::LeafShard`` per leaf,
+cut by ``opt_state_specs``) every mean and sum that runs over a dim some
+mesh axis splits is completed over those axes: the row means of ``vr``
+(over the columns), the column means of ``vc`` (over the rows), ``vr``'s
+own mean, and the update's and the parameter's RMS (over the whole leaf);
+whether a leaf is factored and every count are taken on its global shape.
+Unsharded, each reduces as it did.
 """
 from __future__ import annotations
 
@@ -69,26 +77,39 @@ def make_adafactor(
             "v": tree_unflatten(params, [leaf_state(p) for p in flat]),
         }
 
-    def upd(p, g, s, beta2, lr_t, inplace):
+    def upd(p, g, s, beta2, lr_t, inplace, sh=None):
         shape, blocks = _blocks(p)
         p3 = p.reshape(shape)
         g3 = g.reshape(shape)
-        factored = _factored(p.shape, min_dim_size_to_factor)
+        gshape = p.shape if sh is None else sh.shape
+        factored = _factored(gshape, min_dim_size_to_factor)
+
+        def done(x, dims, local, total):
+            """A mean over this rank's ``local`` of ``total`` entries of
+            the leaf's ``dims``, completed over the axes splitting them."""
+            if sh is None or local == total:
+                return x
+            return sh.sum(x * (local / total), dims)
+
         # pass 1: the second moments
         if factored:
-            vr = torch.empty(shape[:2], dtype=torch.float32, device=p.device)
+            rmean = torch.empty(shape[:2], dtype=torch.float32,
+                                device=p.device)
             col = torch.zeros((shape[0], shape[2]), dtype=torch.float32,
                               device=p.device)
-            vr_old = s["vr"].reshape(shape[:2])
             for l, rows in blocks:
                 g2 = torch.square(g3[l, rows].float()) + eps1
-                vr[l, rows] = (beta2 * vr_old[l, rows]
-                               + (1 - beta2) * torch.mean(g2, dim=-1))
+                rmean[l, rows] = torch.mean(g2, dim=-1)
                 col[l] += torch.sum(g2, dim=0)
+            rmean = done(rmean, (-1,), shape[2], gshape[-1])
+            if sh is not None:
+                col = sh.sum(col, (-2,))
+            vr = beta2 * s["vr"].reshape(shape[:2]) + (1 - beta2) * rmean
             vc = (beta2 * s["vc"].reshape(shape[0], shape[2])
-                  + (1 - beta2) * (col / shape[1]))
+                  + (1 - beta2) * (col / gshape[-2]))
             # rank-1 reconstruction of the second moment
-            denom = torch.mean(vr, dim=-1, keepdim=True)
+            denom = done(torch.mean(vr, dim=-1, keepdim=True), (-2,),
+                         shape[1], gshape[-2])
             ra = torch.rsqrt(vr / torch.clamp(denom, min=eps1))
             rb = torch.rsqrt(vc)
             new_s = {"vr": vr.reshape(s["vr"].shape),
@@ -116,6 +137,11 @@ def make_adafactor(
             pf = p3[l, rows].float()
             p_sq = p_sq + torch.sum(pf * pf)
         n = p.numel()
+        if sh is not None:
+            n = 1
+            for d in gshape:
+                n *= d
+            u_sq, p_sq = sh.sum(u_sq), sh.sum(p_sq)
         rms = torch.sqrt(u_sq / n + eps1)
         clip = torch.clamp(rms / clip_threshold, min=1.0)
         # relative step size (scaled by param RMS, floored at eps2)
@@ -135,7 +161,7 @@ def make_adafactor(
         return out, new_s
 
     @torch.no_grad()
-    def update(params, grads, state, lr=None, inplace=False):
+    def update(params, grads, state, lr=None, inplace=False, shards=None):
         flat_p = tree_leaves(params)
         flat_g = tree_leaves(grads)
         flat_s = tree_leaves(state["v"], is_leaf=_is_state)
@@ -145,8 +171,10 @@ def make_adafactor(
         # lr=None -> the constructor rate; a float or 0-d tensor overrides
         lr_t = base_lr if lr is None else as_rate(lr, flat_p[0])
 
-        out = [upd(p, g, s, beta2, lr_t, inplace)
-               for p, g, s in zip(flat_p, flat_g, flat_s, strict=True)]
+        out = [upd(p, g, s, beta2, lr_t, inplace,
+                   None if shards is None else shards[i])
+               for i, (p, g, s) in enumerate(zip(flat_p, flat_g, flat_s,
+                                                 strict=True))]
         return (tree_unflatten(params, [o[0] for o in out]),
                 {"step": step,
                  "v": tree_unflatten(state["v"], [o[1] for o in out],

@@ -2,7 +2,9 @@
 
 Moment states are stored in float32 regardless of parameter dtype
 (standard mixed-precision practice); the update is computed in float32 and
-cast back.
+cast back.  On shards (``shards=``, one ``models/shardctx.py::LeafShard``
+per leaf) the update is elementwise as it is; only the gradient norm's
+sums of squares are all-reduced over the axes that split each leaf.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ def make_adamw(
         }
 
     @torch.no_grad()
-    def update(params, grads, state, lr=None, inplace=False):
+    def update(params, grads, state, lr=None, inplace=False, shards=None):
         flat_p = tree_leaves(params)
         flat_g = tree_leaves(grads)
         step = state["step"] + 1
@@ -59,8 +61,12 @@ def make_adamw(
         # lr=None -> the built-in schedule; a float or 0-d tensor overrides
         lr_t = sched(step) if lr is None else as_rate(lr, flat_p[0])
 
-        if grad_clip is not None:
+        if grad_clip is not None and shards is not None:
+            gsq = sum(sh.sum(torch.sum(torch.square(g.float())))
+                      for g, sh in zip(flat_g, shards, strict=True))
+        elif grad_clip is not None:
             gsq = sum(torch.sum(torch.square(g.float())) for g in flat_g)
+        if grad_clip is not None:
             gnorm = torch.sqrt(gsq + 1e-16)
             scale = torch.clamp(grad_clip / gnorm, max=1.0)
         else:

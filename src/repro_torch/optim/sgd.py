@@ -21,7 +21,8 @@ def make_sgd(lr: float = 0.1, momentum: float = 0.9,
                                                tree_leaves(params)])}
 
     @torch.no_grad()
-    def update(params, grads, state, lr=None, inplace=False):
+    def update(params, grads, state, lr=None, inplace=False, shards=None):
+        # elementwise: shards (a sharded step's LeafShards) change nothing
         # lr=None -> the constructor rate; a float or 0-d tensor overrides
         flat_p = tree_leaves(params)
         flat_g = tree_leaves(grads)

@@ -6,9 +6,9 @@ card that is a host round trip and a device move (:func:`to_host`,
 :func:`remesh_state`); a checkpointed session carry restores through the
 same pair (``runtime/fault.py::with_ef_residuals``, which on the mesh
 backend places each rank's own rows).  :func:`fold_batch` sizes the
-per-replica batch of a ``DeviceMesh``.  ``remesh_params`` (rebuild
-parameter shardings for a new mesh) needs the LM workload's parameter
-shardings (ROADMAP A9); here it raises.
+per-replica batch of a mesh (a ``DeviceMesh`` or an ``AbstractMesh``).
+:func:`remesh_params` moves a model's parameter shards onto a new mesh:
+gathered whole by the old mesh's specs, cut by the new one's.
 """
 from __future__ import annotations
 
@@ -48,10 +48,20 @@ def replicated(device, tree: PyTree) -> PyTree:
     return _map_tree(tree, lambda _k, _t: device)
 
 
-def remesh_params(cfg, params: PyTree, new_mesh, rules=None) -> PyTree:
-    raise NotImplementedError(
-        "remesh_params needs the LM workload's parameter shardings "
-        "(launch/sharding.py, ROADMAP A9); on one card use remesh_state")
+def remesh_params(cfg, params: PyTree, new_mesh, rules=None, *,
+                  old_mesh=None) -> PyTree:
+    """This rank's shards of ``params`` on ``new_mesh`` under ``rules``
+    (the defaults when None).  ``params`` is whole, or this rank's shards
+    on ``old_mesh`` (gathered first: a collective of that mesh)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import params_shape
+    rules = rules or sh.DEFAULT_RULES
+    pshape = params_shape(cfg)
+    if old_mesh is not None:
+        params = sh.gather_tree(params, sh.param_specs(
+            cfg, pshape, old_mesh, rules), old_mesh)
+    return sh.shard_tree(params, sh.param_specs(cfg, pshape, new_mesh,
+                                                rules), new_mesh)
 
 
 def fold_batch(global_batch: int, mesh) -> Dict[str, int]:

@@ -280,12 +280,27 @@ def test_remesh_state_roundtrip_is_value_identical():
 
 
 def test_remesh_params_and_fold_batch_need_the_mesh_backend():
-    """remesh_params waits for the LM parameter shardings (A9);
-    fold_batch reads the data x pod sizes of a mesh (any object with
-    DeviceMesh's mesh_dim_names and shape)."""
+    """remesh_params cuts a whole tree by the new mesh's parameter specs
+    (launch/sharding.py): on one process, rank 0's shards of a (1, 2)
+    mesh; fold_batch reads the data x pod sizes of a mesh (any object
+    with DeviceMesh's mesh_dim_names and shape)."""
     import types
-    with pytest.raises(NotImplementedError, match="A9"):
-        elastic.remesh_params(None, {}, None)
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.steps import params_shape
+    from repro_torch.models.transformer import init_params, stack_blocks
+    cfg = ARCHS["qwen3-32b"].SMOKE
+    whole = stack_blocks(init_params(cfg, 0, device="cpu"))
+    new = RankMesh([[0, 1]], device_type="cpu")
+    moved = elastic.remesh_params(cfg, whole, new)
+    specs = sharding.param_specs(cfg, params_shape(cfg), new)
+    assert tuple(moved["embed"].shape) == (cfg.vocab_size // 2, cfg.d_model)
+    assert torch.equal(moved["embed"], whole["embed"][:cfg.vocab_size // 2])
+    for a, b in zip(_leaves(moved), _leaves(sharding.shard_tree(
+            whole, specs, new, {"data": 0, "model": 0})), strict=True):
+        assert torch.equal(a, b)
     mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
                                  shape=(2, 4, 8))
     assert elastic.fold_batch(256, mesh) == {"data_parallel": 8,
