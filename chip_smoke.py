@@ -164,13 +164,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      int8-compressed.  recurrentgemma-2b at full width (d_model 2560,
      vocab 256000, tied, f32 params, bf16 activations, remat,
      xla_chunked attention, logits_chunk 512) cut to one (rec, rec, attn)
-     block, Adafactor, batch 4 x 2048 tokens (one sequence a rank), 8
-     steps (4 data syncs, 2 compressed pod syncs), from PRNGKey(0) (an
+     block, Adafactor, batch 4 x 2048 tokens (one sequence a rank), 4
+     steps (2 data syncs, 1 compressed pod sync; cut from 8 when phase 13
+     came in, to keep the script near 900 s), from PRNGKey(0) (an
      init alone first, timed by CUDA events with its peak memory, and
      freed).  Every loss finite and the last two below the first; after
      each due sync the group's ranks hold torch.equal params; each rank's scan launches, zeroed before the
      run and read after, equal 2 rec layers x (forward + remat recompute +
-     reverse) x 8; on rank 0 one step's gradients through the kernel match
+     reverse) x 4; on rank 0 one step's gradients through the kernel match
      the plain route (autograd through the plain scan) within
      TRAIN_GRAD_TOL per leaf, every recurrent-layer leaf nonzero.  At
      SMOKE width in the same spawn: (a) periods=(1, 1) SGD at f32
@@ -250,6 +251,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step seconds, collective seconds by axis and peak per rank.  (c)
      flash at (4, 4096, 5, 1, 256, window 2048) and the scan at (4, 4096,
      1280), the TP local shapes, timed as in phase 8.
+ 13. expert- and head-parallel serving through build_cell and TreeSync
+     over tensor-parallel replicas, gloo ranks sharing the card.  (a)
+     dbrx-132b at full width cut to DBRX_LAYERS = 2 layers on (data,
+     model) = (1, 2), two ranks: PRNGKey(0) weights drawn whole and cut to
+     each rank's 8 of 16 experts and 24 of 48 q heads (4 of 8 kv), phase
+     11(b)'s prompts (batch 4 x 4096), prefill then 16 greedy decode
+     steps.  Each rank must launch flash twice in prefill at (4, 4096, 24,
+     4, 128), all on the tensor-core route, and nothing in decode; the
+     gathered last-position logits equal on both ranks and within LM_TOL
+     of phase 11(b)'s (passed through build/ep_smoke/) on the rows whose
+     kept experts agree with phase 11's in both layers (the share of
+     tokens whose kept experts agree printed per layer, as phase 11
+     does).  (b) rwkv6-1.6b whole (24 layers, f32 params) head parallel on
+     (1, 2): a 1024-token prefill at batch 4 and 16 teacher-forced decode
+     steps at float32 activations, the prefill's and the last step's
+     logits within RWKV_TOL["float32"] of the single-rank run made first
+     in this process; then the same at the config's bf16 activations,
+     whose difference is printed (two orders of the same bf16 sums
+     diverge by 7-10% through 24 layers); no flash or scan launch.  Each leg prints prefill seconds, decode tokens/s, collective
+     seconds by axis and peak memory per rank.  (c) phase 9's model,
+     Adafactor, through Problem.lm + LMSession on (data, model) = (2, 2),
+     four ranks (two replicas of two model ranks), Topology.from_mesh(
+     periods=(2,)) with an int8 root, batch 4 x 2048, 4 steps (2 syncs):
+     every loss finite; after each sync the two ranks of a model
+     coordinate hold torch.equal shards; step 1's loss within TP_LOSS_RTOL
+     of the mean of the port's single-rank steps on each replica's rows
+     (run first in this process), each rank's shards after step 1 within
+     TP_PARAM_TOL (an unfactored entry whose rounding-small gradient took
+     the other sign, and so Adafactor's same step the other way, counted
+     apart), their second moments within TP_MOMENT_NORM_REL and
+     their updates within TP_UPDATE_NORM_REL of its replica's; scan
+     launches the code's count at (2, 2048, 1280); the consensus whole.
+     Prints seconds per warm step and per sync and peak per rank.  (d)
+     flash at (a)'s local shape (4, 4096, 24, 4, 128), timed as in phase 8.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -263,9 +298,9 @@ kill-and-resume, elastic and fleet legs, 3f's mesh run per rank -- and
 launches_by_path gives the serving path's and phase 11's requests, and
 its by_shape phase 11's prefill shapes; the rglru_scan row's
 launches_by_path gives the serving path's and, per rank, phase 9's, 10b's
-and 10's; both add phase 12's per rank, "tp_by_shape" phase 12(a)'s local
-shapes and "tp_local_shape" phase 12(c)'s timing) and, last, the device
-line.  Needs
+and 10's; both add phase 12's and phase 13's per rank, "tp_by_shape" phase 12(a)'s
+local shapes, "tp_local_shape" phase 12(c)'s timing and, in the flash row,
+"ep_local_shape" phase 13(d)'s) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -1956,7 +1991,7 @@ def time_scan(dev, card: str, B: int, S: int, W: int, label: str) -> dict:
 TRAIN_WORLD = 4          # gloo ranks sharing the card, one per replica
 TRAIN_MESH = (2, 2, 1)   # (pod, data, model)
 TRAIN_PERIODS = (2, 2)   # data syncs every 2 steps, pod syncs every 4
-TRAIN_STEPS = 8
+TRAIN_STEPS = 4          # cut from 8 to keep the script near 900 s
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048       # one 2048-token sequence a rank
 TRAIN_SPAWN_TIMEOUT = 900.0
 # gradients through the kernel route against the plain route on one rank,
@@ -2739,11 +2774,22 @@ def _prefill_only(cfg, params, prompts) -> None:
         transformer.prefill(cfg, params, prompts)
 
 
-def arch_path(dev, card: str) -> dict:
+def kept_experts(cfg, gate_idx, cap: int):
+    """(T, K) expert ids of one MoE layer's assignments, sorted, with -1
+    where the capacity ``cap`` dropped one."""
+    import torch
+    from repro_torch.models import mlp
+    keep = mlp.slots(gate_idx, cfg.num_experts, cap)[2]
+    return torch.where(keep.view(-1, cfg.experts_per_token), gate_idx,
+                       -1).sort(-1).values
+
+
+def arch_path(dev, card: str, ep_file: Path) -> dict:
     """Phase 11: h2o-danube-1.8b whole, dbrx-132b at full width cut to
     DBRX_LAYERS layers, rwkv6-1.6b whole, each served through generate
     (see the module docstring).  Returns the flash launches per leg and
-    the kernel's times at the h2o and dbrx prefill shapes."""
+    the kernel's times at the h2o and dbrx prefill shapes; dbrx's logits
+    and kept experts go to ``ep_file`` for phase 13(a)."""
     import dataclasses
     import torch
     from repro_torch.configs import dbrx_132b, h2o_danube_1_8b, rwkv6_1_6b
@@ -2816,14 +2862,12 @@ def arch_path(dev, card: str) -> dict:
     # dominate), and the plain route with every layer's experts pinned to
     # the kernel route's is held to LM_TOL on every row
     K = cfg.experts_per_token
-
-    def kept_experts(gate_idx):
-        """(T, K) expert ids with -1 where the capacity dropped one."""
-        keep = mlp.slots(gate_idx, cfg.num_experts, c_pre)[2]
-        return torch.where(keep.view(-1, K), gate_idx, -1).sort(-1).values
-
-    pairs = [(kept_experts(a), kept_experts(b))
+    pairs = [(kept_experts(cfg, a, c_pre), kept_experts(cfg, b, c_pre))
              for a, b in zip(routes, plain_routes, strict=True)]
+    # the kernel route's logits and kept experts, for phase 13(a)
+    ep_file.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"logits": logits.cpu(), "C": c_pre,
+                "kept": [a.cpu() for a, _ in pairs]}, ep_file)
     share = [float((a == b).all(-1).float().mean()) for a, b in pairs]
     last = [b * S + S - 1 for b in range(B)]
     rows_same = [all(torch.equal(a[t], b_[t]) for a, b_ in pairs)
@@ -3287,6 +3331,572 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
     return out
 
 
+# ---- phase 13: expert- and head-parallel serving, TreeSync over TP ----------
+EP_MESH = (1, 2)               # (data, model)
+EP_DECODE = 16
+RWKV_TP_PROMPT = 1024
+TSTP_MESH = (2, 2)             # (data, model): two replicas of two ranks
+TSTP_PERIODS = (2,)            # the int8 root syncs every 2 steps
+TSTP_STEPS = 4
+TSTP_BATCH, TSTP_SEQ = 4, 2048
+EP_SPAWN_TIMEOUT = 600.0
+
+
+def _ep_record(seen: list):
+    """models.mlp.route recording each MoE call's gate_idx into ``seen``;
+    returns a function that puts the original back."""
+    from repro_torch.models import mlp
+    route = mlp.route
+
+    def recording(p, cfg, xf):
+        out = route(p, cfg, xf)
+        seen.append(out[2])
+        return out
+
+    mlp.route = recording
+
+    def restore():
+        mlp.route = route
+    return restore
+
+
+def _ep_leg(cfgs, mesh, dev, prompt_len: int, teacher: bool) -> list:
+    """One phase-13 serving leg on this rank: build_cell's prefill and
+    decode programs, weights drawn whole from PRNGKey(0) and cut to this
+    rank's shards, prompts from the same key (phase 11's), then for each
+    config of ``cfgs`` (the same weights at other activation dtypes) a
+    prefill of ``prompt_len`` tokens and EP_DECODE decode steps (greedy,
+    or with ``teacher`` the prompt's next tokens fed, the last step's
+    logits kept).  The counts are zeroed before each prefill."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import shardctx, transformer
+    B = ARCH_B
+    n = prompt_len + (EP_DECODE if teacher else ARCH_GEN)
+    cells = [(steps.build_cell(c, ShapeSpec("ep_prefill", n, B, "prefill"),
+                               mesh),
+              steps.build_cell(c, ShapeSpec("ep_decode", n, B, "decode"),
+                               mesh)) for c in cfgs]
+    key = prng.PRNGKey(0)
+    local, init = init_on_card(lambda: cells[0][0].local(
+        0, transformer.init_params(cfgs[0], key, device=dev)))
+    torch.cuda.empty_cache()
+    seq = prng.randint(key, (B, ARCH_S), 0, cfgs[0].vocab_size).to(dev)
+    prompts = {"tokens": seq[:, :prompt_len].contiguous()}
+    outs = []
+    for cfg, (pre, dec) in zip(cfgs, cells, strict=True):
+        ctx = pre.ctx
+        seen = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_lm_counts()
+        ctx.reset_timing()
+        restore = _ep_record(seen)
+        try:
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                logits, cache = pre(local, prompts)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+        finally:
+            restore()
+        pre_counts = _kernel_counts()
+        pre_coll = dict(ctx.seconds)
+        ctx.reset_timing()
+        toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+        last = None
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            for t in range(EP_DECODE):
+                feed = seq[:, prompt_len + t:prompt_len + t + 1] if teacher \
+                    else toks[-1]
+                if teacher and t == EP_DECODE - 1:
+                    # the last step's logits, through the model itself
+                    with steps._shard_scope(ctx):
+                        used = shardctx.gather_params(
+                            cfg, steps._serving_layout(local))
+                        last, cache = transformer.decode_step(
+                            cfg, used, cache, feed, max_len=n)
+                    continue
+                nxt, cache = dec(local, cache, feed)
+                toks.append(nxt)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        out = {"act": cfg.activation_dtype, "init": init,
+               "prefill_s": prefill_s, "decode_s": decode_s,
+               "prefill_counts": pre_counts, "counts": _kernel_counts(),
+               "prefill_coll": pre_coll, "decode_coll": dict(ctx.seconds),
+               "decode_calls": dict(ctx.calls),
+               "peak": torch.cuda.max_memory_allocated(),
+               "logits": logits.cpu(), "tokens": torch.cat(toks, 1).cpu(),
+               "last": None if last is None else last.cpu(),
+               "finite": bool(torch.isfinite(logits).all()) and (
+                   last is None or bool(torch.isfinite(last).all()))}
+        if cfg.is_moe:
+            from repro_torch.models import mlp
+            cap = mlp.capacity(cfg, B * prompt_len)
+            out["kept"] = [kept_experts(cfg, g, cap).cpu() for g in seen]
+        outs.append(out)
+        del cache, logits
+    return outs
+
+
+def _ep_cfgs(which: str):
+    """Phase 13's serving configs: (a) dbrx-132b at full width cut to
+    DBRX_LAYERS layers, flash attention; (b) rwkv6-1.6b whole at float32
+    activations, then at its bf16 ones."""
+    import dataclasses
+    from repro_torch.configs import dbrx_132b, rwkv6_1_6b
+    if which == "dbrx":
+        return [dataclasses.replace(dbrx_132b.FULL, num_layers=DBRX_LAYERS,
+                                    attention_impl="flash")]
+    return [dataclasses.replace(rwkv6_1_6b.FULL, activation_dtype=act)
+            for act in ("float32", "bfloat16")]
+
+
+def _ep_serve_rank(rank: int, world: int, root: str, which: str) -> None:
+    """One rank of phase 13(a) (``which`` "dbrx": expert parallel) or (b)
+    ("rwkv": head parallel), in a spawned process on card 0, on (data,
+    model) = EP_MESH."""
+    import torch
+    import torch.distributed as dist
+    dev = _tp_start(rank, world, root)
+    teacher = which == "rwkv"
+    torch.save(_ep_leg(_ep_cfgs(which), _tp_mesh(EP_MESH), dev,
+                       RWKV_TP_PROMPT if teacher else ARCH_S, teacher),
+               f"{root}/{which}{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _tstp_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 13(c), in a spawned process on card 0: phase 9's
+    model through LMSession on (data, model) = (2, 2), Adafactor, the
+    int8 root every TSTP_PERIODS[0] steps.  Saves its shards after step 1
+    for the parent to hold against the single-rank step; a failed sync
+    check raises, which fails the spawn."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.api import Problem, Schedule, Session, Topology
+    from repro_torch.core import prng
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.optim import make_adafactor
+    dev = _tp_start(rank, world, root)
+    mesh = init_device_mesh("cuda", TSTP_MESH,
+                            mesh_dim_names=("data", "model"))
+    cfg = _train_cfg()
+    sess = Session.compile(
+        Problem.lm(cfg, make_adafactor(), batch=TSTP_BATCH, seq=TSTP_SEQ,
+                   seed=0),
+        Topology.from_mesh(mesh, sync_axes=("data",), periods=TSTP_PERIODS),
+        Schedule(compression=("int8",)), backend="mesh", mesh=mesh,
+        device=dev)
+    synced = []
+
+    def on_state(step, state):
+        if step == 1:
+            torch.save({"params": state.params, "opt": state.opt_state,
+                        "coords": sess.tp.ctx.coords,
+                        "replica": sess.replica},
+                       f"{root}/tstp_params{rank}.pt")
+        if step % TSTP_PERIODS[0] == 0:
+            # the replicas that share this rank's model coordinate
+            if not _group_equal(sess.comm.world, state.params):
+                raise AssertionError(f"after step {step}'s sync rank {rank}'s"
+                                     f" shards differ from its peer's")
+            synced.append(step)
+
+    st, init = init_on_card(lambda: sess.init_state(prng.PRNGKey(0)))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rg.LAUNCHES = 0
+    rg.LAUNCHES_BY_SHAPE.clear()
+    sess.tp.ctx.reset_timing()
+    t0 = time.perf_counter()
+    res = sess.run(steps=TSTP_STEPS, warm_start=st, on_state=on_state)
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in res.history]
+    stats = {"init": init, "run_s": time.perf_counter() - t0,
+             "history": res.history, "sync_s": sess.sync_seconds(),
+             "sync_n": sess.sync_counts(), "synced": synced,
+             "tp_coll": dict(sess.tp.ctx.seconds),
+             "tp_calls": dict(sess.tp.ctx.calls),
+             "launches": rg.LAUNCHES,
+             "by_shape": {"x".join(map(str, k)): v
+                          for k, v in rg.LAUNCHES_BY_SHAPE.items()},
+             "peak": torch.cuda.max_memory_allocated(),
+             "specs": sess.tp.pspecs, "ospecs": sess.tp.ospecs,
+             "consensus": [tuple(t.shape) for t in
+                           _leaves(res.consensus())]}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"rank {rank}: non-finite loss in {losses}")
+    torch.save(stats, f"{root}/tstp{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _rwkv_single(dev) -> list:
+    """Phase 13(b)'s single-rank runs in this process: rwkv6-1.6b whole,
+    the same prompts, RWKV_TP_PROMPT tokens of prefill and EP_DECODE
+    teacher-forced decode steps, at each of _ep_cfgs("rwkv")'s
+    activation dtypes."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+    cfgs = _ep_cfgs("rwkv")
+    key = prng.PRNGKey(0)
+    params = transformer.init_params(cfgs[0], key, device=dev)
+    seq = prng.randint(key, (ARCH_B, ARCH_S), 0, cfgs[0].vocab_size).to(dev)
+    outs = []
+    for cfg in cfgs:
+        with torch.no_grad():
+            logits, cache = transformer.prefill(
+                cfg, params, {"tokens": seq[:, :RWKV_TP_PROMPT]},
+                max_len=RWKV_TP_PROMPT + EP_DECODE)
+            for t in range(EP_DECODE):
+                last, cache = transformer.decode_step(
+                    cfg, params, cache,
+                    seq[:, RWKV_TP_PROMPT + t:RWKV_TP_PROMPT + t + 1])
+        outs.append({"logits": logits.cpu(), "last": last.cpu()})
+        del cache
+    del params
+    torch.cuda.empty_cache()
+    return outs
+
+
+def _tstp_reference(dev) -> dict:
+    """Phase 13(c)'s single-rank local steps in this process: for each
+    replica, make_train_step (Adafactor) from the whole PRNGKey(0) state
+    on the replica's rows of step 0's draw; the results kept on the host,
+    which leaves the card to the four ranks."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.engine import lm as lm_mod
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import make_adafactor
+    from repro_torch.optim.api import tree_leaves, tree_unflatten
+    cfg = _train_cfg()
+    opt = make_adafactor()
+
+    def host(tree):
+        return tree_unflatten(tree, [t.cpu() for t in tree_leaves(tree)])
+
+    out = {"p0": None, "params": [], "opt": [], "loss": []}
+    for r in range(TSTP_MESH[0]):
+        st = lm_mod.init_lm_state(cfg, opt, prng.PRNGKey(0), device=dev)
+        if out["p0"] is None:
+            out["p0"] = host(st.params)
+        rows = lm_mod.replica_rows(TSTP_BATCH, TSTP_MESH[0], r)
+        p, o, m = make_train_step(cfg, opt)(
+            st.params, st.opt_state, lm_batch(cfg, TSTP_BATCH, TSTP_SEQ, 0,
+                                              seed=0, rows=rows, device=dev))
+        out["params"].append(host(p))
+        out["opt"].append(host(o))
+        out["loss"].append(float(m["loss"]))
+        del st, p, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ep_dbrx(dev, card: str, root: Path, ep_file: Path) -> dict:
+    """Phase 13(a): dbrx-132b expert parallel on EP_MESH, against phase
+    11(b)'s single-rank run (``ep_file``)."""
+    import torch
+    from repro_torch.runtime import ranks
+    B = ARCH_B
+    n_ranks = EP_MESH[0] * EP_MESH[1]
+    ranks.spawn(_ep_serve_rank, n_ranks, args=(n_ranks, str(root), "dbrx"),
+                timeout=EP_SPAWN_TIMEOUT)
+    ref = torch.load(ep_file, weights_only=False)
+    cfg = _ep_cfgs("dbrx")[0]
+    st = [torch.load(root / f"dbrx{r}.pt", weights_only=False)[0]
+          for r in range(n_ranks)]
+    H, KV = cfg.num_heads // EP_MESH[1], cfg.num_kv_heads // EP_MESH[1]
+    shape = f"{B}x{ARCH_S}x{ARCH_S}x{H}x{KV}x{cfg.head_dim}"
+    launches = {}
+    for r, s in enumerate(st):
+        c = s["prefill_counts"]
+        if c["flash_attention"]["launches"] != DBRX_LAYERS or \
+                c["flash_attention"]["by_shape"] != {shape: DBRX_LAYERS} or \
+                c["flash_attention"]["by_route"]["wgmma"] != DBRX_LAYERS or \
+                c["rglru_scan"]["launches"] != 0:
+            raise AssertionError(f"rank {r}'s dbrx prefill launched {c}, the "
+                                 f"model's local shape is {shape} x "
+                                 f"{DBRX_LAYERS}")
+        if s["counts"]["flash_attention"]["launches"] != DBRX_LAYERS:
+            raise AssertionError(f"rank {r}'s dbrx decode launched flash")
+        if not s["finite"] or tuple(s["logits"].shape) != (B, cfg.vocab_size):
+            raise AssertionError(f"rank {r}'s dbrx logits not finite")
+        launches[f"ep_dbrx_rank{r}"] = {
+            "flash_attention": s["counts"]["flash_attention"]["launches"]}
+    if not torch.equal(st[0]["logits"], st[1]["logits"]):
+        raise AssertionError("the two ranks' gathered dbrx logits differ")
+    # a token whose experts flip between the runs moves by a share of its
+    # hidden state (phase 11's note): rows whose last position kept the
+    # same experts in both layers are held to LM_TOL
+    share = [float((a == b).all(-1).float().mean())
+             for a, b in zip(st[0]["kept"], ref["kept"], strict=True)]
+    last = [b * ARCH_S + ARCH_S - 1 for b in range(B)]
+    alike = [all(torch.equal(a[t], b[t]) for a, b in
+                 zip(st[0]["kept"], ref["kept"], strict=True)) for t in last]
+    row_err = (st[0]["logits"] - ref["logits"]).abs().amax(-1)
+    scale = float(ref["logits"].abs().max())
+    print(f"ep serve (phase 13a): {cfg.name} at full width, {DBRX_LAYERS} "
+          f"layers, expert parallel on (data, model) = {EP_MESH} "
+          f"({cfg.num_experts // EP_MESH[1]} of {cfg.num_experts} experts "
+          f"and {H} of {cfg.num_heads} q heads a rank), batch {B} x "
+          f"{ARCH_S}, {EP_DECODE} greedy decode steps; C = {ref['C']}; share "
+          f"of tokens whose kept experts agree with phase 11's single-rank "
+          f"run per layer {share}; last-position rows routed alike {alike};"
+          f" max abs logits diff per row "
+          f"{[f'{float(e):.4e}' for e in row_err]}, max|phase 11| "
+          f"{scale:.4e} (tolerance {LM_TOL} x max on the rows routed "
+          f"alike)  [{card}]")
+    if not any(alike) or not all(
+            float(e) <= LM_TOL * scale
+            for e, a in zip(row_err, alike, strict=True) if a):
+        raise AssertionError("the expert-parallel prefill's logits disagree "
+                             "with phase 11's")
+    for r, s in enumerate(st):
+        _ep_print(f"ep serve rank {r} ({cfg.name})", s, B, card)
+    return {"launches": launches, "agree": share, "rows_alike": alike,
+            "prefill_s": [s["prefill_s"] for s in st],
+            "tok_per_s": [B * EP_DECODE / s["decode_s"] for s in st]}
+
+
+def _hp_rwkv(dev, card: str, root: Path) -> dict:
+    """Phase 13(b): rwkv6-1.6b head parallel on EP_MESH at float32 and at
+    bf16 activations, against the single-rank runs made first here."""
+    import torch
+    from repro_torch.runtime import ranks
+    B = ARCH_B
+    refs = _rwkv_single(dev)
+    n_ranks = EP_MESH[0] * EP_MESH[1]
+    ranks.spawn(_ep_serve_rank, n_ranks, args=(n_ranks, str(root), "rwkv"),
+                timeout=EP_SPAWN_TIMEOUT)
+    cfgs = _ep_cfgs("rwkv")
+    legs = [torch.load(root / f"rwkv{r}.pt", weights_only=False)
+            for r in range(n_ranks)]
+    out = {"launches": {f"hp_rwkv_rank{r}": {} for r in range(n_ranks)}}
+    bad = []
+    for k, cfg in enumerate(cfgs):
+        act, tol = cfg.activation_dtype, RWKV_TOL[cfg.activation_dtype]
+        errs = []
+        for r, leg in enumerate(legs):
+            s = leg[k]
+            for name, c in s["prefill_counts"].items():
+                if c["launches"] or s["counts"][name]["launches"]:
+                    raise AssertionError(f"rank {r}'s rwkv6 run launched "
+                                         f"{name}")
+            if not s["finite"]:
+                raise AssertionError(f"rank {r}'s rwkv6 logits not finite")
+            for name in ("logits", "last"):
+                want = refs[k][name]
+                err = float((s[name] - want).abs().max())
+                errs.append((r, name, err, float(want.abs().max())))
+        agree = float((legs[0][k]["last"].argmax(-1)
+                       == refs[k]["last"].argmax(-1)).float().mean())
+        print(f"hp serve (phase 13b): {cfg.name} whole ({cfg.num_layers} "
+              f"layers, {act} activations), head parallel on (data, model) "
+              f"= {EP_MESH} ({cfg.d_model // cfg.rwkv_head_dim // EP_MESH[1]}"
+              f" of {cfg.d_model // cfg.rwkv_head_dim} heads a rank), a "
+              f"{RWKV_TP_PROMPT}-token prefill at batch {B} and {EP_DECODE} "
+              f"teacher-forced decode steps against the single-rank run: "
+              f"(rank, logits, max abs diff, max|single|) "
+              f"{[(r, n, f'{e:.4e}', f'{m:.4e}') for r, n, e, m in errs]} "
+              f"({f'tolerance {tol} x max' if act == 'float32' else 'reported'}"
+              f"), last-step argmax agreement "
+              f"{agree:.2f}; no flash or scan launch  [{card}]")
+        # the check is the float32 leg's: at bf16 through 24 layers two
+        # orders of the same sums diverge by 7-10% of max (phase 11's
+        # prefill-then-decode against a longer prefill: 6.6% on the
+        # card), so the bf16 leg's difference is reported, not held
+        if act == "float32":
+            bad += [(act, r, n) for r, n, e, m in errs if not e <= tol * m]
+        for r, leg in enumerate(legs):
+            _ep_print(f"hp serve rank {r} ({cfg.name}, {act})", leg[k], B,
+                      card)
+        out[act] = {"prefill_s": [leg[k]["prefill_s"] for leg in legs],
+                    "tok_per_s": [B * EP_DECODE / leg[k]["decode_s"]
+                                  for leg in legs],
+                    "err_share": max(e / m for _, _, e, m in errs)}
+    if bad:
+        raise AssertionError(f"the head-parallel rwkv6 runs disagree with "
+                             f"the single-rank runs: {bad}")
+    return out
+
+
+def _tstp(dev, card: str, root: Path) -> dict:
+    """Phase 13(c): TreeSync over tensor-parallel replicas, four ranks,
+    against the single-rank steps made first here."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim.api import tree_leaves
+    from repro_torch.runtime import ranks
+    tcfg = _train_cfg()
+    t0 = time.perf_counter()
+    want = _tstp_reference(dev)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    n_ranks = TSTP_MESH[0] * TSTP_MESH[1]
+    ranks.spawn(_tstp_rank, n_ranks, args=(n_ranks, str(root)),
+                timeout=EP_SPAWN_TIMEOUT)
+
+    def norm_rel(a, b) -> float:
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / max(float(torch.linalg.vector_norm(b.double())),
+                           1e-30))
+
+    ref_loss = sum(want["loss"]) / len(want["loss"])
+    n_scan = expected_scan_launches(tcfg, TSTP_STEPS)
+    scan_shape = (f"{TSTP_BATCH // TSTP_MESH[0]}x{TSTP_SEQ}x"
+                  f"{tcfg.lru_width // TSTP_MESH[1]}")
+    whole = [tuple(t.shape) for t in _leaves(want["p0"])]
+    worst, worst_moment, worst_update = 0.0, (0.0, ""), (0.0, "")
+    stats, launches, flips = [], {}, 0
+    for r in range(n_ranks):
+        s = torch.load(root / f"tstp{r}.pt", weights_only=False)
+        got = torch.load(root / f"tstp_params{r}.pt", weights_only=False,
+                         map_location="cpu")
+        cut = functools.partial(sh.shard_tree, mesh=_tp_mesh(TSTP_MESH),
+                                coords=got["coords"])
+        rep = got["replica"]
+        mine, before = cut(want["params"][rep], s["specs"]), cut(
+            want["p0"], s["specs"])
+        for (path, a), b, z in zip(sh.flat_with_path(got["params"]),
+                                   tree_leaves(mine), tree_leaves(before),
+                                   strict=True):
+            a, b, z = (x.to(dev).float() for x in (a, b, z))
+            # Adafactor's first step moves an unfactored entry by lr
+            # rms(p) sign(g): where g is rounding-small its sign can differ
+            # between the runs, and the entry then took the same step the
+            # other way (2 z - b); such flips are counted, and the update
+            # check below bounds their share (a leaf with a share f of
+            # them is 2 sqrt(f) off)
+            tol = TP_PARAM_TOL["atol"] + TP_PARAM_TOL["rtol"] * b.abs()
+            flip = ((a - (2 * z - b)).abs() <= tol) & ((a - b).abs() > tol)
+            flips += int(flip.sum())
+            excess = float(torch.where(flip, float("-inf"),
+                                       (a - b).abs() - tol).max())
+            worst = max(worst, excess + TP_PARAM_TOL["atol"])
+            if excess > 0:
+                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
+                                     f"step 1 is off the single-rank step")
+            upd = norm_rel(a - z, b - z)
+            worst_update = max(worst_update, (upd, sh.path_str(path)))
+            if not upd < TP_UPDATE_NORM_REL:
+                raise AssertionError(f"rank {r}'s update of "
+                                     f"{sh.path_str(path)} is {upd:.4f} off")
+        n_moments = 0
+        for (path, a), b in zip(sh.flat_with_path(got["opt"]),
+                                tree_leaves(cut(want["opt"][rep],
+                                                s["ospecs"])),
+                                strict=True):
+            if path[0] != "v":          # Adafactor's second moments
+                continue
+            n_moments += 1
+            off = norm_rel(a.to(dev), b.to(dev))
+            worst_moment = max(worst_moment, (off, sh.path_str(path)))
+            if not off < TP_MOMENT_NORM_REL:
+                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
+                                     f"step 1 is {off:.4f} off")
+        if n_moments < len(tree_leaves(mine)):
+            raise AssertionError(f"rank {r}'s optimizer state holds "
+                                 f"{n_moments} second moments")
+        del got, mine, before
+        h = s["history"]
+        if abs(h[0]["loss"] - ref_loss) > TP_LOSS_RTOL * abs(ref_loss):
+            raise AssertionError(f"rank {r}'s step-1 loss {h[0]['loss']} "
+                                 f"against the single-rank {ref_loss}")
+        if s["launches"] != n_scan or s["by_shape"] != {scan_shape: n_scan}:
+            raise AssertionError(f"rank {r}'s scan launches {s['launches']} "
+                                 f"at {s['by_shape']}, the code makes "
+                                 f"{n_scan} at {scan_shape}")
+        if s["synced"] != list(range(TSTP_PERIODS[0], TSTP_STEPS + 1,
+                                     TSTP_PERIODS[0])) or \
+                s["consensus"] != whole:
+            raise AssertionError(f"rank {r}: syncs checked at {s['synced']}, "
+                                 f"consensus shapes {s['consensus'][:3]}...")
+        launches[f"tstp_rank{r}"] = {"rglru_scan": s["launches"]}
+        print(f"tstp rank {r} (phase 13c): losses "
+              f"{[round(x['loss'], 6) for x in h]}, steps "
+              f"{[round(x['sec'], 3) for x in h]} s, syncs {s['sync_n']} "
+              f"taking {[round(x, 3) for x in s['sync_s']]} s, collectives "
+              f"over model {s['tp_coll']} s in {s['tp_calls']} calls, scan "
+              f"launches {s['launches']} at {s['by_shape']} (the code's "
+              f"{n_scan}), init {s['init']['s']:.3f} s (peak "
+              f"{s['init']['peak'] / 2**30:.3f} GiB), peak in the run "
+              f"{s['peak'] / 2**30:.3f} GiB  [{card}]")
+        stats.append(s)
+    h = stats[0]["history"]
+    warm = [x["sec"] for x in h[1:]]
+    sync_per = stats[0]["sync_s"][0] / max(stats[0]["sync_n"][0], 1)
+    print(f"tstp (phase 13c): {tcfg.num_layers} layers at full width, "
+          f"Adafactor, LMSession on (data, model) = {TSTP_MESH} (two "
+          f"replicas of two model ranks), periods {TSTP_PERIODS}, int8 "
+          f"root, batch {TSTP_BATCH} x {TSTP_SEQ}, {TSTP_STEPS} steps: step-1 "
+          f"loss {h[0]['loss']:.6f} against the single-rank steps' mean "
+          f"{ref_loss:.6f}; shards after step 1 within rtol "
+          f"{TP_PARAM_TOL['rtol']} / atol {TP_PARAM_TOL['atol']} of the "
+          f"single-rank step's (largest excess over rtol {worst:.3e}, "
+          f"{flips} entries of the four ranks' shards took the same step "
+          f"the other way); second moments: largest leaf "
+          f"{worst_moment[0]:.4e} "
+          f"norm-relative ({worst_moment[1]}); updates: largest leaf "
+          f"{worst_update[0]:.4e} ({worst_update[1]}); replicas equal after "
+          f"every sync; warm steps {[round(x, 3) for x in warm]} s, "
+          f"{sync_per:.3f} s per sync (rank 0); the single-rank steps "
+          f"{ref_s:.3f} s  [{card}]")
+    return {"launches": launches, "warm_s": warm, "sync_s": sync_per,
+            "flips": flips, "moment_norm_rel": worst_moment[0],
+            "update_norm_rel": worst_update[0], "excess": worst}
+
+
+def ep_path(dev, card: str, ep_file: Path) -> dict:
+    """Phase 13: (a) dbrx-132b expert parallel and (b) rwkv6-1.6b head
+    parallel through build_cell's serving cells, (c) TreeSync over
+    tensor-parallel replicas through LMSession, gloo ranks sharing the
+    card; (d) flash at (a)'s local shape."""
+    import shutil
+    import torch
+    from repro_torch.configs import dbrx_132b
+    t_phase = time.perf_counter()
+    root = ep_file.parent
+    out = {"dbrx": _ep_dbrx(dev, card, root, ep_file)}
+    torch.cuda.empty_cache()
+    out["rwkv"] = _hp_rwkv(dev, card, root)
+    torch.cuda.empty_cache()
+    out["tstp"] = _tstp(dev, card, root)
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: v for leg in ("dbrx", "rwkv", "tstp")
+                       for k, v in out[leg].pop("launches").items()}
+    cfg = dbrx_132b.FULL
+    out["flash_attention"] = time_flash(
+        dev, card, ARCH_B, ARCH_S, cfg.num_heads // EP_MESH[1],
+        cfg.num_kv_heads // EP_MESH[1], cfg.head_dim, cfg.window,
+        "dbrx-132b's expert-parallel local shape")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ep path: phase 13 took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+def _ep_print(label: str, s: dict, B: int, card: str) -> None:
+    c = s["prefill_counts"]["flash_attention"]
+    print(f"{label}: prefill {s['prefill_s']:.4f} s (collectives "
+          f"{s['prefill_coll']} s), decode {s['decode_s']:.4f} s = "
+          f"{B * EP_DECODE / s['decode_s']:.2f} tokens/s (collectives "
+          f"{s['decode_coll']} s in {s['decode_calls']} calls); flash in "
+          f"prefill {c['launches']} {c['by_route']} at {c['by_shape']}, none "
+          f"in decode; init {s['init']['s']:.3f} s (peak "
+          f"{s['init']['peak'] / 2**30:.3f} GiB), peak after it "
+          f"{s['peak'] / 2**30:.3f} GiB  [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3493,7 +4103,10 @@ def main() -> int:
 
     # ---- 11. the other architectures: dense, MoE, RWKV6 -------------------
     torch.cuda.empty_cache()
-    arched = arch_path(dev, card)
+    ep_root = ROOT / "build" / "ep_smoke"
+    shutil.rmtree(ep_root, ignore_errors=True)
+    ep_file = ep_root / "phase11_dbrx.pt"
+    arched = arch_path(dev, card, ep_file)
     lm["flash_attention"]["max_abs_err"] = max(
         [lm["flash_attention"]["max_abs_err"]]
         + [r["max_abs_err"] for r in arched["flash_shapes"].values()])
@@ -3504,7 +4117,14 @@ def main() -> int:
     for name in ("flash_attention", "rglru_scan"):
         lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
                                       tp[name]["max_abs_err"])
-    tp_paths = {name: {k: v[name] for k, v in tp["launches"].items()
+    # ---- 13. expert- and head-parallel serving, TreeSync over TP -------
+    torch.cuda.empty_cache()
+    ep = ep_path(dev, card, ep_file)
+    lm["flash_attention"]["max_abs_err"] = max(
+        lm["flash_attention"]["max_abs_err"],
+        ep["flash_attention"]["max_abs_err"])
+    tp_paths = {name: {k: v[name] for k, v in {**tp["launches"],
+                                               **ep["launches"]}.items()
                        if name in v}
                 for name in ("flash_attention", "rglru_scan")}
     # the flash row is the serving path's (bf16) kernel; its
@@ -3518,6 +4138,7 @@ def main() -> int:
                                  **tp_paths[name]},
             "by_shape": arched["flash_shapes"],
             "tp_local_shape": tp[name],
+            "ep_local_shape": ep[name],
             "tp_by_shape": tp["serve"]["by_shape"][name]}
            if name == "flash_attention" else {}),
         **({"launches_by_path": {

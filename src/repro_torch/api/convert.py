@@ -130,22 +130,29 @@ def lm_params_from_reference(tree, cfg, device="cuda") -> dict:
     return out
 
 
-def lm_state_from_reference(state, replica: int = 0, device="cuda"):
+def lm_state_from_reference(state, replica: int = 0, device="cuda", *,
+                            cfg=None, mesh=None):
     """Replica ``replica`` of a reference ``TreeSyncState`` with numpy
     leaves (``jax.tree.map(np.asarray, state)``; the fields may also be
     given as a dict ``{"params", "opt_state", "step", "residual"}``) as
     this package's :class:`~repro_torch.core.engine.lm.TreeSyncState` on
     ``device``: params in the reference's layout (blocks stacked), the
     optimizer state entry for entry (its step a 0-d int32 tensor), the
-    host step and the residual."""
-    from repro_torch.core.engine.lm import TreeSyncState
+    host step and the residual.  With ``mesh`` (and the model's ``cfg``)
+    whose ``model`` axis is larger than 1, this rank's shards of it, cut
+    by the replica's specs (``engine.lm.cut_replica_state``)."""
+    from repro_torch.core.engine.lm import TreeSyncState, cut_replica_state
+    from repro_torch.launch.mesh import axis_size
     get = (state.get if isinstance(state, dict)
            else lambda k: getattr(state, k, None))
     opt = _tree(get("opt_state"), device, replica)
-    return TreeSyncState(
+    out = TreeSyncState(
         params=_tree(get("params"), device, replica),
         opt_state=opt, step=int(np.asarray(get("step"))),
         residual=_tree(get("residual"), device, replica))
+    if mesh is not None and axis_size(mesh, "model") > 1:
+        out = cut_replica_state(cfg, mesh, out)
+    return out
 
 
 def _numpy_tree(node):

@@ -22,6 +22,12 @@ global batch, and takes the periods as a runtime operand, so
     replica's rank writes the gathered (R, ...) state) and restart bit
     for bit: the data stream is a pure function of ``(seed, step)``.
 
+A mesh with a ``model`` axis larger than 1 makes each replica that many
+ranks (tensor parallelism inside it, ``engine.lm.ReplicaTP``): a rank
+holds its shards of its replica's state, cut by the reference's
+``replica_specs`` rules, and runs the sharded local step; all ranks of a
+replica draw its rows, and ``consensus`` and checkpoints are whole.
+
 Every rank makes the same calls in the same order (compile builds the
 sync groups, a collective).  With no process group, ``make_host_mesh()``
 is a one-rank mesh: one replica, no syncs.  Parameters are drawn from
@@ -49,7 +55,6 @@ from repro_torch.core import prng
 from repro_torch.core.engine import lm as lm_mod
 from repro_torch.core.engine import plan as plan_mod
 from repro_torch.core.engine.method import get_method
-from repro_torch.core.treesync import check_replica_mesh
 from repro_torch.data.lm import lm_batch
 from repro_torch.launch.mesh import axis_size
 
@@ -67,15 +72,16 @@ class LMResult:
     history: List[dict]
     wall_s: float
     comm: Optional[lm_mod.LMComm] = None
+    tp: Optional[lm_mod.ReplicaTP] = None
 
     @property
     def final_loss(self) -> Optional[float]:
         return self.history[-1]["loss"] if self.history else None
 
     def consensus(self) -> PyTree:
-        """The fully-averaged model (what you checkpoint / serve), on every
-        rank; a collective over all replicas."""
-        return lm_mod.consensus_params(self.state, self.comm)
+        """The fully-averaged model (what you checkpoint / serve), whole on
+        every rank; a collective over all replicas (and ``model``)."""
+        return lm_mod.consensus_params(self.state, self.comm, self.tp)
 
 
 @dataclasses.dataclass
@@ -145,6 +151,8 @@ class LMSession:
         self._compression = comp[-1] if comp else "none"
         self.comm = lm_mod.get_comm(mesh, self._axes)
         self.replica = 0 if self.comm is None else self.comm.replica
+        # a replica over the ranks of the model axis (None: one rank)
+        self.tp = lm_mod.replica_tp(problem.cfg, problem.optimizer, mesh)
         self.last_executor = None
         # the data draws this session made
         self.draw_count = 0
@@ -173,7 +181,6 @@ class LMSession:
         if mesh is None:
             from repro_torch.launch.mesh import make_host_mesh
             mesh = make_host_mesh(device_type=device.type)
-        check_replica_mesh(mesh)
         axes = lm_mod.present_axes(mesh, tuple(sync_axes))
         sizes = tuple(axis_size(mesh, a) for a in axes)  # bottom-up
         if topology is None:
@@ -225,13 +232,17 @@ class LMSession:
 
     @property
     def writer(self) -> bool:
-        """Whether this rank writes what a run saves (the first replica)."""
-        return self.replica == 0
+        """Whether this rank writes what a run saves (the first replica's
+        first ``model`` rank)."""
+        return self.replica == 0 and (self.tp is None
+                                      or self.tp.model_rank == 0)
 
     def barrier(self) -> None:
-        """Wait for every rank of the mesh (nothing with one replica)."""
+        """Wait for every rank of the mesh (nothing with one rank)."""
         if self.comm is not None:
-            self.comm.world[0].all_max(torch.zeros(1))
+            self.comm.everyone.all_max(torch.zeros(1))
+        elif self.tp is not None:
+            self.tp.ctx.comms[("model",)].all_max(torch.zeros(1))
 
     def cache_stats(self) -> dict:
         """LM executor-cache counters (hits/misses/size)."""
@@ -250,15 +261,17 @@ class LMSession:
     # ------------------------------------------------------------------
     def init_state(self, key=None, *, seed: Optional[int] = None
                    ) -> TreeSyncState:
-        """This rank's replica of a fresh state on the session's device,
-        drawn as the reference's ``init_state``: from ``key`` (a port key
-        or a jax key's two words; an int is a seed), else from
-        ``PRNGKey(seed)``, by default ``PRNGKey(problem.seed)``."""
+        """This rank's replica of a fresh state on the session's device
+        (its shards of it on a ``model`` axis), drawn as the reference's
+        ``init_state``: from ``key`` (a port key or a jax key's two words;
+        an int is a seed), else from ``PRNGKey(seed)``, by default
+        ``PRNGKey(problem.seed)``."""
         key = prng.as_key(key if key is not None else (
             self.problem.seed if seed is None else int(seed)))
-        return lm_mod.init_lm_state(
+        return lm_mod.init_replica_state(
             self.problem.cfg, self.problem.optimizer, key,
-            compression=self._compression, device=self.device)
+            compression=self._compression, device=self.device,
+            mesh=self._mesh)
 
     def _executor(self, *, masked: bool = False, with_lr: bool = False,
                   batched: bool = False):
@@ -444,12 +457,14 @@ class LMSession:
             self.barrier()
         return LMResult(state=state,
                         history=list(_history_prefix) + history,
-                        wall_s=time.time() - t_start, comm=self.comm)
+                        wall_s=time.time() - t_start, comm=self.comm,
+                        tp=self.tp)
 
     def _save(self, mgr, step: int, state: TreeSyncState, meta: dict):
-        """Gather the replicas and let the first replica's rank write."""
+        """Gather the replicas (each whole over ``model``) and let the
+        first replica's first rank write."""
         from repro_torch.runtime import fault as fault_mod
-        payload = fault_mod.lm_payload(state, self.comm)
+        payload = fault_mod.lm_payload(state, self.comm, self.tp)
         if self.writer:
             mgr.save(step, payload, metadata=meta)
 
@@ -479,8 +494,13 @@ class LMSession:
             raise ValueError(
                 f"checkpoint data stream has seed {meta['seed']}; this "
                 f"problem uses seed {self.problem.seed}")
-        step, state = fault_mod.lm_restore(mgr, last, self.init_state(0),
-                                           self.replica)
+        # the file holds whole replicas: restore into a whole state, then cut
+        whole = lm_mod.init_lm_state(
+            self.problem.cfg, self.problem.optimizer, prng.PRNGKey(0),
+            compression=self._compression, device=self.device)
+        step, state = fault_mod.lm_restore(mgr, last, whole, self.replica)
+        if self.tp is not None:
+            state = self.tp.cut(state)
         remaining = int(meta["steps_total"]) - step if steps is None \
             else int(steps)
         if remaining < 0:

@@ -33,6 +33,18 @@ mean over the reshaped replica axis takes, whatever order a backend's
 blocks, so a chunked int8 round trip is the whole leaf's bit for bit),
 which bounds the gather buffers at full width.
 
+A replica may span the ranks of a ``model`` axis (tensor parallelism
+inside it, :class:`ReplicaTP`): its state is split over them by the
+reference's ``replica_specs`` rules (``replica_rules``: TP over ``model``,
+no FSDP), its local step is ``make_train_step``'s under a shard context
+over ``model`` alone, and all its ranks draw the same rows and share its
+participation.  Every sync group then runs per ``model`` coordinate: a
+level sync averages each rank's shards over the ranks that share its
+coordinate (so no replica counts twice), the int8 root quantizes a shard
+on its own only when its blocks are the whole leaf's (else the delta is
+gathered over ``model`` and quantized whole, as top-k always is), and
+``consensus_params`` and checkpoints gather the shards whole.
+
 The step takes the per-level periods as a runtime operand: level l fires
 when the step number is a multiple of ``cumprod(periods)[l]``.  Optional
 runtime operands, each a separate executor variant: ``masked=True`` (a
@@ -55,9 +67,10 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compression as comp_mod
 from repro_torch.core.engine.mesh import GROUP_TIMEOUT, GroupComm, leaf_ranks
-from repro_torch.launch.mesh import axis_size
-from repro_torch.launch.steps import grads_of
-from repro_torch.models import transformer
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import axis_size, axis_slice
+from repro_torch.launch.steps import grads_of, params_shape
+from repro_torch.models import shardctx, transformer
 from repro_torch.optim import Optimizer
 from repro_torch.optim.api import tree_leaves, tree_unflatten
 
@@ -114,6 +127,24 @@ def init_lm_state(cfg: ModelConfig, optimizer: Optimizer, key,
     return state
 
 
+def init_replica_state(cfg: ModelConfig, optimizer: Optimizer, key,
+                       compression: str = "none", *, device="cuda",
+                       mesh=None) -> TreeSyncState:
+    """:func:`init_lm_state`, cut to this rank's shards when ``mesh`` has a
+    ``model`` axis larger than 1 (the optimizer state initialized whole,
+    as its factoring follows the whole shapes; the residual made on the
+    shards)."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return init_lm_state(cfg, optimizer, key, compression,
+                             device=device)
+    state = cut_replica_state(cfg, mesh, init_lm_state(
+        cfg, optimizer, key, device=device))
+    if comp_mod.spec_name(*comp_mod.parse_spec(compression)) != "none":
+        state.residual = comp_mod.get_compressor(compression).init_residual(
+            state.params)
+    return state
+
+
 def replica_rows(batch: int, n_replicas: int, replica: int) -> slice:
     """The rows of a global batch that replica ``replica`` trains on (the
     reference's ``split_batch``: (B, ...) -> (R, B/R, ...))."""
@@ -130,6 +161,137 @@ def split_batch(batch: Dict[str, Tensor], n_replicas: int, replica: int
     rows = replica_rows(next(iter(batch.values())).shape[0], n_replicas,
                         replica)
     return {k: v[rows] for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# a replica over the ranks of a model axis
+# ---------------------------------------------------------------------------
+def replica_rules() -> sh.AxisRules:
+    """The rules of one replica's state (the reference's ``tp_rules``): TP
+    over ``model`` only, the ``data`` axis taken by the replica dim."""
+    return dataclasses.replace(sh.DEFAULT_RULES, embed=None,
+                               act_batch=("pod", "data"))
+
+
+def _state_specs(cfg: ModelConfig, mesh, opt_state):
+    """(param specs, optimizer-state specs) of one replica's whole state
+    on ``mesh``; ``opt_state`` gives the state's whole shapes."""
+    rules = replica_rules()
+    pshape = params_shape(cfg)
+    return (sh.param_specs(cfg, pshape, mesh, rules),
+            sh.opt_state_specs(cfg, opt_state, pshape, mesh, rules))
+
+
+def cut_replica_state(cfg: ModelConfig, mesh,
+                      state: TreeSyncState) -> TreeSyncState:
+    """This rank's shards of a whole replica state (new tensors; no
+    collective): params and residual by the replica's parameter specs,
+    the optimizer state by its specs."""
+    pspecs, ospecs = _state_specs(cfg, mesh, state.opt_state)
+    return TreeSyncState(
+        sh.shard_tree(state.params, pspecs, mesh),
+        sh.shard_tree(state.opt_state, ospecs, mesh), int(state.step),
+        None if state.residual is None
+        else sh.shard_tree(state.residual, pspecs, mesh))
+
+
+def shard_layout(cfg: ModelConfig, mesh
+                 ) -> Tuple[List[Optional[int]], List[bool]]:
+    """Per parameter leaf (``tree_leaves`` order) of one replica on
+    ``mesh``: the dim its spec splits over ``model`` (None: whole on every
+    rank), and whether its shard's int8 blocks are the whole leaf's --
+    every run of the shard along the flattened leaf a whole number of
+    ``compression.BLOCK`` elements."""
+    pshape = params_shape(cfg)
+    m = axis_size(mesh, "model")
+    split, aligned = [], []
+    for (_, spec), t in zip(
+            sh.flat_with_path(sh.param_specs(cfg, pshape, mesh,
+                                             replica_rules())),
+            tree_leaves(pshape), strict=True):
+        dims = [d for d, e in enumerate(spec) if "model" in sh.entry_axes(e)]
+        d = dims[0] if dims else None
+        split.append(d)
+        run = 0 if d is None else t.shape[d] // m * math.prod(
+            t.shape[d + 1:])
+        aligned.append(run % comp_mod.BLOCK == 0)
+    return split, aligned
+
+
+class ReplicaTP:
+    """One replica split over the ranks of ``mesh``'s ``model`` axis: the
+    shard context its local step runs in (building it is a collective of
+    the whole world) and the specs that cut its state or gather it whole.
+    Parameter leaves are numbered in ``tree_leaves`` order."""
+
+    def __init__(self, cfg: ModelConfig, optimizer: Optimizer, mesh):
+        self.cfg, self.mesh, self.rules = cfg, mesh, replica_rules()
+        self.ctx = shardctx.context_for(mesh, self.rules, ("model",))
+        self.model_rank = self.ctx.coords["model"]
+        self.size = axis_size(mesh, "model")
+        self.pspecs, self.ospecs = _state_specs(
+            cfg, mesh, optimizer.init(params_shape(cfg)))
+        self.split_dim, self.aligned = shard_layout(cfg, mesh)
+
+    def scope(self):
+        return shardctx.activation_sharding(self.mesh, self.rules,
+                                            ("model",))
+
+    def cut(self, state: TreeSyncState) -> TreeSyncState:
+        return cut_replica_state(self.cfg, self.mesh, state)
+
+    def _gather(self, tree, specs):
+        def whole(_p, spec, t):
+            if not isinstance(t, Tensor):
+                return t
+            for dim, entry in enumerate(spec):
+                if "model" in sh.entry_axes(entry):
+                    t = self.ctx.gather(t, dim, ("model",))
+            return t
+        return sh.map_with_path(whole, sh.for_layout(specs, tree), tree)
+
+    def whole_params(self, params: PyTree) -> PyTree:
+        """Parameters (or a tree shaped like them) gathered whole over
+        ``model``, on every rank of it."""
+        return self._gather(params, self.pspecs)
+
+    def whole(self, state: TreeSyncState) -> TreeSyncState:
+        return TreeSyncState(
+            self.whole_params(state.params),
+            self._gather(state.opt_state, self.ospecs), int(state.step),
+            None if state.residual is None
+            else self.whole_params(state.residual))
+
+    def whole_leaf(self, i: int, t: Tensor) -> Tensor:
+        d = self.split_dim[i]
+        return t if d is None else self.ctx.gather(t, d, ("model",))
+
+    def whole_shape(self, i: int, shape) -> Tuple[int, ...]:
+        d = self.split_dim[i]
+        return tuple(n * self.size if k == d else n
+                     for k, n in enumerate(shape))
+
+    def cut_leaf(self, i: int, t: Tensor) -> Tensor:
+        d = self.split_dim[i]
+        if d is None:
+            return t
+        c = t.shape[d] // self.size
+        return t.narrow(d, self.model_rank * c, c)
+
+
+_TPS: Dict[Tuple, ReplicaTP] = {}
+
+
+def replica_tp(cfg: ModelConfig, optimizer: Optimizer, mesh
+               ) -> Optional[ReplicaTP]:
+    """The cached :class:`ReplicaTP` of ``(cfg, optimizer, mesh)``; None
+    when the mesh's ``model`` axis is 1 (a replica is one rank)."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return None
+    key = (cfg, optimizer.name, optimizer.init, _mesh_key(mesh, ()))
+    if key not in _TPS:
+        _TPS[key] = ReplicaTP(cfg, optimizer, mesh)
+    return _TPS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -165,24 +327,41 @@ def _runs(sizes_up: Sequence[int], lo: int, hi: int) -> List[List[int]]:
 class LMComm:
     """This rank's replica index and its sync groups: ``level[l]`` (digit
     l) and ``prefix[l]`` (digits 0..l), each a ``(GroupComm, members)``
-    pair with the members' replica indices in order.  Building one is a
-    collective: every rank creates every group."""
+    pair with the members' replica indices in order.  With a ``model``
+    axis every group holds the ranks of one ``model`` coordinate (this
+    rank's, ``model_rank``), and ``everyone`` is a group of every rank of
+    the mesh.  Building one is a collective: every rank creates every
+    group."""
 
     def __init__(self, mesh, axes: Sequence[str]):
         self.axes = tuple(axes)                       # bottom-up
         sizes_up = [axis_size(mesh, a) for a in self.axes]
         self.R = math.prod(sizes_up)
-        ranks = leaf_ranks(mesh, self.axes)           # replica -> rank
-        self.replica = ranks.index(dist.get_rank())
+        m = axis_size(mesh, "model")
+        # replica -> rank, per model coordinate
+        per = [leaf_ranks(axis_slice(mesh, "model", c) if m > 1 else mesh,
+                          self.axes) for c in range(m)]
+        me = dist.get_rank()
+        self.model_rank = next(c for c in range(m) if me in per[c])
+        self.replica = per[self.model_rank].index(me)
         self.level, self.prefix = [], []
         for l in range(len(self.axes)):
-            self.level.append(self._group(ranks, _runs(sizes_up, l, l)))
-            self.prefix.append(self._group(ranks, _runs(sizes_up, 0, l)))
+            self.level.append(self._group(per, _runs(sizes_up, l, l)))
+            self.prefix.append(self._group(per, _runs(sizes_up, 0, l)))
+        if m == 1:
+            self.everyone = self.prefix[-1][0]
+        else:
+            every = sorted(r for ranks in per for r in ranks)
+            group, _ = dist.new_subgroups_by_enumeration(
+                [every], timeout=GROUP_TIMEOUT)
+            self.everyone = GroupComm(group, every)
 
-    def _group(self, ranks, runs):
+    def _group(self, per, runs):
         group, _ = dist.new_subgroups_by_enumeration(
-            [[ranks[r] for r in run] for run in runs], timeout=GROUP_TIMEOUT)
+            [[ranks[r] for r in run] for ranks in per for run in runs],
+            timeout=GROUP_TIMEOUT)
         mine = next(run for run in runs if self.replica in run)
+        ranks = per[self.model_rank]
         return GroupComm(group, [ranks[r] for r in mine]), mine
 
     @property
@@ -259,32 +438,51 @@ def _fits(compressor) -> bool:
 
 @torch.no_grad()
 def compressed_outer_sync(params: PyTree, residual: PyTree, comm: LMComm,
-                          compressor, mask: Optional[np.ndarray]) -> None:
+                          compressor, mask: Optional[np.ndarray],
+                          tp: Optional[ReplicaTP] = None) -> None:
     """Cross-outermost-level averaging of compressed deltas with error
     feedback, in place.  The anchor is the inner-level mean (identical
     within each outer group after the inner syncs); each rank compresses
     its own delta from that anchor plus its residual, the outer group
     averages the decompressed deltas and the anchors.  Masked: absentees
-    keep their params and residual exactly."""
+    keep their params and residual exactly.  Under ``tp`` a split leaf
+    whose shard is not a run of the whole leaf's int8 blocks (and every
+    split leaf under top-k, which selects over the replica's whole leaf)
+    has its delta and residual gathered over ``model`` and compressed
+    whole; the residual stays this rank's shard."""
     L = len(comm.level)
     own = mask is None or bool(mask[comm.replica] > 0)
     outer = comm.level[L - 1]
-    for p, r in zip(tree_leaves(params), tree_leaves(residual), strict=True):
-        pieces = (zip(_pieces(p), _pieces(r), strict=True) if _fits(compressor)
+    for i, (p, r) in enumerate(zip(tree_leaves(params), tree_leaves(residual),
+                                   strict=True)):
+        whole = tp is not None and tp.split_dim[i] is not None and not (
+            _fits(compressor) and tp.aligned[i])
+        pieces = (zip(_pieces(p), _pieces(r), strict=True)
+                  if _fits(compressor) and not whole
                   else [(p.view(-1), r.view(-1))])
         for pp, rr in pieces:
             x = pp.float()
             inner = (_group_mean(comm.prefix[L - 2], x, mask, own)
                      if L > 1 else x)
-            wire, new_r = compressor.compress([x - inner], [rr])
-            deq = compressor.decompress(wire)[0]
+            if whole:
+                shape = tuple(p.shape)
+                wire, new_r = compressor.compress(
+                    [tp.whole_leaf(i, (x - inner).view(shape)).reshape(-1)],
+                    [tp.whole_leaf(i, rr.view(shape)).reshape(-1)])
+                full = tp.whole_shape(i, shape)
+                deq = tp.cut_leaf(i, compressor.decompress(wire)[0]
+                                  .view(full))
+                new_r = [tp.cut_leaf(i, new_r[0].view(full))]
+            else:
+                wire, new_r = compressor.compress([x - inner], [rr])
+                deq = compressor.decompress(wire)[0]
             both = torch.stack([deq.reshape(-1), inner.reshape(-1)])
             avg = _group_mean(outer, both.reshape(-1), mask, own)
             avg = avg.reshape(2, -1)
             new_p = (avg[1] + avg[0]).to(p.dtype)
             if own:
                 pp.copy_(new_p)
-                rr.copy_(new_r[0])
+                rr.copy_(new_r[0].reshape(rr.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +495,16 @@ class LMStep:
     and ``participation`` the (R,) mask on every rank.  The state is
     updated in place (the reference's executor donates it) and returned;
     ``metrics`` are the replicas' mean ``loss``, ``moe_aux`` and
-    ``tokens`` as 0-d f32 tensors."""
+    ``tokens`` as 0-d f32 tensors.  Under ``tp`` the state is this rank's
+    shards of its replica and the local step runs in the replica's shard
+    context."""
 
     def __init__(self, cfg: ModelConfig, optimizer: Optimizer, *,
                  comm: Optional[LMComm], compression: str = "none",
                  average_opt_state: bool = True, masked: bool = False,
-                 with_lr: bool = False):
+                 with_lr: bool = False, tp: Optional[ReplicaTP] = None):
         self.cfg, self.optimizer, self.comm = cfg, optimizer, comm
+        self.tp = tp
         self.L = 0 if comm is None else len(comm.level)
         self.masked, self.with_lr = masked, with_lr
         self.average_opt_state = average_opt_state
@@ -320,13 +521,15 @@ class LMStep:
         self.sync_count = [0] * self.L
 
     def local_step(self, state: TreeSyncState, batch, lr):
-        grads, metrics = grads_of(self.cfg, state.params, batch)
-        if self.with_lr:
-            _, state.opt_state = self.optimizer.update(
-                state.params, grads, state.opt_state, lr=lr, inplace=True)
+        kw = {"lr": lr} if self.with_lr else {}
+        if self.tp is None:
+            grads, metrics = grads_of(self.cfg, state.params, batch)
         else:
-            _, state.opt_state = self.optimizer.update(
-                state.params, grads, state.opt_state, inplace=True)
+            with self.tp.scope():
+                grads, metrics = grads_of(self.cfg, state.params, batch)
+                kw["shards"] = shardctx.leaf_shards(self.cfg, state.params)
+        _, state.opt_state = self.optimizer.update(
+            state.params, grads, state.opt_state, inplace=True, **kw)
         return metrics
 
     def sync_level(self, state: TreeSyncState, level: int, mask) -> None:
@@ -353,7 +556,8 @@ class LMStep:
             t0 = time.perf_counter()
             if level == self.L - 1 and self.use_comp:
                 compressed_outer_sync(state.params, state.residual,
-                                      self.comm, self.compressor, mask)
+                                      self.comm, self.compressor, mask,
+                                      self.tp)
             else:
                 self.sync_level(state, level, mask)
             if dev.type == "cuda":
@@ -408,10 +612,11 @@ class BatchedLMStep(LMStep):
 
 
 @torch.no_grad()
-def consensus_params(state: TreeSyncState, comm: Optional[LMComm] = None
-                     ) -> PyTree:
+def consensus_params(state: TreeSyncState, comm: Optional[LMComm] = None,
+                     tp: Optional[ReplicaTP] = None) -> PyTree:
     """The fully-averaged model (what you checkpoint / serve): the f32
-    mean of every parameter over all replicas, on every rank."""
+    mean of every parameter over all replicas, whole (gathered over
+    ``model`` under ``tp``), on every rank."""
     out = []
     for t in tree_leaves(state.params):
         v = t.float().clone()
@@ -419,7 +624,8 @@ def consensus_params(state: TreeSyncState, comm: Optional[LMComm] = None
             for piece in _pieces(v):
                 piece.copy_(_group_mean(comm.world, piece, None, True))
         out.append(v)
-    return tree_unflatten(state.params, out)
+    out = tree_unflatten(state.params, out)
+    return out if tp is None else tp.whole_params(out)
 
 
 # ---------------------------------------------------------------------------
@@ -446,12 +652,14 @@ def get_lm_executor(cfg: ModelConfig, optimizer: Optimizer, *,
                     with_lr: bool = False, batched: bool = False,
                     mesh=None, axes: Sequence[str] = ()) -> LMStep:
     """Memoized :class:`LMStep` for one (config, variant, mesh).  Building
-    one may build the mesh's sync groups, a collective.  ``batched=True``
+    one may build the mesh's sync groups and, on a ``model`` axis, the
+    replica's shard context: collectives.  ``batched=True``
     gives the sweep's :class:`BatchedLMStep` (B members on each rank; B is
     the length of the states it is called with, so one executor serves
     every grid)."""
     axes = tuple(axes)
-    mkey = None if mesh is None or not axes else _mesh_key(mesh, axes)
+    tp = replica_tp(cfg, optimizer, mesh)
+    mkey = None if mesh is None or not (axes or tp) else _mesh_key(mesh, axes)
     key = (cfg, optimizer.name, optimizer.init, optimizer.update,
            tuple(level_sizes), compression, average_opt_state, masked,
            with_lr, batched, mkey)
@@ -468,7 +676,8 @@ def get_lm_executor(cfg: ModelConfig, optimizer: Optimizer, *,
                          f"the mesh's {axes}")
     fn = (BatchedLMStep if batched else LMStep)(
         cfg, optimizer, comm=comm, compression=compression,
-        average_opt_state=average_opt_state, masked=masked, with_lr=with_lr)
+        average_opt_state=average_opt_state, masked=masked, with_lr=with_lr,
+        tp=tp)
     _EXECUTOR_CACHE[key] = fn
     return fn
 

@@ -7,8 +7,9 @@ data-parallel LM training (the JAX package's ``core/treesync.py``).
   level 2  average over the "pod" axis              (the slow link),
            optionally int8-compressed with error feedback
 
-Here each replica is one ``torch.distributed`` rank (``core/engine/lm.py``):
-a level-l sync is a mean over the ranks of that level's sync group.
+Here each replica is one ``torch.distributed`` rank, or the ranks of the
+mesh's ``model`` axis (``core/engine/lm.py``): a level-l sync is a mean
+over the ranks of that level's sync group.
 periods=(1, 1) makes every step fully synchronous: with SGD this is
 standard data parallelism, the paper's star-network special case.
 
@@ -17,10 +18,9 @@ shims: ``make_treesync_step`` is deprecated in favor of ``Problem.lm(...)``
 + ``Session.compile(backend="mesh")`` (``api/lm.py``).  The reference's
 specs of a replica's state, ``tp_rules`` / ``replica_specs`` (TP over
 ``model`` inside each replica), are here as spec functions equal to the
-reference's.  The reference's LM engine never places its state by them,
-and neither does the port's: a TreeSync mesh whose ``model`` axis is
-larger than 1 is refused (ROADMAP A9.5b).  Tensor parallelism itself runs
-in ``launch/steps.py::build_cell``.
+reference's.  The reference's LM engine never places its state by them;
+the port's does on a ``model`` axis larger than 1: each rank holds its
+shards of its replica (``engine.lm.ReplicaTP``).
 """
 from __future__ import annotations
 
@@ -39,11 +39,6 @@ from repro_torch.core.engine.lm import (  # noqa: F401
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import axis_size
 from repro_torch.optim import Optimizer
-
-_TP = ("TreeSync with a 'model' axis inside a replica is not ported yet "
-       "(ROADMAP A9.5b: LMSession through replica_specs); use a mesh whose "
-       "'model' axis has size 1, one rank per replica, or "
-       "launch/steps.py::build_cell for tensor parallelism")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +79,6 @@ class TreeSyncConfig:
         return tuple(out)
 
 
-def check_replica_mesh(mesh) -> None:
-    """Refuse a mesh that would shard a replica over the ``model`` axis."""
-    if axis_size(mesh, "model") > 1:
-        raise NotImplementedError(_TP)
-
-
 def _present_axes(ts: TreeSyncConfig, mesh) -> Tuple[str, ...]:
     return lm_mod.present_axes(mesh, ts.sync_axes)
 
@@ -104,8 +93,7 @@ def replica_count(ts: TreeSyncConfig, mesh) -> int:
 def tp_rules() -> sh.AxisRules:
     """Param sharding inside one replica: TP over "model" only (the "data"
     axis is occupied by the replica dim, so no FSDP)."""
-    return dataclasses.replace(sh.DEFAULT_RULES, embed=None,
-                               act_batch=("pod", "data"))
+    return lm_mod.replica_rules()
 
 
 def replica_specs(cfg: ModelConfig, tree_shape, mesh, ts: TreeSyncConfig,
@@ -122,12 +110,13 @@ def replica_specs(cfg: ModelConfig, tree_shape, mesh, ts: TreeSyncConfig,
 
 def init_state(cfg: ModelConfig, optimizer: Optimizer, key, mesh,
                ts: TreeSyncConfig, *, device="cuda") -> TreeSyncState:
-    """This rank's replica of a fresh state on ``device``: ``key`` a PRNG
-    key (``core/prng.py``, or a jax key's two words) or an int seed
-    (``PRNGKey(seed)``), drawn as the reference's ``init_state`` draws."""
-    check_replica_mesh(mesh)
-    return lm_mod.init_lm_state(cfg, optimizer, prng.as_key(key),
-                                compression=ts.compression, device=device)
+    """This rank's replica of a fresh state on ``device`` (its shards of
+    it on a ``model`` axis): ``key`` a PRNG key (``core/prng.py``, or a
+    jax key's two words) or an int seed (``PRNGKey(seed)``), drawn as the
+    reference's ``init_state`` draws."""
+    return lm_mod.init_replica_state(cfg, optimizer, prng.as_key(key),
+                                     compression=ts.compression,
+                                     device=device, mesh=mesh)
 
 
 def make_treesync_step(cfg: ModelConfig, optimizer: Optimizer,
@@ -138,13 +127,13 @@ def make_treesync_step(cfg: ModelConfig, optimizer: Optimizer,
     (runtime periods, straggler masks, checkpoint/resume).
 
     ``batch`` is this rank's rows of the global batch
-    (``split_batch(batch, n, replica)``).  Building the step is a
-    collective when the mesh has sync axes."""
+    (``split_batch(batch, n, replica)``; every rank of a replica takes
+    its rows).  Building the step is a collective when the mesh has sync
+    axes or a ``model`` axis."""
     warnings.warn(
         "make_treesync_step is deprecated; use Problem.lm(...) + "
         "Session.compile(backend='mesh') (repro_torch.api) for the "
         "Session-driven LM program", DeprecationWarning, stacklevel=2)
-    check_replica_mesh(mesh)
     axes = _present_axes(ts, mesh)
     level_sizes = tuple(axis_size(mesh, a) for a in reversed(axes))
     periods = list(ts.periods[: len(axes)])

@@ -11,7 +11,8 @@ and single-host runs use: ``("data", "model")`` over the initialized world,
 or a one-rank mesh when no process group exists -- what the reference's
 ``make_host_mesh`` gives on one device.  :class:`RankMesh` names any block
 of a world's ranks as a mesh (a test's two (1, 2) meshes in a world of
-four).
+four), and :func:`axis_slice` the ranks at one coordinate of an axis (a
+TreeSync mesh's replicas that share a ``model`` coordinate).
 
 Every mesh here exposes what ``DeviceMesh`` does and the port reads:
 ``mesh_dim_names``, ``shape`` and, for a mesh with ranks, the rank array
@@ -115,6 +116,15 @@ def make_host_mesh(model: int = 1, device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (n // model, model),
                             mesh_dim_names=SINGLE_POD_AXES)
+
+
+def axis_slice(mesh, name: str, index: int) -> RankMesh:
+    """The ranks of ``mesh`` at coordinate ``index`` of axis ``name``, as a
+    :class:`RankMesh` with the same axes (``name`` of size 1): a TreeSync
+    mesh's replicas at one ``model`` coordinate."""
+    names = tuple(mesh.mesh_dim_names or ())
+    ranks = torch.as_tensor(mesh.mesh).narrow(names.index(name), index, 1)
+    return RankMesh(ranks, names, device_type=mesh.device_type)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

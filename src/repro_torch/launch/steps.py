@@ -7,7 +7,9 @@
   long_500k    -> serve_step with a 512k-token cache    (sub-quadratic only)
 
 :func:`build_cell` makes one (cfg x shape x mesh) cell: FSDP over ``data``
-and TP over ``model`` (``launch/sharding.py``, ``models/shardctx.py``).
+and TP over ``model`` (``launch/sharding.py``, ``models/shardctx.py``:
+Megatron-style for attention, MLPs and RG-LRU, expert parallel for MoE,
+head parallel for RWKV6).
 Its program runs one step on this rank's shards of the parameters,
 optimizer state, batch and cache, cut by the specs in ``in_shardings``.
 The parameters are gathered over ``data`` once, at the start of a step,
@@ -29,17 +31,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import prng
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.mesh import axis_size
 from repro_torch.models import shardctx, transformer
 from repro_torch.optim import Optimizer, get_optimizer
 from repro_torch.optim.api import tree_leaves, tree_unflatten
 
 PyTree = Any
-
-# the ROADMAP item the refused cells wait for
-TP_TODO = ("ROADMAP A9.5c: tensor-parallel compute for MoE (expert "
-           "parallel) and RWKV6")
-
 
 # ---------------------------------------------------------------------------
 # input specs (meta tensors -- no allocation; stand-ins)
@@ -237,13 +233,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     (FSDP's gather once per step: see the module docstring).
     Building it is a collective of the whole world (the mesh's groups):
     every rank builds the same cells in the same order, a rank outside
-    ``mesh`` included (its program refuses to run).  MoE and RWKV6 on a
-    ``model`` axis larger than 1 raise ``NotImplementedError``."""
-    if axis_size(mesh, "model") > 1 and (cfg.is_moe or cfg.is_rwkv):
-        raise NotImplementedError(
-            f"{cfg.name} on a 'model' axis of {axis_size(mesh, 'model')}: "
-            f"its specs are in launch/sharding.py, its sharded compute is "
-            f"not ({TP_TODO}); use model=1")
+    ``mesh`` included (its program refuses to run).  An MoE layer runs
+    expert parallel over ``model`` and an RWKV6 layer head parallel
+    (``models/mlp.py``, ``models/rwkv6.py``)."""
     pshape = params_shape(cfg)
     pspecs = sh.param_specs(cfg, pshape, mesh, rules)
     batch = input_specs(cfg, shape)

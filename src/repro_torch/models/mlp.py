@@ -16,6 +16,17 @@ counts the assignments of the ranks holding earlier rows (the gathered
 per-expert counts), and the load-balance loss's fractions and mean
 probabilities are sums over the batch axes.  Each rank dispatches its own
 tokens into the global slots.
+
+Expert parallel (the specs split the expert dim over ``model``): the
+activations are whole on every rank of ``model``, and so is the routing --
+every rank computes the same probabilities, capacity, slots and
+load-balance loss (the loss is whole on each rank: it is not summed over
+``model``).  Each rank then dispatches into, runs and combines only its
+own E/m experts' assignments, and the partial outputs are summed over
+``model``.  The token rows and the normalized gate weights enter that
+share of the work through ``copy_to_model``, so their gradients -- and
+through them the router's and the input's -- are the sums of every
+rank's share.
 """
 from __future__ import annotations
 
@@ -168,21 +179,34 @@ def moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     gate_w = gate_w / (torch.sum(gate_w, dim=-1, keepdim=True) + 1e-9)
 
     eids, slot, keep = slots(gate_idx, E, C, before)
+    e0, n_exp = shardctx.expert_range(cfg)
+    ep = n_exp != E
+    w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+    xd = xf
+    if ep:   # this rank's experts only (see the module docstring)
+        xd = shardctx.copy_to_model(xf)
+        gate_w = shardctx.copy_to_model(gate_w)
+        keep = keep & (eids >= e0) & (eids < e0 + n_exp)
+        w = {n: shardctx.model_share(cfg, ("ffn", n), t, 0)
+             for n, t in w.items()}
     # kept (expert, slot) pairs are unique, so writing the kept rows is the
-    # reference's scatter-add into zeros; dropped rows go to a spare row
-    # past the buffer, which is cut off
-    flat = torch.where(keep, eids * C + slot, E * C)
-    tok_rep = torch.repeat_interleave(xf, K, dim=0)
-    buf = x.new_zeros((E * C + 1, D)).index_copy(0, flat, tok_rep)
-    buf = buf[: E * C].view(E, C, D)
+    # reference's scatter-add into zeros; dropped rows (and other ranks'
+    # experts') go to a spare row past the buffer, which is cut off
+    row = (eids - e0) * C + slot
+    flat = torch.where(keep, row, n_exp * C)
+    tok_rep = torch.repeat_interleave(xd, K, dim=0)
+    buf = x.new_zeros((n_exp * C + 1, D)).index_copy(0, flat, tok_rep)
+    buf = buf[: n_exp * C].view(n_exp, C, D)
 
     # batched expert FFN: (E, C, D) x (E, D, F)
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"]).reshape(E * C, D)
+    h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_up"])
+    out_buf = torch.bmm(h, w["w_down"]).reshape(n_exp * C, D)
 
     # gather back and combine
-    out_tok = out_buf[eids * C + slot] * keep[:, None].to(x.dtype)
+    out_tok = out_buf[torch.where(keep, row, 0)] * keep[:, None].to(x.dtype)
     out = (out_tok.reshape(T, K, D) * gate_w[..., None].to(x.dtype)).sum(1)
+    if ep:
+        out = shardctx.reduce_from_model(out)
     if cfg.moe_dense_ff:
         out = out + mlp(p["dense"], cfg, xf, leaf=("ffn", "dense"))
     return out.reshape(B, S, D), aux

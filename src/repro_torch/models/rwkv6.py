@@ -19,6 +19,19 @@ e^64``).  Sub-layer weights arrive in the activation dtype
 float32 tensor by a bfloat16 weight, jnp promotes the weight to float32,
 and the port upcasts it at the same places (``torch.matmul`` refuses
 mixed dtypes).
+
+Head parallel (``models/shardctx.py``; the specs split ``wr``'s output
+channels over ``model``): ``wr``/``wk``/``wv``/``wg`` and ``cm_wk``/``cm_wr``
+are column-parallel, ``wo`` and ``cm_wv`` row-parallel, and the replicated
+leaves used on a rank's heads or channels (``u``, ``w0``, ``w_lora_b``'s
+output columns, ``ln_x``) are cut to them.  The token shift and ddlerp run
+whole on every rank; the WKV runs on the local heads; ``ln_x``'s norm
+takes its sum of squares over the whole width (all-reduced); ``wo``'s
+partial sums are reduced over ``model``.  The channel mix reduce-scatters
+``kk @ cm_wv``'s partial sums onto the local channels, gates them by
+``sigmoid(xr @ cm_wr)`` and gathers the channels whole.  The decode cache
+holds the local heads' WKV state and the local channels of the two token
+shifts, which decode gathers whole.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import shardctx
 from repro_torch.models.common import dense_init, rms_norm, split_keys
 from repro_torch.models.rglru import linspace
 
@@ -80,6 +94,47 @@ def init_rwkv_params(key, cfg: ModelConfig, dtype, device=None):
     }
 
 
+# the leaves used on a rank's heads or channels, and the dim that is theirs
+_LOCAL_DIMS = {"wr": -1, "wk": -1, "wv": -1, "wg": -1, "wo": 0, "u": 0,
+               "w0": -1, "w_lora_b": -1, "ln_x": -1, "cm_wk": -1, "cm_wv": 0,
+               "cm_wr": -1}
+
+
+def head_parallel(cfg: ModelConfig) -> bool:
+    """Whether the sub-layer runs split over ``model``: the specs split
+    ``wr``'s output channels, which must then hold whole heads."""
+    if not shardctx.split_over_model(cfg, ("mix", "wr"), -1):
+        return False
+    heads, m = cfg.d_model // cfg.rwkv_head_dim, shardctx.model_size()
+    if heads % m:
+        raise ValueError(f"{cfg.name}: {heads} heads do not split over a "
+                         f"'model' axis of {m}")
+    return True
+
+
+def local_heads(p, cfg: ModelConfig):
+    """(``p`` over this rank's heads and channels, whether they are
+    split): a leaf as its spec cut it, a replicated one cut at use."""
+    if not head_parallel(cfg):
+        return p, False
+    return {n: (shardctx.model_share(cfg, ("mix", n), t, _LOCAL_DIMS[n])
+                if n in _LOCAL_DIMS else t) for n, t in p.items()}, True
+
+
+def own_channels(cfg: ModelConfig, t: Tensor) -> Tensor:
+    """This rank's channels of a (B, D) token shift (the cache's layout);
+    ``t`` itself outside head parallelism."""
+    return shardctx.own_chunk(t, -1) if head_parallel(cfg) else t
+
+
+def _whole_shift(cfg: ModelConfig, t: Tensor) -> Tensor:
+    """A cached (B, D) token shift whole: gathered when it holds this
+    rank's channels only."""
+    if t.shape[-1] == cfg.d_model:
+        return t
+    return shardctx.gather_whole_over_model(t, -1)
+
+
 def _shift(x: Tensor) -> Tensor:
     """x_{t-1} along dim 1, zero at t = 0."""
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
@@ -97,10 +152,15 @@ def _ddlerp(p, x: Tensor, x_prev: Tensor) -> Tensor:
     return base + adj * dx
 
 
-def _log_decay(p, xw: Tensor) -> Tensor:
-    """log w_t in [LOG_W_MIN, LOG_W_MAX], float32; xw: (B, S, D)."""
-    lora = (torch.tanh(xw.float() @ p["w_lora_a"].float())
-            @ p["w_lora_b"].float())
+def _decay_lora_in(p, xw: Tensor) -> Tensor:
+    """The decay LoRA's hidden layer, float32; xw: (B, S, D)."""
+    return torch.tanh(xw.float() @ p["w_lora_a"].float())
+
+
+def _log_decay(p, hidden: Tensor) -> Tensor:
+    """log w_t in [LOG_W_MIN, LOG_W_MAX], float32, from the LoRA's hidden
+    layer (over ``w0``'s channels)."""
+    lora = hidden @ p["w_lora_b"].float()
     return torch.clamp(-torch.exp(p["w0"].float() + lora), LOG_W_MIN,
                        LOG_W_MAX)
 
@@ -159,34 +219,49 @@ def _heads(x: Tensor, H: int, N: int) -> Tensor:
     return x.reshape(B, S, H, N).transpose(1, 2)
 
 
-def _time_mix_inputs(p, cfg: ModelConfig, x: Tensor, x_prev: Tensor):
-    """(r, k, v, log_w) as float32 heads (B, H, S, N) and the gate g."""
-    H = x.shape[-1] // cfg.rwkv_head_dim
+def _time_mix_inputs(p, cfg: ModelConfig, x: Tensor, x_prev: Tensor,
+                     tp: bool = False):
+    """(r, k, v, log_w) as float32 heads (B, H, S, N) and the gate g, over
+    ``p``'s heads (this rank's under ``tp``: the ddlerp and the decay
+    LoRA's hidden layer whole, then copied onto the local heads)."""
     N = cfg.rwkv_head_dim
-    xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
+    H = p["wr"].shape[-1] // N
+    mixed = _ddlerp(p, x, x_prev)
+    hidden = _decay_lora_in(p, mixed[3])
+    if tp:
+        mixed = shardctx.copy_to_model(mixed)
+        hidden = shardctx.copy_to_model(hidden)
+    xr, xk, xv, _, xg = mixed
     r = _heads((xr @ p["wr"]).float(), H, N)
     k = _heads((xk @ p["wk"]).float(), H, N)
     v = _heads((xv @ p["wv"]).float(), H, N)
     g = F.silu(xg @ p["wg"])
-    log_w = _heads(_log_decay(p, xw), H, N)
+    log_w = _heads(_log_decay(p, hidden), H, N)
     return r, k, v, log_w, g
 
 
-def _time_mix_out(p, x: Tensor, y: Tensor, g: Tensor) -> Tensor:
-    """y: (B, H, S, N) float32 -> the sub-layer's (B, S, D) output."""
-    B, S, D = x.shape
-    y = y.transpose(1, 2).reshape(B, S, D)
-    y = rms_norm(y.to(x.dtype), p["ln_x"])
-    return (y * g) @ p["wo"]
+def _time_mix_out(p, x: Tensor, y: Tensor, g: Tensor, tp: bool = False
+                  ) -> Tensor:
+    """y: (B, H, S, N) float32 -> the sub-layer's (B, S, D) output (under
+    ``tp`` the norm over the whole width and ``wo``'s partial sums
+    reduced)."""
+    B, S, _ = x.shape
+    y = y.transpose(1, 2).reshape(B, S, -1).to(x.dtype)
+    if not tp:
+        return (rms_norm(y, p["ln_x"]) * g) @ p["wo"]
+    y = shardctx.rms_norm_over_model(y, p["ln_x"])
+    return shardctx.reduce_from_model((y * g) @ p["wo"])
 
 
 def time_mix_with_state(p, cfg: ModelConfig, x: Tensor
                         ) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, D) -> ((B, S, D), the terminal WKV state), parallel
-    (chunked) over time."""
-    r, k, v, log_w, g = _time_mix_inputs(p, cfg, x, _shift(x))
+    """x: (B, S, D) -> ((B, S, D), the terminal WKV state of ``p``'s heads
+    -- this rank's under head parallelism), parallel (chunked) over
+    time."""
+    p, tp = local_heads(p, cfg)
+    r, k, v, log_w, g = _time_mix_inputs(p, cfg, x, _shift(x), tp)
     y, state = wkv_chunked_with_state(r, k, v, log_w, p["u"])
-    return _time_mix_out(p, x, y, g), state
+    return _time_mix_out(p, x, y, g, tp), state
 
 
 def time_mix(p, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -194,15 +269,23 @@ def time_mix(p, cfg: ModelConfig, x: Tensor) -> Tensor:
     return time_mix_with_state(p, cfg, x)[0]
 
 
-def _channel(p, x: Tensor, x_prev: Tensor) -> Tensor:
+def _channel(p, x: Tensor, x_prev: Tensor, tp: bool = False) -> Tensor:
     xk = x + (x_prev - x) * p["cm_mu_k"]
     xr = x + (x_prev - x) * p["cm_mu_r"]
+    if not tp:
+        kk = torch.square(F.relu(xk @ p["cm_wk"]))
+        return torch.sigmoid(xr @ p["cm_wr"]) * (kk @ p["cm_wv"])
+    # this rank's ffn share and channels (see the module docstring)
+    xk, xr = shardctx.copy_to_model(torch.stack([xk, xr]))
     kk = torch.square(F.relu(xk @ p["cm_wk"]))
-    return torch.sigmoid(xr @ p["cm_wr"]) * (kk @ p["cm_wv"])
+    kv = shardctx.reduce_scatter_over_model(kk @ p["cm_wv"], -1)
+    return shardctx.gather_whole_over_model(
+        torch.sigmoid(xr @ p["cm_wr"]) * kv, -1)
 
 
 def channel_mix(p, cfg: ModelConfig, x: Tensor) -> Tensor:
-    return _channel(p, x, _shift(x))
+    p, tp = local_heads(p, cfg)
+    return _channel(p, x, _shift(x), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -222,22 +305,35 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
+def _shift_out(cached: Tensor, x: Tensor) -> Tensor:
+    """The new token shift in the cached one's layout (this rank's
+    channels when it held them)."""
+    new = x[:, 0]
+    return new if cached.shape[-1] == new.shape[-1] else \
+        shardctx.own_chunk(new, -1)
+
+
 def time_mix_decode(p, cfg: ModelConfig, x: Tensor, cache: dict
                     ) -> Tuple[Tensor, dict]:
-    """x: (B, 1, D); O(1) state update."""
-    x_prev = cache["tm_prev"][:, None].to(x.dtype)
-    r, k, v, log_w, g = _time_mix_inputs(p, cfg, x, x_prev)
+    """x: (B, 1, D); O(1) state update (under head parallelism the state
+    of this rank's heads)."""
+    p, tp = local_heads(p, cfg)
+    x_prev = _whole_shift(cfg, cache["tm_prev"])[:, None].to(x.dtype)
+    r, k, v, log_w, g = _time_mix_inputs(p, cfg, x, x_prev, tp)
     r, k, v = r[:, :, 0], k[:, :, 0], v[:, :, 0]          # (B, H, N)
     w = torch.exp(log_w[:, :, 0])
     S = cache["wkv"]                                      # (B, H, N, N)
     kv = k[..., :, None] * v[..., None, :]                # bhn,bhm->bhnm
     y = torch.einsum("bhn,bhnm->bhm", r, S + p["u"][None, :, :, None] * kv)
     S_new = w[..., None] * S + kv
-    out = _time_mix_out(p, x, y[:, :, None], g)
-    return out, {**cache, "wkv": S_new, "tm_prev": x[:, 0]}
+    out = _time_mix_out(p, x, y[:, :, None], g, tp)
+    return out, {**cache, "wkv": S_new,
+                 "tm_prev": _shift_out(cache["tm_prev"], x)}
 
 
 def channel_mix_decode(p, cfg: ModelConfig, x: Tensor, cache: dict
                        ) -> Tuple[Tensor, dict]:
-    x_prev = cache["cm_prev"][:, None].to(x.dtype)
-    return _channel(p, x, x_prev), {**cache, "cm_prev": x[:, 0]}
+    p, tp = local_heads(p, cfg)
+    x_prev = _whole_shift(cfg, cache["cm_prev"])[:, None].to(x.dtype)
+    return _channel(p, x, x_prev, tp), {
+        **cache, "cm_prev": _shift_out(cache["cm_prev"], x)}

@@ -19,7 +19,17 @@ and the collectives are the ``torch.autograd.Function``s below, built on
   backward, over ``model`` (RG-LRU's gate input, logits);
 * :func:`gather_params` -- FSDP's gather over the batch axes (the same
   all-gather / reduce-scatter pair over ``data``; a parameter replicated
-  over a batch axis has its gradient summed over it), once per step.
+  over a batch axis has its gradient summed over it), once per step;
+* :func:`sum_over_model` -- all-reduce forward and backward: a partial
+  sum whose total each rank uses on its own share (the sum of squares of
+  :func:`rms_norm_over_model`, RWKV6's ``ln_x`` over split channels);
+* :func:`reduce_scatter_over_model` / :func:`gather_whole_over_model` --
+  partial sums onto this rank's chunk of a dim (all-gather backward), and
+  the chunks made whole for a use every rank shares (its own chunk of the
+  gradient backward): RWKV6's channel mix.
+
+:func:`expert_range` is this rank's block of an expert-parallel MoE
+layer's experts.
 
 Which of a sub-layer's dims run split over ``model`` is read from the
 parameter specs the context computed (:func:`split_over_model`, by the
@@ -111,12 +121,17 @@ class ShardContext:
     """A mesh, its rules, this rank's coordinates and one ``GroupComm`` for
     every set of the mesh's axes of size > 1 (built on construction, a
     collective of the whole world: every rank constructs the same
-    contexts in the same order, a rank outside the mesh included)."""
+    contexts in the same order, a rank outside the mesh included).  With
+    ``axes`` only those of the mesh's axes are live: the model code runs
+    split over them and treats the others as absent."""
 
-    def __init__(self, mesh, rules):
+    def __init__(self, mesh, rules, axes: Optional[Tuple[str, ...]] = None):
         self.mesh, self.rules = mesh, rules
         names = tuple(mesh.mesh_dim_names or ())
-        self.live = tuple(a for a in names if axis_size(mesh, a) > 1)
+        # ``axes`` limits the live axes (a TreeSync replica: ``("model",)``,
+        # its rows its own, no batch axis summed over)
+        self.live = tuple(a for a in names if axis_size(mesh, a) > 1
+                          and (axes is None or a in axes))
         self.comms: Dict[Tuple[str, ...], object] = {}
         for k in range(1, len(self.live) + 1):
             for axes in itertools.combinations(self.live, k):
@@ -248,21 +263,24 @@ class ShardContext:
 _CONTEXTS: Dict[tuple, ShardContext] = {}
 
 
-def context_for(mesh, rules) -> ShardContext:
-    """The :class:`ShardContext` of ``(mesh, rules)``, built on first use (a
-    collective of the whole world)."""
+def context_for(mesh, rules, axes: Optional[Tuple[str, ...]] = None
+                ) -> ShardContext:
+    """The :class:`ShardContext` of ``(mesh, rules, axes)``, built on first
+    use (a collective of the whole world)."""
     ranks = getattr(mesh, "mesh", None)
     key = (None if ranks is None else tuple(ranks.flatten().tolist()),
-           tuple(mesh.mesh_dim_names), tuple(mesh.shape), rules)
+           tuple(mesh.mesh_dim_names), tuple(mesh.shape), rules,
+           None if axes is None else tuple(axes))
     if key not in _CONTEXTS:
-        _CONTEXTS[key] = ShardContext(mesh, rules)
+        _CONTEXTS[key] = ShardContext(mesh, rules, axes)
     return _CONTEXTS[key]
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, rules):
-    """Run the model code inside on this rank's shards of ``mesh``."""
-    ctx = context_for(mesh, rules)
+def activation_sharding(mesh, rules, axes: Optional[Tuple[str, ...]] = None):
+    """Run the model code inside on this rank's shards of ``mesh`` (split
+    over ``axes`` alone when given)."""
+    ctx = context_for(mesh, rules, axes)
     prev, _Active.ctx = _Active.ctx, ctx
     try:
         yield ctx
@@ -326,6 +344,51 @@ class _Gather(torch.autograd.Function):
         return ctx.sc.reduce_scatter(g, ctx.dim, ctx.axes), None, None, None
 
 
+class _SumBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a partial sum whose total each rank
+    uses on its own share of the work (a norm over split channels)."""
+
+    @staticmethod
+    def forward(ctx, x, sc, axes):
+        ctx.sc, ctx.axes = sc, axes
+        return sc.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sc.all_reduce(g, ctx.axes), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along a dim forward, all-gather backward: partial sums
+    onto this rank's chunk of the dim."""
+
+    @staticmethod
+    def forward(ctx, x, sc, dim, axes):
+        ctx.sc, ctx.dim, ctx.axes = sc, dim, axes
+        return sc.reduce_scatter(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sc.gather(g, ctx.dim, ctx.axes), None, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """All-gather along a dim forward, this rank's chunk backward: the
+    chunks made whole where every rank then uses the whole alike (the
+    residual stream), so the gradient is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, sc, dim, axes):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.i = sc.index(sc._comm(axes)[0])
+        return sc.gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n).contiguous(), None,
+                None, None)
+
+
 def model_size() -> int:
     ctx = _Active.ctx
     return 1 if ctx is None else axis_size(ctx.mesh, "model")
@@ -355,6 +418,64 @@ def gather_from_model(x: Tensor, dim: int) -> Tensor:
     if ctx is None or "model" not in ctx.live:
         return x
     return _Gather.apply(x, ctx, dim, ("model",))
+
+
+def sum_over_model(x: Tensor) -> Tensor:
+    """The sum of every rank's partial ``x`` over ``model``, all-reduced in
+    the backward too (each rank's use of the total is its own share)."""
+    ctx = _Active.ctx
+    if ctx is None or "model" not in ctx.live:
+        return x
+    return _SumBoth.apply(x, ctx, ("model",))
+
+
+def reduce_scatter_over_model(x: Tensor, dim: int) -> Tensor:
+    """This rank's chunk along ``dim`` of the sum over ``model`` of every
+    rank's partial ``x``."""
+    ctx = _Active.ctx
+    if ctx is None or "model" not in ctx.live:
+        return x
+    return _ReduceScatter.apply(x, ctx, dim % x.dim(), ("model",))
+
+
+def gather_whole_over_model(x: Tensor, dim: int) -> Tensor:
+    """Every rank's chunk of ``dim`` made whole, for a use that is the same
+    on every rank (its gradient cut back to this rank's chunk)."""
+    ctx = _Active.ctx
+    if ctx is None or "model" not in ctx.live:
+        return x
+    return _GatherWhole.apply(x, ctx, dim % x.dim(), ("model",))
+
+
+def rms_norm_over_model(x: Tensor, scale: Tensor, eps: float = 1e-6
+                        ) -> Tensor:
+    """``models/common.py::rms_norm`` of a tensor whose last dim is split
+    over ``model`` (``scale`` this rank's share of the gain): the sum of
+    squares runs over the whole width, all-reduced."""
+    dt = x.dtype
+    xf = x.float()
+    ss = sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True))
+    var = ss / (x.shape[-1] * model_size())
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def expert_range(cfg) -> Tuple[int, int]:
+    """(first expert, expert count) of this rank in an expert-parallel MoE
+    layer: the specs split the expert dim over ``model`` (``(0, E)``
+    when they do not)."""
+    E = cfg.num_experts
+    if not split_over_model(cfg, ("ffn", "w_up"), 0):
+        return 0, E
+    n = E // model_size()
+    return model_rank() * n, n
+
+
+def own_chunk(x: Tensor, dim: int) -> Tensor:
+    """This rank's chunk along ``dim`` of a tensor whole on every rank (no
+    collective)."""
+    c = x.shape[dim] // model_size()
+    return x.narrow(dim, model_rank() * c, c)
 
 
 def split_over_model(cfg, leaf: Tuple[str, ...], dim: int) -> bool:

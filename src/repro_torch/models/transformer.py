@@ -473,9 +473,11 @@ def _rwkv_prefill(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, PyTree]:
     x = x + o
     h2 = rms_norm(x, p["ln2"])
     x = x + rwkv_mod.channel_mix(pm, cfg, h2)
-    # clones, so the cache does not hold the whole sequence alive
-    return x, {"wkv": state, "tm_prev": h[:, -1].clone(),
-               "cm_prev": h2[:, -1].clone()}
+    # clones, so the cache does not hold the whole sequence alive; this
+    # rank's channels of the shifts under head parallelism
+    return x, {"wkv": state,
+               "tm_prev": rwkv_mod.own_channels(cfg, h[:, -1]).clone(),
+               "cm_prev": rwkv_mod.own_channels(cfg, h2[:, -1]).clone()}
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor],

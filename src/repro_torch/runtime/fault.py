@@ -128,10 +128,15 @@ def _lm_entries(state):
     return out
 
 
-def lm_payload(state, comm) -> dict:
+def lm_payload(state, comm, tp=None) -> dict:
     """The replica-stacked checkpoint payload of an LM state, gathered on
     every rank of ``comm`` (an ``engine.lm.LMComm``, None for one
-    replica): ``{"None": int32 step, "None/<path>": (R, ...)}``."""
+    replica): ``{"None": int32 step, "None/<path>": (R, ...)}``.  Under
+    ``tp`` (an ``engine.lm.ReplicaTP``) each replica's shards are first
+    gathered whole over ``model``, so the file is the same whatever the
+    ``model`` axis."""
+    if tp is not None:
+        state = tp.whole(state)
     payload = {"None": np.asarray(int(state.step), np.int32)}
     for name, t in _lm_entries(state):
         if comm is None:

@@ -527,13 +527,6 @@ def test_treesync_config_messages_are_the_reference():
         assert msgs[0] == msgs[1]
 
 
-def test_a_model_axis_is_refused():
-    mesh = type("M", (), {"mesh_dim_names": ("data", "model"),
-                          "shape": (1, 2)})()
-    with pytest.raises(NotImplementedError, match="A9.5b"):
-        tsy.check_replica_mesh(mesh)
-
-
 def test_lm_sessions_compile_on_the_mesh_backend_only():
     from repro_torch.launch.mesh import make_host_mesh
     prob = Problem.lm(ModelConfig(**CFG_KW), make_sgd(), batch=2, seq=16)

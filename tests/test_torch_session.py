@@ -216,22 +216,13 @@ def test_topology_json_round_trips_with_the_reference():
 
 
 def test_unported_options_raise():
-    """What the port still refuses, each naming the ROADMAP item it waits
-    for: tensor-parallel compute for MoE on a 'model' axis (A9.5c:
-    build_cell); a mesh executor asked for without a mesh; an unknown
-    method (the LM method is registered since the LM workload was
+    """What the port refuses: a mesh executor asked for without a mesh; an
+    unknown method (the LM method is registered since the LM workload was
     ported); and what it refuses as the reference does."""
-    from repro_torch.configs.registry import ARCHS
-    from repro_torch.configs.shapes import SHAPES
     from repro_torch.core.engine.method import get_method
-    from repro_torch.launch.mesh import make_abstract_mesh
-    from repro_torch.launch.steps import build_cell
     topo = port_topology("star")
     X, y = data(topo.m_total)
     Session.compile(Problem(X, y), topo, backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9.5c"):
-        build_cell(ARCHS["dbrx-132b"].SMOKE, SHAPES["train_4k"],
-                   make_abstract_mesh((1, 2), ("data", "model")))
     plan = tplan.compile_tree(topo.tree)
     with pytest.raises(ValueError, match="DeviceMesh"):
         get_method("sdca").executor(plan=plan, backend="mesh",

@@ -23,14 +23,20 @@ gathered whole (``gather_tree``), and the tests hold
   * dbrx-132b's MoE and rwkv6-1.6b SMOKE under FSDP alone, on (2, 1):
     the batch split over "data", the MoE routed over the whole batch
     (global capacity and slots), to the single-rank runs as above;
+  * dbrx-132b and arctic-480b SMOKE expert parallel (their experts split
+    over "model"; arctic's dense branch Megatron-style, with its config's
+    Adafactor) and rwkv6-1.6b SMOKE head parallel (2 of its 4 heads a
+    rank), on (1, 2) and (2, 2), at bf16 activations and at float32: the
+    train step as above (the load-balance loss too), prefill and decode,
+    and the train step against the reference's jitted step;
   * remesh_params from (2, 2) to (1, 2): gathered, torch.equal to the
     whole params;
-  * and, without ranks, constrain as a no-op outside a context and the
-    NotImplementedError for MoE and RWKV6 on a "model" axis.
+  * and, without ranks, constrain as a no-op outside a context.
 
 The rank program is this module's ``_rank_main``; the spawned processes
 import this file, so nothing at its top level imports JAX.
 """
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -48,7 +54,7 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import sharding as sh  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import RankMesh, make_abstract_mesh  # noqa: E402
-from repro_torch.models import shardctx, transformer  # noqa: E402
+from repro_torch.models import mlp, shardctx, transformer  # noqa: E402
 from repro_torch.optim import get_optimizer, make_adafactor  # noqa: E402
 from repro_torch.optim.api import tree_leaves  # noqa: E402
 from repro_torch.runtime import elastic, ranks  # noqa: E402
@@ -104,6 +110,8 @@ def cfg_of(name: str):
                                    activation_dtype="float32")
     if name == "dbrx":
         return ARCHS["dbrx-132b"].SMOKE
+    if name == "arctic":
+        return ARCHS["arctic-480b"].SMOKE
     if name == "rwkv":
         return ARCHS["rwkv6-1.6b"].SMOKE
     if name == "gqa63":           # 6 q heads over 3 kv heads
@@ -158,9 +166,22 @@ ROUNDS = [
      ("rwkv@2x1", "rwkv", "2x1b", "adamw")],
     [("gqa63@1x2", "gqa63", "1x2a", "adamw"),
      ("rg_adafactor@1x2", "rg", "1x2b", "adafactor")],
+    # expert-parallel MoE and head-parallel RWKV6 (get_optimizer: AdamW,
+    # arctic's Adafactor)
+    [("dbrx@1x2", "dbrx", "1x2a", "adamw"),
+     ("rwkv@1x2", "rwkv", "1x2b", "adamw")],
+    [("arctic@1x2", "arctic", "1x2a", "adamw"),
+     ("rwkvf32@1x2", "rwkvf32", "1x2b", "adamw")],
+    [("dbrx@2x2", "dbrx", "2x2", "adamw")],
+    [("arctic@2x2", "arctic", "2x2", "adamw")],
+    [("rwkv@2x2", "rwkv", "2x2", "adamw")],
+    [("dbrxf32@2x2", "dbrxf32", "2x2", "adamw")],
+    [("arcticf32@2x2", "arcticf32", "2x2", "adamw")],
+    [("arcticf32@1x2", "arcticf32", "1x2a", "adamw")],
 ]
 SERVE_LEN = {"qwen3": 40, "rg": 40, "gqa63": 41, "qwen3f32": 40,
-             "rgf32": 40, "dbrx": 40, "rwkv": 40}     # context slots
+             "rgf32": 40, "dbrx": 40, "rwkv": 40, "arctic": 40,
+             "dbrxf32": 40, "arcticf32": 40, "rwkvf32": 40}   # context slots
 DECODE_STEPS = 2
 
 
@@ -170,6 +191,59 @@ DECODE_STEPS = 2
 def _gathered_batch(ctx, t):
     axes = ctx.batch_axes()
     return ctx.gather(t, 0, axes) if axes else t
+
+
+# bf16 expert-parallel cases whose single-rank runs take their experts:
+# a token whose k-th and (k+1)-th experts are nearly tied can take another
+# expert when the activations are rounded at other points (the attention
+# and dense-branch partial sums, rounded per rank), and its FFN output
+# then moves by a share of its hidden state, not by a rounding (measured on
+# arctic SMOKE: 2 and 5 of 256 tokens a layer in prefill).  So the
+# single-rank run replays the sharded run's experts, as chip_smoke.py's
+# phase 11 pins two routes' experts; the float32 cases route alike unpinned
+PINNED = ("dbrx@1x2", "dbrx@2x2", "arctic@1x2", "arctic@2x2")
+
+
+@contextlib.contextmanager
+def _recording(ctx, into: list):
+    """Record each MoE layer's gate_idx in call order, gathered over the
+    batch axes after the calls (a collective of the mesh's ranks)."""
+    seen, route = [], mlp.route
+
+    def recording(p, cfg, xf):
+        out = route(p, cfg, xf)
+        seen.append(out[2])
+        return out
+
+    mlp.route = recording
+    try:
+        yield
+    finally:
+        mlp.route = route
+    into.extend(_gathered_batch(ctx, t) for t in seen)
+
+
+@contextlib.contextmanager
+def _pinned(routes):
+    """Run the single-rank model with each MoE call's experts taken from
+    ``routes`` in order (the gate weights still this run's probabilities
+    at them); nothing pinned when ``routes`` is None."""
+    if routes is None:
+        yield
+        return
+    it, route = iter(routes), mlp.route
+
+    def replaying(p, cfg, xf):
+        probs, _, _ = route(p, cfg, xf)
+        gate_idx = next(it)
+        return probs, torch.gather(probs, -1, gate_idx), gate_idx
+
+    mlp.route = replaying
+    try:
+        yield
+    finally:
+        mlp.route = route
+    assert next(it, None) is None, "fewer MoE calls than the sharded run's"
 
 
 def _case(name, cfg_name, mesh, opt_kind, serve: bool):
@@ -187,32 +261,43 @@ def _case(name, cfg_name, mesh, opt_kind, serve: bool):
         return None
     params = whole_params(cfg)
     batch = batch_of(cfg)
-    p1, o1, m1 = train(train.local(0, params),
-                       train.local(1, opt.init(params)),
-                       train.local(2, batch))
-    out = {"loss": float(m1["loss"]), "tokens": float(m1["tokens"]),
+    routes = {"train": [], "serve": []}
+    pin = name in PINNED
+    with _recording(ctx, routes["train"]) if pin else \
+            contextlib.nullcontext():
+        p1, o1, m1 = train(train.local(0, params),
+                           train.local(1, opt.init(params)),
+                           train.local(2, batch))
+    out = {"routes": routes if pin else None,
+           "loss": float(m1["loss"]), "tokens": float(m1["tokens"]),
+           "moe_aux": float(m1["moe_aux"]),
            "params": sh.gather_tree(p1, train.in_shardings[0], mesh),
            "opt": sh.gather_tree(o1, train.in_shardings[1], mesh),
            "calls": dict(ctx.calls)}
     if not serve:
         return out
     local_p = pre.local(0, params)
-    logits, cache = pre(local_p, pre.local(1, {"tokens": batch["tokens"]}))
+    with _recording(ctx, routes["serve"]) if pin else \
+            contextlib.nullcontext():
+        logits, cache = pre(local_p, pre.local(1, {"tokens":
+                                                   batch["tokens"]}))
+        # decode teacher-forced (the same inputs as the single-rank run,
+        # so a rounding that flips a greedy token does not change what
+        # follows)
+        feed = pre.local(1, {"tokens": decode_inputs(cfg)})["tokens"]
+        toks = []
+        for t in range(DECODE_STEPS):
+            nxt, cache = dec(local_p, cache, feed[:, t:t + 1])
+            toks.append(nxt)
+        # the logits of one more decode step, through the model itself
+        with steps._shard_scope(ctx):
+            used = shardctx.gather_params(cfg,
+                                          steps._serving_layout(local_p))
+            lg, cache = transformer.decode_step(cfg, used, cache,
+                                                feed[:, DECODE_STEPS:],
+                                                max_len=n)
     out["prefill_logits"] = _gathered_batch(ctx, logits)
-    # decode teacher-forced (the same inputs as the single-rank run, so a
-    # rounding that flips a greedy token does not change what follows)
-    feed = pre.local(1, {"tokens": decode_inputs(cfg)})["tokens"]
-    toks = []
-    for t in range(DECODE_STEPS):
-        nxt, cache = dec(local_p, cache, feed[:, t:t + 1])
-        toks.append(nxt)
     out["tokens_out"] = _gathered_batch(ctx, torch.cat(toks, 1))
-    # the logits of one more decode step, through the model itself
-    with steps._shard_scope(ctx):
-        used = shardctx.gather_params(cfg, steps._serving_layout(local_p))
-        lg, cache = transformer.decode_step(cfg, used, cache,
-                                            feed[:, DECODE_STEPS:],
-                                            max_len=n)
     out["decode_logits"] = _gathered_batch(ctx, lg)
     out["cache"] = sh.gather_tree(cache, dec.in_shardings[1], mesh)
     return out
@@ -264,21 +349,22 @@ def tp_run(tmp_path_factory):
 # ---------------------------------------------------------------------------
 # single-rank references
 # ---------------------------------------------------------------------------
-def single_step(cfg_name: str, opt_kind: str):
+def single_step(cfg_name: str, opt_kind: str, routes=None):
     cfg = cfg_of(cfg_name)
     opt = optimizer_of(cfg, opt_kind)
     params = whole_params(cfg)
-    return steps.make_train_step(cfg, opt)(params, opt.init(params),
-                                           batch_of(cfg))
+    with _pinned(routes):
+        return steps.make_train_step(cfg, opt)(params, opt.init(params),
+                                               batch_of(cfg))
 
 
-def single_serve(cfg_name: str):
+def single_serve(cfg_name: str, routes=None):
     cfg = cfg_of(cfg_name)
     n = SERVE_LEN[cfg_name]
     params = transformer.init_params(cfg, prng.PRNGKey(0), device="cpu")
     batch = batch_of(cfg)
     feed = decode_inputs(cfg)
-    with torch.no_grad():
+    with torch.no_grad(), _pinned(routes):
         logits, cache = transformer.prefill(
             cfg, params, {"tokens": batch["tokens"]}, max_len=n)
         toks = []
@@ -299,9 +385,13 @@ def _within_share(a, b, share):
     assert err <= share * max(float(b.float().abs().max()), 1e-6), err
 
 
+# the expert- and head-parallel cases
+EP_HP_CASES = ["dbrx@1x2", "rwkv@1x2", "arctic@1x2", "rwkvf32@1x2",
+               "dbrx@2x2", "arctic@2x2", "rwkv@2x2", "dbrxf32@2x2",
+               "arcticf32@2x2", "arcticf32@1x2"]
 TRAIN_CASES = ["qwen3@1x2", "rg@1x2", "qwen3@2x2", "rg@2x2", "gqa63@1x2",
                "rg_adafactor@2x2", "rg_adafactor@1x2", "qwen3f32@2x2",
-               "rgf32_adafactor@2x2", "dbrx@2x1", "rwkv@2x1"]
+               "rgf32_adafactor@2x2", "dbrx@2x1", "rwkv@2x1"] + EP_HP_CASES
 
 
 def _norm_rel(a, b) -> float:
@@ -314,8 +404,12 @@ def test_sharded_train_step_equals_the_single_rank_step(tp_run, case):
     got = tp_run[case]
     cfg_name = case.split("@")[0].replace("_adafactor", "")
     p_ref, o_ref, m_ref = single_step(
-        cfg_name, "adafactor" if "adafactor" in case else "adamw")
+        cfg_name, "adafactor" if "adafactor" in case else "adamw",
+        (got["routes"] or {}).get("train"))
     np.testing.assert_allclose(got["loss"], float(m_ref["loss"]),
+                               rtol=LOSS_RTOL)
+    # the load-balance loss is whole on every rank, not summed over model
+    np.testing.assert_allclose(got["moe_aux"], float(m_ref["moe_aux"]),
                                rtol=LOSS_RTOL)
     assert got["tokens"] == float(m_ref["tokens"]) == B * S
     p0 = whole_params(cfg_of(cfg_name))
@@ -368,11 +462,11 @@ def test_adafactor_moments_factor_over_sharded_dims(tp_run):
 
 @pytest.mark.parametrize("case", ["qwen3@1x2", "rg@1x2", "qwen3@2x2",
                                   "rg@2x2", "gqa63@1x2", "rgf32@2x2",
-                                  "dbrx@2x1", "rwkv@2x1"])
+                                  "dbrx@2x1", "rwkv@2x1"] + EP_HP_CASES)
 def test_sharded_prefill_and_decode_equal_the_single_rank_run(tp_run, case):
     got = tp_run[case]
     name = case.split("@")[0]
-    ref = single_serve(name)
+    ref = single_serve(name, (got["routes"] or {}).get("serve"))
     tol = F32_SHARE if name.endswith("f32") else SERVE_TOL
     _within_share(got["prefill_logits"], ref["prefill_logits"], tol)
     _within_share(got["decode_logits"], ref["decode_logits"], tol)
@@ -432,7 +526,11 @@ def _to_reference(jcfg, params):
     return jax.tree_util.tree_map_with_path(pick, shapes)
 
 
-@pytest.mark.parametrize("case", ["qwen3@2x2", "qwen3@1x2", "rg@2x2"])
+# arctic against the reference at float32 activations: at bf16 its
+# routing flips on a few tokens between the two packages (see PINNED)
+@pytest.mark.parametrize("case", ["qwen3@2x2", "qwen3@1x2", "rg@2x2",
+                                  "dbrx@1x2", "dbrx@2x2", "arcticf32@1x2",
+                                  "arcticf32@2x2", "rwkv@1x2", "rwkv@2x2"])
 def test_sharded_train_step_equals_the_references_jitted_step(tp_run, case):
     import jax
 
@@ -440,9 +538,15 @@ def test_sharded_train_step_equals_the_references_jitted_step(tp_run, case):
     from repro.launch import steps as jsteps
     from repro.optim import get_optimizer as jget_optimizer
     name = case.split("@")[0]
+    base = name[:-3] if name.endswith("f32") else name
     jcfg = {"qwen3": dataclasses.replace(JARCHS["qwen3-32b"].SMOKE,
                                          remat=False),
-            "rg": JARCHS["recurrentgemma-2b"].SMOKE}[name]
+            "rg": JARCHS["recurrentgemma-2b"].SMOKE,
+            "dbrx": JARCHS["dbrx-132b"].SMOKE,
+            "arctic": JARCHS["arctic-480b"].SMOKE,
+            "rwkv": JARCHS["rwkv6-1.6b"].SMOKE}[base]
+    if name.endswith("f32"):
+        jcfg = dataclasses.replace(jcfg, activation_dtype="float32")
     cfg = cfg_of(name)
     params = _to_reference(jcfg, whole_params(cfg))
     opt = jget_optimizer(jcfg)
@@ -469,10 +573,12 @@ def test_sharded_train_step_equals_the_references_jitted_step(tp_run, case):
                                    **REF_PARAM_TOL)
         assert _norm_rel(a.float() - p0[key], b - p0[key]) \
             < UPDATE_NORM_REL, key
-    # the gradients, through the moments: mu = (1 - b1) g, nu = (1 - b2) g^2
+    # the gradients, through the moments: AdamW's mu = (1 - b1) g and
+    # nu = (1 - b2) g^2, Adafactor's v = g^2 + eps at its first step
     moments = [(p, a) for p, a in sh.flat_with_path(got["opt"])
-               if p[0] in ("mu", "nu")]
-    assert len(moments) == 2 * len(p0)
+               if p[0] in ("mu", "nu", "v")]
+    assert len(moments) == (2 if moments[0][0][0] in ("mu", "nu") else 1) \
+        * len(p0)
     for path, a in moments:
         assert _norm_rel(a, ref_o[sh.path_str(path)]) < BF16_NORM_REL, path
 
@@ -490,11 +596,3 @@ def test_constrain_is_a_no_op_outside_a_context():
     assert shardctx.gather_params(cfg_of("qwen3"), {"w": x})["w"] is x
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b", "rwkv6-1.6b"])
-def test_moe_and_rwkv6_on_a_model_axis_are_refused(arch):
-    cfg = ARCHS[arch].SMOKE
-    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32,
-                                global_batch=8)
-    with pytest.raises(NotImplementedError, match="A9.5c"):
-        steps.build_cell(cfg, shape, make_abstract_mesh((1, 2),
-                                                        ("data", "model")))
