@@ -273,7 +273,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      seconds by axis and peak memory per rank.  (c) phase 9's model,
      Adafactor, through Problem.lm + LMSession on (data, model) = (2, 2),
      four ranks (two replicas of two model ranks), Topology.from_mesh(
-     periods=(2,)) with an int8 root, batch 4 x 2048, 4 steps (2 syncs):
+     periods=(2,)) with an int8 root, batch 4 x 2048, 2 steps (1 sync):
      every loss finite; after each sync the two ranks of a model
      coordinate hold torch.equal shards; step 1's loss within TP_LOSS_RTOL
      of the mean of the port's single-rank steps on each replica's rows
@@ -285,6 +285,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches the code's count at (2, 2048, 1280); the consensus whole.
      Prints seconds per warm step and per sync and peak per rank.  (d)
      flash at (a)'s local shape (4, 4096, 24, 4, 128), timed as in phase 8.
+ 14. the cost count (src/repro_torch/launch/steps.py::CellProgram.lower,
+     on meta tensors on the host, no kernel launched and no launch count
+     moved): phase 7's cell
+     (recurrentgemma-2b FULL, flash, prefill 4 x 4096 into a 4128-slot
+     cache, one rank) must count phase 7's launches by shape (flash 8 at
+     (4, 4096, 4096, 10, 1, 256), the scan 18 at (4, 4096, 2560)); its
+     roofline terms and lower bound (launch/roofline.py on launch/hw.py's
+     H100 peaks, flops priced by dtype) and the model-flops share (MFU)
+     are printed beside phase 7's warm prefill seconds, the bound at most
+     ROOFLINE_SLACK of them; its estimated peak within
+     PEAK_RATIO of phase 7's max_memory_allocated; and phase 12(a)'s TP
+     prefill on (1, 2), counted for rank 0, must count the collective
+     calls by axis each of its ranks made.
 
 Prints the card's name and power limit, the build seconds, the kernel and
 plain times, the run's seconds per root round and peak device memory, the
@@ -316,12 +329,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate, float32 rate
-# outside the tensor cores, dense bf16 tensor-core rate -- the roofline the
-# kernels' bounds are taken on
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+# the kernels' bounds are taken on src/repro_torch/launch/hw.py's H100 SXM
+# peaks (HBM_BW, PEAK_FLOPS_F32, PEAK_FLOPS_BF16) and each kernel's cost()
 
 # |kernel - plain| <= TOL * max(1, max|plain|) per output: both run in
 # float32 but sum <w, x_i> in different orders, and the differences ride
@@ -720,6 +729,7 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
     from repro_torch.core import dual
     from repro_torch.core.engine import host as host_mod
     from repro_torch.kernels.sdca import kernel, ref
+    from repro_torch.launch import hw
     rounds = 5
     sched = Schedule(rounds=rounds, level_rounds=[2], local_steps=h,
                      h_cap=h)
@@ -829,15 +839,12 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
         *args, loss=problem.loss, lms=lms, step_mask=mk), 3)
     kernel.LAUNCHES, kernel.LEAVES = n0
     H = idx.shape[2]
-    # the least work: each distinct sampled row of a leaf (over all
-    # configs) read once, y once, each config's vectors read and written
-    # once; 4 flops per row element per step
+    # the least work (kernels/sdca/kernel.py::cost): each distinct sampled
+    # row of a leaf (over all configs) read once
     rows = sum(int(torch.unique(idx[:, k]).numel()) for k in range(K))
-    nbytes = rows * d * 4 + K * m_b * 4 + B * K * (3 * m_b + 2 * d) * 4 + \
-        B * K * H * 8
-    flops = 4 * B * K * H * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    flops, nbytes = kernel.cost(rows, B, K, m_b, d, H)
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / hw.PEAK_FLOPS_F32 * 1e3
     print(f"sdca_block batched launch, the 8-config sweep's first tick (B={B} "
           f"K={K} m_b={m_b} d={d} H={H}, {B * K} blocks): kernel {ms:.4f} "
           f"ms/launch ({ms / B:.4f} ms a config), every config torch.equal "
@@ -1709,10 +1716,12 @@ def init_on_card(fn):
                  "peak": torch.cuda.max_memory_allocated()}
 
 
-def serve_path(dev, card: str, phase7_file: Path) -> dict:
+def serve_path(dev, card: str, phase7_file: Path):
     """Phase 7: recurrentgemma-2b at full width through generate; its
     kernel route's last-position logits and the request's tokens go to
-    ``phase7_file`` for phase 12(a)."""
+    ``phase7_file`` for phase 12(a).  Returns the request's launches and,
+    for phase 14, the prefill's launches by shape, the warm request's
+    prefill seconds and its peak device memory."""
     import dataclasses
     import torch
     from repro_torch.configs import recurrentgemma_2b
@@ -1740,6 +1749,8 @@ def serve_path(dev, card: str, phase7_file: Path) -> dict:
     # prefill only (gen_tokens=1: no decode step), also the warm-up
     _zero_lm_counts()
     _, cold = generate(cfg, params, prompts, 1, device=dev)
+    pre_shapes = {"flash_attention": dict(fa.LAUNCHES_BY_SHAPE),
+                  "rglru_scan": dict(rg.LAUNCHES_BY_SHAPE)}
     pre = (fa.LAUNCHES, rg.LAUNCHES)
     pre_routes = dict(fa.LAUNCHES_BY_ROUTE)
     pre_scan_routes = dict(rg.LAUNCHES_BY_ROUTE)
@@ -1827,7 +1838,8 @@ def serve_path(dev, card: str, phase7_file: Path) -> dict:
     profile_window(decode_steps, "generate of 5 tokens after a 64-token "
                    "prompt (prefill + 4 decode steps)", card)
     fa.LAUNCHES, rg.LAUNCHES = n0
-    return launches
+    return launches, {"by_shape": pre_shapes, "prefill_s": stats["prefill_s"],
+                      "peak": peak}
 
 
 def _leaves(tree):
@@ -1854,6 +1866,7 @@ def time_flash(dev, card: str, B: int, S: int, H: int, KV: int, D: int,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import hw
 
     n0 = (fa.LAUNCHES, dict(fa.LAUNCHES_BY_ROUTE))
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1898,13 +1911,13 @@ def time_flash(dev, card: str, B: int, S: int, H: int, KV: int, D: int,
          if e.device_type == torch.autograd.DeviceType.CUDA),
         key=lambda e: -e.self_device_time_total)
     backend = sdpa_kernels[0].key if sdpa_kernels else "not measured"
-    # visible (query, key) pairs of this causal band; QK^T and PV each 2d
-    # flops a pair; bytes: q, k, v read once, out written once
-    pairs = sum(min(i + 1, win or S) for i in range(S))
-    flops = 4 * D * pairs * B * H
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # the least work (kernel.py::cost): QK^T and PV over the visible
+    # (query, key) pairs of this causal band; q, k, v read once, out
+    # written once
+    pairs = fa.visible_pairs(S, S, window=win)
+    flops, nbytes = fa.cost(B, S, S, H, KV, D, window=win)
+    t_ops = flops / hw.PEAK_FLOPS_BF16 * 1e3
+    t_bytes = nbytes / hw.HBM_BW * 1e3
     print(f"flash_attention at {label} (B={B} S={S} H={H} KV={KV} d={D} "
           f"window={win} bf16, tensor-core kernel): kernel "
           f"{ms:.4f} ms/launch ({100 * max(t_ops, t_bytes) / ms:.1f}% of "
@@ -1944,6 +1957,7 @@ def time_scan(dev, card: str, B: int, S: int, W: int, label: str) -> dict:
     import torch
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.launch import hw
 
     n0 = rg.LAUNCHES
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1966,10 +1980,9 @@ def time_scan(dev, card: str, B: int, S: int, W: int, label: str) -> dict:
     prod = torch.empty_like(a)
     stream_ms = time_ms(lambda: torch.mul(a, b, out=prod), 20)
     del prod
-    nbytes = (3 * a.numel() + 2 * h0.numel()) * 4
-    flops = 2 * a.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    flops, nbytes = rg.cost(B, S, W)
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / hw.PEAK_FLOPS_F32 * 1e3
     print(f"rglru_scan at {label} (B={B} S={S} W={W} f32, {name} "
           f"route): kernel {ms:.4f} ms/launch "
           f"({nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
@@ -2521,6 +2534,7 @@ def time_reverse_scan(dev, card: str) -> dict:
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.kernels.rglru import ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.launch import hw
     n0 = rg.LAUNCHES
     B, S, W = 1, TRAIN_SEQ, 2560
     g = torch.Generator(device=dev).manual_seed(9)
@@ -2541,10 +2555,9 @@ def time_reverse_scan(dev, card: str) -> dict:
     rev_ms = time_ms(lambda: rg.rglru_scan_kernel(ra, rb, h0), 20)
     op_ms = time_ms(lambda: ops.reverse_scan(a, dh), 20)
     plain_ms = time_plain_ms(lambda: rglru_scan_ref(ra, rb, h0), 1)
-    nbytes = (3 * a.numel() + 2 * h0.numel()) * 4
-    flops = 2 * a.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    flops, nbytes = rg.cost(B, S, W)
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / hw.PEAK_FLOPS_F32 * 1e3
     bound = max(t_bytes, t_ops)
     print(f"rglru_scan at the training shape (B={B} S={S} W={W} f32): "
           f"forward launch {fwd_ms:.4f} ms, reverse-time launch {rev_ms:.4f} "
@@ -3041,6 +3054,7 @@ def _tp_serve_rank(rank: int, world: int, root: str) -> None:
         prefill_s = time.perf_counter() - t0
         pre_counts = _kernel_counts()
         pre_coll = dict(ctx.seconds)
+        pre_calls = dict(ctx.calls)
         ctx.reset_timing()
         toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
         t0 = time.perf_counter()
@@ -3051,7 +3065,8 @@ def _tp_serve_rank(rank: int, world: int, root: str) -> None:
         decode_s = time.perf_counter() - t0
     stats = {"init": init, "prefill_s": prefill_s, "decode_s": decode_s,
              "prefill_counts": pre_counts, "counts": _kernel_counts(),
-             "prefill_coll": pre_coll, "decode_coll": dict(ctx.seconds),
+             "prefill_coll": pre_coll, "prefill_calls": pre_calls,
+             "decode_coll": dict(ctx.seconds),
              "decode_calls": dict(ctx.calls),
              "peak": torch.cuda.max_memory_allocated(),
              "logits": logits.cpu(), "tokens": torch.cat(toks, 1).cpu(),
@@ -3211,7 +3226,8 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
               f" GiB), peak after it {s['peak'] / 2**30:.3f} GiB  [{card}]")
     out["serve"] = {"err_share": err / scale, "agree": agree,
                     "by_shape": {k: st[0]["prefill_counts"][k]["by_shape"]
-                                 for k in want_shapes}}
+                                 for k in want_shapes},
+                    "prefill_calls": [s["prefill_calls"] for s in st]}
 
     # ---- (b) training: phase 9's model on (2, 2) -----------------------
     tcfg = _train_cfg()
@@ -3337,7 +3353,7 @@ EP_DECODE = 16
 RWKV_TP_PROMPT = 1024
 TSTP_MESH = (2, 2)             # (data, model): two replicas of two ranks
 TSTP_PERIODS = (2,)            # the int8 root syncs every 2 steps
-TSTP_STEPS = 4
+TSTP_STEPS = 2                 # cut from 4 to keep the script near 1000 s
 TSTP_BATCH, TSTP_SEQ = 4, 2048
 EP_SPAWN_TIMEOUT = 600.0
 
@@ -3897,6 +3913,111 @@ def _ep_print(label: str, s: dict, B: int, card: str) -> None:
           f"{s['peak'] / 2**30:.3f} GiB  [{card}]")
 
 
+# ---- phase 14: the cost count of a cell against its measured run ----------
+# a counted step's lower bound may exceed the measured time by this share
+# at most (a bound above the measurement is a count that is too high)
+ROOFLINE_SLACK = 1.05
+PEAK_RATIO = 2.0        # estimated peak within this factor of the measured
+
+
+def cost_path(card: str, served: dict, tp_calls: list) -> dict:
+    """Phase 14: ``CellProgram.lower()`` of phase 7's cell
+    (recurrentgemma-2b FULL, flash, prefill of 4 x 4096 tokens into a
+    4128-slot cache, one rank) and of phase 12(a)'s TP prefill on (data,
+    model) = (1, 2), counted on meta tensors on the host.  The counted
+    kernel launches by shape must equal phase 7's, the step's roofline
+    lower bound must not exceed phase 7's measured warm prefill by more
+    than ROOFLINE_SLACK, the estimated peak must be within PEAK_RATIO of
+    phase 7's ``max_memory_allocated``, and rank 0's counted collectives
+    by axis must equal the calls each rank of phase 12(a) made."""
+    import collections
+    import dataclasses
+    import torch
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rg
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.steps import build_cell
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(recurrentgemma_2b.FULL, attention_impl="flash")
+    B, S, max_len = 4, 4096, 4096 + 32
+    before = (fa.LAUNCHES, rg.LAUNCHES, dict(fa.LAUNCHES_BY_SHAPE),
+              dict(rg.LAUNCHES_BY_SHAPE))
+
+    def lowered(mesh_shape):
+        cell = build_cell(cfg, ShapeSpec("prefill_4k", max_len, B,
+                                         "prefill"),
+                          make_abstract_mesh(mesh_shape, ("data", "model")))
+        tokens = torch.empty((B, S), dtype=torch.int32, device="meta")
+        return dataclasses.replace(
+            cell, arg_shapes=(cell.arg_shapes[0], {"tokens": tokens})).lower()
+
+    one = lowered((1, 1))
+    tp = lowered(TP_SERVE_MESH)
+    if (fa.LAUNCHES, rg.LAUNCHES, fa.LAUNCHES_BY_SHAPE,
+            rg.LAUNCHES_BY_SHAPE) != before:
+        raise AssertionError("the counted step moved a launch count")
+    count_s = time.perf_counter() - t0
+    got = {k: one.launches.get(k, {}) for k in served["by_shape"]}
+    print(f"cost count (phase 14): {cfg.name} FULL prefill {B} x {S} into "
+          f"{max_len} slots, one rank, counted on meta in {one.seconds:.2f} "
+          f"s: launches by shape {got}; phase 7's prefill "
+          f"{served['by_shape']}")
+    if got != served["by_shape"]:
+        raise AssertionError("the counted launches by shape differ from "
+                             "phase 7's")
+    mflops = rf.model_flops(cfg, ShapeSpec("prefill_4k", S, B, "prefill"))
+    roof = rf.roofline(one.cost_analysis(), one.collective_summary(), 1,
+                       mflops)
+    measured = served["prefill_s"]
+    frac = roof["step_time_lower_bound_s"] / measured
+    mem = one.memory_analysis()
+    ratio = mem.peak_bytes / served["peak"]
+    share = rf.mfu(mflops, measured)
+    print(f"cost count (phase 14): {one.flops} flop ({one.kernel_flops} in "
+          f"the kernels; by dtype {one.flops_by_dtype}), {one.bytes} B per "
+          f"aten op unfused "
+          f"({one.kernel_bytes} in the kernels); roofline compute "
+          f"{roof['compute_s']:.6f} s, memory {roof['memory_s']:.6f} s, "
+          f"collective {roof['collective_s']:.6f} s, lower bound "
+          f"{roof['step_time_lower_bound_s']:.6f} s ({roof['dominant']}), "
+          f"model flops {mflops:.4e} (useful {roof['useful_ratio']:.3f}); "
+          f"phase 7's warm prefill {measured:.4f} s, measured roofline "
+          f"fraction {frac:.4f} (limit {ROOFLINE_SLACK}), model-flops share "
+          f"(MFU) {share:.4f}; estimated peak "
+          f"{mem.peak_bytes / 2**30:.3f} GiB (arguments "
+          f"{mem.argument_size_in_bytes / 2**30:.3f}, outputs "
+          f"{mem.output_size_in_bytes / 2**30:.3f}, temporaries "
+          f"{mem.temp_size_in_bytes / 2**30:.3f}) against phase 7's "
+          f"{served['peak'] / 2**30:.3f} GiB, ratio {ratio:.3f}  [{card}]")
+    if not frac <= ROOFLINE_SLACK:
+        raise AssertionError(f"the counted lower bound exceeds the measured "
+                             f"prefill: fraction {frac}")
+    if not 1 / PEAK_RATIO <= ratio <= PEAK_RATIO:
+        raise AssertionError(f"the estimated peak is {ratio:.3f}x the "
+                             f"measured one")
+    by_axis = dict(collections.Counter("+".join(c.axes) for c in tp.calls))
+    tp_roof = rf.roofline(tp.cost_analysis(), tp.collective_summary(), 2,
+                          mflops)
+    print(f"cost count (phase 14): the TP prefill on (data, model) = "
+          f"{TP_SERVE_MESH}, rank 0 counted: collectives by axis {by_axis} "
+          f"({tp.collective_summary()['wire_bytes_per_chip']:.0f} wire B per "
+          f"GPU, all NVLink), launches {tp.launches}; phase 12(a)'s ranks "
+          f"recorded {tp_calls}; roofline lower bound "
+          f"{tp_roof['step_time_lower_bound_s']:.6f} s "
+          f"({tp_roof['dominant']}); phase 14 {count_s:.2f} s  [{card}]")
+    for r, calls in enumerate(tp_calls):
+        if calls != by_axis:
+            raise AssertionError(f"phase 12(a) rank {r} made {calls} "
+                                 f"collective calls, the count {by_axis}")
+    return {"roofline": roof, "fraction": frac, "mfu": share,
+            "peak_ratio": ratio,
+            "tp_calls": by_axis, "seconds": count_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3909,6 +4030,7 @@ def main() -> int:
     from repro_torch.data.synthetic import gaussian_regression
     from repro_torch.kernels import _build
     from repro_torch.kernels.sdca import kernel, ref
+    from repro_torch.launch import hw
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4054,13 +4176,12 @@ def main() -> int:
         per_loss[name] = time_ms(
             lambda k=cls_kw: kernel.sdca_block_launch(*cls_args, **k), 3)
     kernel.LAUNCHES = n0
-    # the least work: each distinct sampled row read once, the leaf
-    # vectors read and written once; 4 flops per row element per step
+    # the least work (kernels/sdca/kernel.py::cost): each distinct sampled
+    # row read once
     rows = sum(int(torch.unique(r).numel()) for r in idx)
-    nbytes = rows * d * 4 + K * (4 * m_b + 2 * d) * 4 + K * idx.shape[1] * 8
-    flops = 4 * K * idx.shape[1] * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    flops, nbytes = kernel.cost(rows, 1, K, m_b, d, idx.shape[1])
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / hw.PEAK_FLOPS_F32 * 1e3
     bound_ms = max(t_bytes, t_ops)
     print(f"sdca_block at the main path's shape (K={K} m_b={m_b} d={d} "
           f"H={idx.shape[1]}): kernel {ms:.4f} ms/launch, plain "
@@ -4082,7 +4203,7 @@ def main() -> int:
     tp_root = ROOT / "build" / "tp_smoke"
     shutil.rmtree(tp_root, ignore_errors=True)
     phase7_file = tp_root / "phase7.pt"
-    lm_launches = serve_path(dev, card, phase7_file)
+    lm_launches, served = serve_path(dev, card, phase7_file)
     torch.cuda.empty_cache()
 
     # ---- 8. the LM kernels timed at the serving shape ------------------------
@@ -4123,6 +4244,8 @@ def main() -> int:
     lm["flash_attention"]["max_abs_err"] = max(
         lm["flash_attention"]["max_abs_err"],
         ep["flash_attention"]["max_abs_err"])
+    # ---- 14. the cost count against phases 7 and 12(a) ------------------
+    cost_path(card, served, tp["serve"]["prefill_calls"])
     tp_paths = {name: {k: v[name] for k, v in {**tp["launches"],
                                                **ep["launches"]}.items()
                        if name in v}

@@ -377,7 +377,8 @@ class HostExecutor(nn.Module):
         else:
             acc = None
         if self.batched:
-            lms = lm.tolist() if isinstance(lm, Tensor) else lm
+            # once a root round, before the tick loop: B host floats
+            lms = lm.tolist() if isinstance(lm, Tensor) else lm  # analysis: allow(host-sync-in-tick) read once per step, not per tick
             return self._run(data, keys, state, participation, steps,
                              [float(v) for v in lms], acc)
         out = self._run(data, keys[None], _map_state(state, lambda t: t[None]),

@@ -545,15 +545,16 @@ class LMStep:
         step_no = int(state.step) + 1
         cum = np.cumprod(np.asarray(periods, np.int64)[: self.L])
         mask = (None if not self.masked else
-                np.asarray(participation.cpu() if isinstance(
+                np.asarray(participation.cpu() if isinstance(  # analysis: allow(host-sync-in-tick) the straggler mask is a host decision, read once a step
                     participation, Tensor) else participation, np.float32))
         for level in range(self.L):
             if step_no % int(cum[level]):
                 continue
             dev = tree_leaves(state.params)[0].device
+            # a sync's seconds on the host clock around synchronized work
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
+                torch.cuda.synchronize(dev)  # analysis: allow(host-sync-in-tick) the sync timer's start, a step's syncs only
+            t0 = time.perf_counter()  # analysis: allow(wall-clock-in-trace) eager host timer around the sync
             if level == self.L - 1 and self.use_comp:
                 compressed_outer_sync(state.params, state.residual,
                                       self.comm, self.compressor, mask,
@@ -561,8 +562,8 @@ class LMStep:
             else:
                 self.sync_level(state, level, mask)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.sync_seconds[level] += time.perf_counter() - t0
+                torch.cuda.synchronize(dev)  # analysis: allow(host-sync-in-tick) the sync timer's end
+            self.sync_seconds[level] += time.perf_counter() - t0  # analysis: allow(wall-clock-in-trace) eager host timer around the sync
             self.sync_count[level] += 1
         state.step = step_no
         return state, self.replica_mean(metrics)

@@ -18,14 +18,19 @@ kernel to launch.  ``LAUNCHES`` counts kernel launches and
 ``LAUNCHES_BY_ROUTE`` splits them by route, so a run can show that its
 attention went through the tensor-core kernel, and ``LAUNCHES_BY_SHAPE``
 by (B, Sq, Sk, H, KV, D).
+
+On ``meta`` tensors (a cost count, ``kernels/counting.py``) it launches
+nothing and leaves these counters alone: it adds the launch by shape and
+:func:`cost` to the open counts and returns an empty meta output.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counting
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 Tensor = torch.Tensor
@@ -80,6 +85,33 @@ def smem_limit(device: torch.device) -> int:
     return lib.flash_attention_smem_limit(device.index)
 
 
+def visible_pairs(Sq: int, Sk: int, *, causal: bool = True,
+                  window: Optional[int] = None, seq_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through: query i at position
+    i + seq_offset sees key j when j <= i + seq_offset (causal) and
+    i + seq_offset - j < window (if windowed)."""
+    n = 0
+    for i in range(Sq):
+        p = i + seq_offset
+        hi = min(p, Sk - 1) if causal else Sk - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, KV: int, D: int, *,
+         causal: bool = True, window: Optional[int] = None,
+         seq_offset: int = 0, itemsize: int = 2) -> Tuple[int, int]:
+    """(flops, bytes) of the least work of one launch: QK^T and PV take
+    2 D flops each per visible pair per head; q, k and v are read once and
+    the output written once, ``itemsize`` bytes an element."""
+    pairs = visible_pairs(Sq, Sk, causal=causal, window=window,
+                          seq_offset=seq_offset)
+    flops = 4 * D * pairs * B * H
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * itemsize
+    return flops, nbytes
+
+
 def _check(name: str, t: Tensor, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -113,6 +145,14 @@ def flash_attention_kernel(q: Tensor, k: Tensor, v: Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=s,
                              seq_offset=seq_offset)
+    if q.device.type == "meta":
+        route(q.dtype, D)
+        flops, nbytes = cost(B, Sq, Sk, H, KV, D, causal=causal,
+                             window=window, seq_offset=seq_offset,
+                             itemsize=q.element_size())
+        counting.record("flash_attention", (B, Sq, Sk, H, KV, D), flops,
+                        nbytes, q.dtype)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (or cpu via its "
                          f"plain version), got {q.device}")

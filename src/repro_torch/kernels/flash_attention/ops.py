@@ -1,13 +1,15 @@
 """Flash attention as the models call it (the JAX package's
 ``kernels/flash_attention/ops.py``): the kernel on the card, its plain
-version on the CPU."""
+version on the CPU; :func:`cost` is the kernel's least work (flops,
+bytes), counted on ``meta`` inputs."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
+    cost, flash_attention_kernel)
 
 Tensor = torch.Tensor
 

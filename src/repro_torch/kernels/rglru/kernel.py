@@ -24,6 +24,10 @@ forward is this launch, its backward this same kernel run on flipped time
 recurrence run backward, with ``a`` shifted one step) followed by two
 elementwise products.  A training step therefore launches the kernel
 forward, again when remat recomputes the forward, and once in reverse.
+
+On ``meta`` tensors (a cost count, ``kernels/counting.py``) it launches
+nothing and leaves these counters alone: it adds the launch by shape and
+:func:`cost` to the open counts and returns empty meta outputs.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import counting
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
 Tensor = torch.Tensor
@@ -84,6 +89,13 @@ def check_smem(limit: int) -> int:
     return smem
 
 
+def cost(B: int, S: int, W: int) -> Tuple[int, int]:
+    """(flops, bytes) of the least work of one launch: a multiply and an
+    add per element; a and b read once, h written once, h0 read and h_last
+    written once, float32."""
+    return 2 * B * S * W, (3 * B * S * W + 2 * B * W) * 4
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -123,6 +135,12 @@ def rglru_scan_kernel(a: Tensor, b: Tensor, h0: Tensor
     h_last (B, W)) with h_t = a_t * h_{t-1} + b_t."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        B, S, W = a.shape
+        flops, nbytes = cost(B, S, W)
+        counting.record("rglru_scan", (B, S, W), flops, nbytes,
+                        torch.float32)
+        return torch.empty_like(a), torch.empty_like(h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda (or cpu via its plain "
                          f"version), got {a.device}")

@@ -1,6 +1,8 @@
 """The RG-LRU scan as the models call it (the JAX package's
 ``kernels/rglru/ops.py``): the kernel on the card, its plain version on
-the CPU, differentiable through :class:`RGLRUScan`.
+the CPU, differentiable through :class:`RGLRUScan`; :func:`cost` is the
+kernel's least work (flops, bytes), counted on ``meta`` inputs (forward
+and reverse-time launches alike).
 
 The gradient of h_t = a_t h_{t-1} + b_t is itself a linear recurrence,
 run backward in time: with g the gradient reaching h,
@@ -19,7 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.rglru.kernel import rglru_scan_kernel
+from repro_torch.kernels.rglru.kernel import (  # noqa: F401
+    cost, rglru_scan_kernel)
 
 Tensor = torch.Tensor
 

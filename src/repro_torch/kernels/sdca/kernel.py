@@ -11,6 +11,11 @@ and launches it once for B configs x K leaves, raising on anything else
 kernel to launch.  ``LAUNCHES`` counts kernel launches and ``LEAVES``
 the (config, leaf) blocks they solved, so a run can show that its leaf
 solves -- and a sweep's B configs -- went through one launch a tick.
+
+On ``meta`` tensors (a cost count, ``kernels/counting.py``) a launch is
+not made: the open counts get it by (B, K, m_b, d, H) with :func:`cost`
+at the most distinct rows the draws could name, and empty meta outputs
+are returned.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.dual import Loss
+from repro_torch.kernels import counting
 from repro_torch.kernels.sdca.ref import (sdca_steps_ref,
                                           sdca_steps_ref_batched)
 
@@ -60,6 +66,19 @@ def check_smem(m_b: int, d: int, limit: int) -> int:
             f"{ring_depth(d)} rows in shared memory: {smem} B exceeds the "
             f"{limit} B a block may use (d={d}, m_b={m_b})")
     return smem
+
+
+def cost(rows: int, B: int, K: int, m_b: int, d: int, H: int
+         ) -> Tuple[int, int]:
+    """(flops, bytes) of the least work of one launch of B configs x K
+    leaves x H steps: ``rows`` distinct sampled rows (summed over the
+    leaves, each leaf's over all configs) read once, y read once, each
+    config's alpha, xsq and delta-alpha and its w and delta-w read or
+    written once, the draws and the step mask read once; 4 flops per row
+    element per step (the dot product and the update of w)."""
+    nbytes = rows * d * 4 + K * m_b * 4 + B * K * (3 * m_b + 2 * d) * 4 \
+        + B * K * H * 8
+    return 4 * B * K * H * d, nbytes
 
 
 def _library():
@@ -164,7 +183,7 @@ def sdca_block_launch_batched(
     sequential steps; returns (delta_alpha (B, K, m_b), delta_w (B, K,
     d)).  The operands are checked by :func:`batched_layout`; on CPU
     tensors the plain version then runs config by config."""
-    if X.device.type not in ("cpu", "cuda"):
+    if X.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"sdca_block runs on cuda (or cpu via its plain "
                          f"version), got {X.device}")
     lm_dev = lm_array(lms, X.device)
@@ -174,6 +193,12 @@ def sdca_block_launch_batched(
         return sdca_steps_ref_batched(X, y, alpha, w, xsq, idx, loss=loss,
                                       lms=lm_dev, step_mask=step_mask)
     dev, f32 = X.device, torch.float32
+    if X.device.type == "meta":
+        flops, nbytes = cost(K * min(m_b, B * H), B, K, m_b, d, H)
+        counting.record("sdca_block", (B, K, m_b, d, H), flops, nbytes,
+                        f32)
+        return (torch.empty((B, K, m_b), dtype=f32, device=dev),
+                torch.empty((B, K, d), dtype=f32, device=dev))
     code = loss_id(loss)
     lib = _library()
     check_smem(m_b, d, lib.sdca_block_smem_limit(dev.index))

@@ -1,6 +1,7 @@
 """One outer CoCoA round through the blocked-SDCA kernel: every worker's
 LocalSDCA in a single launch, then the 1/K averaging (the JAX package's
-``kernels/sdca/ops.py::sdca_block_solve``)."""
+``kernels/sdca/ops.py::sdca_block_solve``).  :func:`cost` is the
+kernel's least work (flops, bytes)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -9,7 +10,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.dual import Loss
-from repro_torch.kernels.sdca.kernel import sdca_block_kernel
+from repro_torch.kernels.sdca.kernel import (  # noqa: F401
+    cost, sdca_block_kernel)
 
 Tensor = torch.Tensor
 

@@ -17,6 +17,9 @@ not block by block where they are used as the reference's XLA program
 does: during a step a rank holds them whole but for the ``model`` split.
 The shape stand-ins (``params_shape`` and friends) are meta tensors from
 the init functions themselves: no memory and no draw.
+:meth:`CellProgram.lower` runs one rank's step on them and counts its
+flops, bytes, peak memory and collectives (``launch/lowered.py``): what
+the dry-run (``launch/dryrun.py``) reads.
 """
 from __future__ import annotations
 
@@ -91,7 +94,7 @@ def _shard_scope(shard_ctx: Optional[shardctx.ShardContext]):
     ``constrain(...)`` calls resolve; no-op when shard_ctx is None."""
     if shard_ctx is None:
         return contextlib.nullcontext()
-    return shardctx.activation_sharding(shard_ctx.mesh, shard_ctx.rules)
+    return shardctx.activate(shard_ctx)
 
 
 def grads_of(cfg: ModelConfig, params, batch, plain_recurrence: bool = False):
@@ -156,8 +159,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 
 
 def _serving_layout(params) -> PyTree:
-    """``params`` with ``blocks`` a list of per-block dicts (views of a
-    stacked ``blocks``), the layout prefill and decode walk."""
+    """``params`` (or a cache) with ``blocks`` a list of per-block dicts
+    (views of a stacked ``blocks``), the layout prefill and decode walk."""
     if not isinstance(params.get("blocks"), dict):
         return params
     n = tree_leaves(params["blocks"])[0].shape[0]
@@ -180,15 +183,15 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
 
 def make_serve_step(cfg: ModelConfig, shard_ctx=None,
                     max_len: Optional[int] = None) -> Callable:
-    """One decode step: greedy next token + updated cache.  ``max_len``
-    is the cache's context length (needed when a shard context splits its
-    slots)."""
+    """One decode step: greedy next token + updated cache (the cache in
+    either layout; returned in prefill's).  ``max_len`` is the cache's
+    context length (needed when a shard context splits its slots)."""
 
     def serve_step(params, cache, tokens):
         with _shard_scope(shard_ctx):
             params = shardctx.gather_params(cfg, _serving_layout(params))
-            logits, cache = transformer.decode_step(cfg, params, cache,
-                                                    tokens, max_len=max_len)
+            logits, cache = transformer.decode_step(
+                cfg, params, _serving_layout(cache), tokens, max_len=max_len)
             next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
             return next_tokens, cache
 
@@ -204,15 +207,15 @@ class CellProgram:
     program's ``__call__``) takes the arguments ``arg_shapes`` describes
     (meta stand-ins of the whole values), each cut for this rank by the
     spec tree of the same position in ``in_shardings`` (:meth:`local`).
-    There is no ``lower()``: the reference lowers its jitted cell to XLA
-    for the dry-run's cost analysis, which has no counterpart here
-    (ROADMAP A10)."""
+    ``make_step(ctx)`` builds the step under another shard context (what
+    :meth:`lower` counts)."""
     kind: str
     step: Callable
     arg_shapes: Tuple[Any, ...]
     in_shardings: Tuple[Any, ...]
     notes: Dict[str, Any]
     ctx: Any = None
+    make_step: Optional[Callable] = None
 
     def __call__(self, *args):
         if self.ctx is not None and not self.ctx.member:
@@ -220,9 +223,53 @@ class CellProgram:
                              f"{self.ctx.mesh}")
         return self.step(*args)
 
-    def local(self, i: int, tree: PyTree) -> PyTree:
-        """This rank's shards of argument ``i`` given whole."""
-        return sh.shard_tree(tree, self.in_shardings[i], self.ctx.mesh)
+    def local(self, i: int, tree: PyTree, coords=None) -> PyTree:
+        """This rank's (or the rank at ``coords``') shards of argument
+        ``i`` given whole."""
+        return sh.shard_tree(tree, self.in_shardings[i], self.ctx.mesh,
+                             coords)
+
+    def lower(self, rank: int = 0):
+        """Run the step once on meta stand-ins of ``arg_shapes`` cut to the
+        shards of the rank at row-major position ``rank`` of the mesh,
+        with counting comms in place of the mesh's groups (no process
+        group is used), and count it: a ``launch/lowered.py::LoweredCell``
+        whose ``cost_analysis()``, ``memory_analysis()`` and
+        ``collectives()`` stand where the reference's compiled XLA
+        program's do."""
+        from repro_torch.launch.lowered import count_step
+        ctx = shardctx.ShardContext(shardctx.positions(self.ctx.mesh),
+                                    self.ctx.rules, rank=rank)
+        args = [self.local(i, t, ctx.coords)
+                for i, t in enumerate(self.arg_shapes)]
+        if self.kind == "decode":
+            # the cache's position is a host int in the port: the new
+            # token takes the last of the seq_len slots
+            args[1] = dict(args[1], pos=self.notes["seq_len"] - 1)
+        return count_step(self.make_step(ctx), tuple(args), ctx)
+
+
+def _whole_batch(step: Callable, ctx, bspecs, i: int) -> Callable:
+    """``step`` with its argument ``i`` (the batch) made whole along every
+    trailing dim its spec splits (``embeds`` over ``act_seq``, the
+    reference's sequence-parallel boundary): the port runs no sequence
+    parallelism, so each rank's rows enter the model whole."""
+    split = {k: [(d, sh.entry_axes(e)) for d, e in enumerate(spec)
+                 if d and sh.entry_axes(e)]
+             for k, spec in bspecs.items()}
+    if not any(split.values()):
+        return step
+
+    def run(*args, **kw):
+        args = list(args)
+        batch = dict(args[i])
+        for k, dims in split.items():
+            for d, axes in dims:
+                batch[k] = ctx.gather(batch[k], d, axes)
+        args[i] = batch
+        return step(*args, **kw)
+
+    return run
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -233,7 +280,10 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     (FSDP's gather once per step: see the module docstring).
     Building it is a collective of the whole world (the mesh's groups):
     every rank builds the same cells in the same order, a rank outside
-    ``mesh`` included (its program refuses to run).  An MoE layer runs
+    ``mesh`` included (its program refuses to run).  On a mesh with no
+    ranks (``launch/mesh.py::make_abstract_mesh``) it builds no group:
+    the program is rank 0's, with counting comms, for :meth:`CellProgram.
+    lower`.  An MoE layer runs
     expert parallel over ``model`` and an RWKV6 layer head parallel
     (``models/mlp.py``, ``models/rwkv6.py``)."""
     pshape = params_shape(cfg)
@@ -241,33 +291,42 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     batch = input_specs(cfg, shape)
     bspecs = sh.batch_specs(cfg, mesh, batch, rules)
     notes: Dict[str, Any] = {
-        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "seq_len": shape.seq_len}
     ctx = shardctx.context_for(mesh, rules)
 
     if shape.kind == "train":
         optimizer = optimizer or get_optimizer(cfg)
         oshape = optimizer.init(pshape)
         ospecs = sh.opt_state_specs(cfg, oshape, pshape, mesh, rules)
-        step = make_train_step(cfg, optimizer, shard_ctx=ctx,
-                               microbatches=microbatches)
-        return CellProgram("train", step, (pshape, oshape, batch),
-                           (pspecs, ospecs, bspecs), notes, ctx)
+        def make(c):
+            return _whole_batch(make_train_step(
+                cfg, optimizer, shard_ctx=c, microbatches=microbatches),
+                c, bspecs, 2)
+
+        return CellProgram("train", make(ctx), (pshape, oshape, batch),
+                           (pspecs, ospecs, bspecs), notes, ctx, make)
 
     cshape = cache_shape(cfg, shape.global_batch, shape.seq_len)
     cspecs = sh.cache_specs(cfg, cshape, mesh, rules)
     b_ax = sh._batch_axes(mesh, rules, shape.global_batch)
     notes["out_shardings"] = (sh.P(b_ax, None), cspecs)
     if shape.kind == "prefill":
-        step = make_prefill_step(cfg, max_len=shape.seq_len, shard_ctx=ctx)
-        return CellProgram("prefill", step, (pshape, batch),
-                           (pspecs, bspecs), notes, ctx)
+        def make(c):
+            return _whole_batch(make_prefill_step(
+                cfg, max_len=shape.seq_len, shard_ctx=c), c, bspecs, 1)
+
+        return CellProgram("prefill", make(ctx), (pshape, batch),
+                           (pspecs, bspecs), notes, ctx, make)
 
     # decode: one new token against a seq_len-deep cache
-    step = make_serve_step(cfg, shard_ctx=ctx, max_len=shape.seq_len)
+    def make(c):
+        return make_serve_step(cfg, shard_ctx=c, max_len=shape.seq_len)
+
     tok_spec = sh.P(b_ax, None)
     notes["out_shardings"] = (tok_spec, cspecs)
-    return CellProgram("decode", step, (pshape, cshape, batch["tokens"]),
-                       (pspecs, cspecs, tok_spec), notes, ctx)
+    return CellProgram("decode", make(ctx), (pshape, cshape, batch["tokens"]),
+                       (pspecs, cspecs, tok_spec), notes, ctx, make)
 
 
 def cell_is_supported(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:

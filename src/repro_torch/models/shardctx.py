@@ -56,6 +56,14 @@ Collective seconds are kept per axis (``ShardContext.seconds``): host
 clock around each call, after a device synchronize on a gloo group (whose
 collectives on card tensors block anyway), so the wait for earlier
 kernels is not charged to the collective.
+
+A context on a mesh with no ranks (``launch/mesh.py::AbstractMesh``)
+stands in for one rank (``rank``, its row-major position, 0 by default)
+in a single process, with no process group: every group is a
+:class:`CountingComm`, which takes ``meta`` tensors, returns outputs of
+the right shape and records each call (op, result bytes, the axes it
+crossed and the group's positions) in ``ShardContext.collectives``.
+Pricing those calls is ``launch/roofline.py``'s.
 """
 from __future__ import annotations
 
@@ -63,11 +71,11 @@ import contextlib
 import itertools
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import axis_size, mesh_coords
+from repro_torch.launch.mesh import AbstractMesh, axis_size, mesh_coords
 
 Tensor = torch.Tensor
 
@@ -85,14 +93,77 @@ BATCH_AXES = ("pod", "data")
 
 def _fibers(mesh, axes: Tuple[str, ...]):
     """Every group of ranks that differ only in ``axes`` (ranks ordered
-    with ``axes[0]`` major)."""
+    with ``axes[0]`` major); a mesh with no ranks numbers its positions
+    row-major."""
     names = tuple(mesh.mesh_dim_names)
     on = [names.index(a) for a in axes]
     off = [i for i in range(len(names)) if i not in on]
     n = 1
     for i in on:
         n *= int(mesh.shape[i])
-    return mesh.mesh.permute(off + on).reshape(-1, n).tolist()
+    ranks = getattr(mesh, "mesh", None)
+    if ranks is None:
+        ranks = torch.arange(_numel(mesh.shape)).reshape(tuple(mesh.shape))
+    return ranks.permute(off + on).reshape(-1, n).tolist()
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+class CommCall(NamedTuple):
+    """One collective a counting comm took: its op (the JAX package's HLO
+    name), result bytes, the mesh axes its group spans and the group's
+    row-major positions."""
+    op: str
+    result_bytes: int
+    axes: Tuple[str, ...]
+    ranks: Tuple[int, ...]
+
+    @property
+    def group_size(self) -> int:
+        return len(self.ranks)
+
+
+class CountingComm:
+    """One group of a mesh as one rank sees it, in a single process with no
+    process group: ``GroupComm``'s forms on ``meta`` tensors.  Each call
+    returns an empty output of the right shape and appends a
+    :class:`CommCall` to ``log``: all-reduce result bytes are the
+    tensor's, all-gather's the gathered whole, reduce-scatter's this
+    rank's chunk (the JAX package's HLO conventions)."""
+
+    native = True
+
+    def __init__(self, axes: Tuple[str, ...], ranks, log: list):
+        self.axes, self.ranks = tuple(axes), tuple(int(r) for r in ranks)
+        self.size = len(self.ranks)
+        self.log = log
+
+    def _record(self, op: str, out: Tensor) -> Tensor:
+        if out.device.type != "meta":
+            raise ValueError(f"a counting comm takes meta tensors, got "
+                             f"{out.device}")
+        self.log.append(CommCall(op, out.numel() * out.element_size(),
+                                 self.axes, self.ranks))
+        return out
+
+    def all_reduce(self, x: Tensor) -> Tensor:
+        return self._record("all-reduce", torch.empty_like(
+            x, memory_format=torch.contiguous_format))
+
+    def gather_rows(self, x: Tensor) -> Tensor:
+        """(1, k) -> (G, k)."""
+        return self._record("all-gather", x.new_empty(
+            (self.size,) + tuple(x.shape[1:])))
+
+    def reduce_scatter(self, x: Tensor) -> Tensor:
+        """(1, G p) -> (1, p)."""
+        return self._record("reduce-scatter", x.new_empty(
+            (1, x.shape[-1] // self.size)))
 
 
 def _group(mesh, axes: Tuple[str, ...]):
@@ -123,23 +194,40 @@ class ShardContext:
     collective of the whole world: every rank constructs the same
     contexts in the same order, a rank outside the mesh included).  With
     ``axes`` only those of the mesh's axes are live: the model code runs
-    split over them and treats the others as absent."""
+    split over them and treats the others as absent.
 
-    def __init__(self, mesh, rules, axes: Optional[Tuple[str, ...]] = None):
+    On a mesh with no ranks every group is a :class:`CountingComm` of the
+    rank at row-major position ``rank`` (0 by default), and no process
+    group is built."""
+
+    def __init__(self, mesh, rules, axes: Optional[Tuple[str, ...]] = None,
+                 *, rank: int = 0):
         self.mesh, self.rules = mesh, rules
         names = tuple(mesh.mesh_dim_names or ())
         # ``axes`` limits the live axes (a TreeSync replica: ``("model",)``,
         # its rows its own, no batch axis summed over)
         self.live = tuple(a for a in names if axis_size(mesh, a) > 1
                           and (axes is None or a in axes))
+        self.counting = getattr(mesh, "mesh", None) is None
+        self.collectives: List[CommCall] = []
         self.comms: Dict[Tuple[str, ...], object] = {}
+        pos = int(rank)
         for k in range(1, len(self.live) + 1):
             for axes in itertools.combinations(self.live, k):
-                self.comms[axes] = _group(mesh, axes)
-        try:
-            self.coords = mesh_coords(mesh)
-        except ValueError:
-            self.coords = None                 # a rank outside the mesh
+                if self.counting:
+                    mine = next(f for f in _fibers(mesh, axes)
+                                if pos in f)
+                    self.comms[axes] = CountingComm(axes, mine,
+                                                    self.collectives)
+                else:
+                    self.comms[axes] = _group(mesh, axes)
+        if self.counting:
+            self.coords = mesh_coords(mesh, pos)
+        else:
+            try:
+                self.coords = mesh_coords(mesh)
+            except ValueError:
+                self.coords = None             # a rank outside the mesh
         self.seconds: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
         self._pspecs: Dict = {}
@@ -255,6 +343,12 @@ class ShardContext:
     def reset_timing(self) -> None:
         self.seconds.clear()
         self.calls.clear()
+        self.collectives.clear()
+
+
+def positions(mesh) -> AbstractMesh:
+    """``mesh``'s axes and sizes with no ranks: a context on it counts."""
+    return AbstractMesh(mesh.shape, mesh.mesh_dim_names)
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +370,15 @@ def context_for(mesh, rules, axes: Optional[Tuple[str, ...]] = None
     return _CONTEXTS[key]
 
 
-@contextlib.contextmanager
 def activation_sharding(mesh, rules, axes: Optional[Tuple[str, ...]] = None):
     """Run the model code inside on this rank's shards of ``mesh`` (split
     over ``axes`` alone when given)."""
-    ctx = context_for(mesh, rules, axes)
+    return activate(context_for(mesh, rules, axes))
+
+
+@contextlib.contextmanager
+def activate(ctx: ShardContext):
+    """Run the model code inside under ``ctx``."""
     prev, _Active.ctx = _Active.ctx, ctx
     try:
         yield ctx

@@ -420,7 +420,12 @@ def _attn_prefill_cache(p, cfg: ModelConfig, h: Tensor, positions: Tensor,
     src = torch.arange(S - take, S, device=h.device)  # last `take`
     pos_tail = positions[0, src]
     slots = (pos_tail % n).long()
-    if n_here < n:
+    if n_here < n and h.device.type == "meta":
+        # a cost count's shape-only path (``launch/lowered.py``): the kept
+        # slots' number for positions 0..S-1, as prefill numbers them
+        keep = sum(s0 <= q % n < s0 + n_here for q in range(S - take, S))
+        src, pos_tail, slots = src[:keep], pos_tail[:keep], slots[:keep]
+    elif n_here < n:
         mine = (slots >= s0) & (slots < s0 + n_here)
         src, pos_tail, slots = src[mine], pos_tail[mine], slots[mine] - s0
     cache["k"][:, slots] = k[:, src].to(dtype)

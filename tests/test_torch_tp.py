@@ -29,6 +29,11 @@ gathered whole (``gather_tree``), and the tests hold
     rank), on (1, 2) and (2, 2), at bf16 activations and at float32: the
     train step as above (the load-balance loss too), prefill and decode,
     and the train step against the reference's jitted step;
+  * llava-next-34b and musicgen-large SMOKE, fed embeddings, under the
+    dry-run's train rules (``act_seq`` over "model": the embeddings enter
+    cut along the sequence, and build_cell gathers them whole) on (1, 2):
+    the train step to the single-rank step and to the reference's jitted
+    step as above;
   * remesh_params from (2, 2) to (1, 2): gathered, torch.equal to the
     whole params;
   * and, without ranks, constrain as a no-op outside a context.
@@ -98,9 +103,13 @@ BF16_ULP = 2.0 ** -8      # a bf16 cache leaf: one rounding of its inputs
 REF_LOSS_RTOL = 1e-3
 REF_PARAM_TOL = dict(rtol=5e-3, atol=1e-3)
 FACTOR_MIN = 32                   # Adafactor factors the SMOKE widths
+# launch/dryrun.py's train rules: the residual stream's sequence over model
+SEQ_RULES = dataclasses.replace(sh.DEFAULT_RULES, act_seq=("model",))
 
 
 def cfg_of(name: str):
+    if name.endswith("_seq"):    # trained under SEQ_RULES
+        return cfg_of(name[:-4])
     if name == "qwen3":
         return dataclasses.replace(ARCHS["qwen3-32b"].SMOKE, remat=False)
     if name == "rg":
@@ -114,6 +123,10 @@ def cfg_of(name: str):
         return ARCHS["arctic-480b"].SMOKE
     if name == "rwkv":
         return ARCHS["rwkv6-1.6b"].SMOKE
+    if name == "llava":
+        return ARCHS["llava-next-34b"].SMOKE
+    if name == "musicgen":
+        return ARCHS["musicgen-large"].SMOKE
     if name == "gqa63":           # 6 q heads over 3 kv heads
         return dataclasses.replace(ARCHS["qwen3-32b"].SMOKE, remat=False,
                                    num_heads=6, num_kv_heads=3)
@@ -132,11 +145,22 @@ def whole_params(cfg):
         transformer.init_params(cfg, prng.PRNGKey(0), device="cpu"))
 
 
+def rules_of(cfg_name: str):
+    return SEQ_RULES if cfg_name.endswith("_seq") else sh.DEFAULT_RULES
+
+
 def batch_of(cfg, seed: int = 0):
+    """Tokens and labels, or for a model fed embeddings (B, S, d_model)
+    standard-normal embeddings and labels."""
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
-                                             dtype=np.int32))
-            for k in ("tokens", "labels")}
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                            dtype=np.int32))
+           for k in ("tokens", "labels")}
+    if cfg.input_mode == "embeddings":
+        out["embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model), dtype=np.float32))
+        del out["tokens"]
+    return out
 
 
 def decode_inputs(cfg):
@@ -178,10 +202,14 @@ ROUNDS = [
     [("dbrxf32@2x2", "dbrxf32", "2x2", "adamw")],
     [("arcticf32@2x2", "arcticf32", "2x2", "adamw")],
     [("arcticf32@1x2", "arcticf32", "1x2a", "adamw")],
+    # embeddings cut along the sequence by the train rules
+    [("llava_seq@1x2", "llava_seq", "1x2a", "adamw_train"),
+     ("musicgen_seq@1x2", "musicgen_seq", "1x2b", "adamw_train")],
 ]
 SERVE_LEN = {"qwen3": 40, "rg": 40, "gqa63": 41, "qwen3f32": 40,
              "rgf32": 40, "dbrx": 40, "rwkv": 40, "arctic": 40,
-             "dbrxf32": 40, "arcticf32": 40, "rwkvf32": 40}   # context slots
+             "dbrxf32": 40, "arcticf32": 40, "rwkvf32": 40,
+             "llava_seq": 40, "musicgen_seq": 40}   # context slots
 DECODE_STEPS = 2
 
 
@@ -250,7 +278,8 @@ def _case(name, cfg_name, mesh, opt_kind, serve: bool):
     cfg = cfg_of(cfg_name)
     opt = optimizer_of(cfg, opt_kind)
     train = steps.build_cell(cfg, dataclasses.replace(
-        SHAPES["train_4k"], seq_len=S, global_batch=B), mesh, optimizer=opt)
+        SHAPES["train_4k"], seq_len=S, global_batch=B), mesh,
+        rules=rules_of(cfg_name), optimizer=opt)
     n = SERVE_LEN[cfg_name]
     pre = steps.build_cell(cfg, dataclasses.replace(
         SHAPES["prefill_32k"], seq_len=n, global_batch=B), mesh)
@@ -273,7 +302,9 @@ def _case(name, cfg_name, mesh, opt_kind, serve: bool):
            "moe_aux": float(m1["moe_aux"]),
            "params": sh.gather_tree(p1, train.in_shardings[0], mesh),
            "opt": sh.gather_tree(o1, train.in_shardings[1], mesh),
-           "calls": dict(ctx.calls)}
+           "calls": dict(ctx.calls),
+           "local_batch": {k: tuple(v.shape) for k, v in
+                           train.local(2, batch).items()}}
     if not serve:
         return out
     local_p = pre.local(0, params)
@@ -391,7 +422,8 @@ EP_HP_CASES = ["dbrx@1x2", "rwkv@1x2", "arctic@1x2", "rwkvf32@1x2",
                "arcticf32@2x2", "arcticf32@1x2"]
 TRAIN_CASES = ["qwen3@1x2", "rg@1x2", "qwen3@2x2", "rg@2x2", "gqa63@1x2",
                "rg_adafactor@2x2", "rg_adafactor@1x2", "qwen3f32@2x2",
-               "rgf32_adafactor@2x2", "dbrx@2x1", "rwkv@2x1"] + EP_HP_CASES
+               "rgf32_adafactor@2x2", "dbrx@2x1", "rwkv@2x1"] + EP_HP_CASES \
+    + ["llava_seq@1x2", "musicgen_seq@1x2"]
 
 
 def _norm_rel(a, b) -> float:
@@ -429,6 +461,16 @@ def test_sharded_train_step_equals_the_single_rank_step(tp_run, case):
             _within_share(a, b, F32_SHARE)
         else:
             assert _norm_rel(a, b) < BF16_NORM_REL
+
+
+@pytest.mark.parametrize("case", ["llava_seq@1x2", "musicgen_seq@1x2"])
+def test_train_rules_cut_the_embeddings_along_the_sequence(tp_run, case):
+    """Under SEQ_RULES each rank is handed half the sequence of the
+    embeddings (build_cell gathers it whole before the model), the labels
+    whole."""
+    d = cfg_of(case.split("@")[0]).d_model
+    assert tp_run[case]["local_batch"] == {"embeds": (B, S // 2, d),
+                                           "labels": (B, S)}
 
 
 def test_adafactor_moments_factor_over_sharded_dims(tp_run):
@@ -530,7 +572,8 @@ def _to_reference(jcfg, params):
 # routing flips on a few tokens between the two packages (see PINNED)
 @pytest.mark.parametrize("case", ["qwen3@2x2", "qwen3@1x2", "rg@2x2",
                                   "dbrx@1x2", "dbrx@2x2", "arcticf32@1x2",
-                                  "arcticf32@2x2", "rwkv@1x2", "rwkv@2x2"])
+                                  "arcticf32@2x2", "rwkv@1x2", "rwkv@2x2",
+                                  "llava_seq@1x2", "musicgen_seq@1x2"])
 def test_sharded_train_step_equals_the_references_jitted_step(tp_run, case):
     import jax
 
@@ -538,13 +581,15 @@ def test_sharded_train_step_equals_the_references_jitted_step(tp_run, case):
     from repro.launch import steps as jsteps
     from repro.optim import get_optimizer as jget_optimizer
     name = case.split("@")[0]
-    base = name[:-3] if name.endswith("f32") else name
+    base = name[:-3] if name.endswith("f32") else name.removesuffix("_seq")
     jcfg = {"qwen3": dataclasses.replace(JARCHS["qwen3-32b"].SMOKE,
                                          remat=False),
             "rg": JARCHS["recurrentgemma-2b"].SMOKE,
             "dbrx": JARCHS["dbrx-132b"].SMOKE,
             "arctic": JARCHS["arctic-480b"].SMOKE,
-            "rwkv": JARCHS["rwkv6-1.6b"].SMOKE}[base]
+            "rwkv": JARCHS["rwkv6-1.6b"].SMOKE,
+            "llava": JARCHS["llava-next-34b"].SMOKE,
+            "musicgen": JARCHS["musicgen-large"].SMOKE}[base]
     if name.endswith("f32"):
         jcfg = dataclasses.replace(jcfg, activation_dtype="float32")
     cfg = cfg_of(name)
