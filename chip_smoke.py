@@ -6,11 +6,14 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. build every CUDA kernel of the package from its sources (one nvcc per
-     source, started together) into build/kernels/;
+     source, started together) into build/kernels/, and beside them
+     sdca_block.cu after phase 3g's custom loss's step (CUSTOM_CUDA);
   2. hold the sdca_block kernel against its plain-torch version on the
-     card for the four losses (squared, hinge, smooth_hinge_1, logistic)
-     at K=8, m_b=512, d=256, H=1024, with a shared w, and with per-leaf w
-     plus a step mask;
+     card for the four losses (squared, hinge, smooth_hinge_1, logistic:
+     damped Newton steps until one moves the coordinate by at most 1e-6,
+     at most 16) and phase 3g's custom loss (its own library) at K=8,
+     m_b=512, d=256, H=1024, with a shared w, and with per-leaf w plus a
+     step mask;
   3. drive the main path through its user entry points: tree-network SDCA
      on a two-level tree of 8 groups x 16 workers x 8192 examples (m =
      1,048,576, d = 512, ridge, lambda = 1e-4), Schedule(rounds=5,
@@ -100,10 +103,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Also verify_plan's time on the 128-leaf plan against
      Session.compile's.  The counts are zeroed and read around each leg;
  3f. the mesh backend, one process per leaf.  The host backend runs
-     first, here, on two_level(4, 4, 8192) (phase 3's leaf shape: 16 x
+     first, here, on two_level(2, 4, 8192) (phase 3's leaf shape: 8 x
      8192 rows of phase 3's seeded data, d = 512, ridge, lambda = 1e-4)
      under Schedule(rounds=5, level_rounds=[2], local_steps=8192), plain
-     and int8.  Then 16 spawned gloo ranks share the card (each
+     and int8.  Then 8 spawned gloo ranks share the card (each
      torch.cuda.set_device(0), each drawing the same data on the card and
      solving its own block): (a) Session.compile(backend="mesh") psum,
      alpha, w and gaps torch.equal to the host backend; (b)
@@ -117,10 +120,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      after: one launch per solve tick, of one leaf; the sweep one launch
      per tick of 2 x 1.  (e) one NCCL rank on star(1, 8192): psum and
      reduce_scatter torch.equal to the host backend.  Prints seconds per
-     root round, mesh against host (16 processes time-sharing one card,
+     root round, mesh against host (8 processes time-sharing one card,
      not a deployment's speed), the launches and the peak memory of each
      rank.  A failing rank fails the spawn, and every spawn and process
      group has a timeout;
+ 3g. a custom loss on the card: the squared loss's formulas registered
+     under a new name (kind "", no closed form in the kernel) with its
+     step in CUDA C++ (CUSTOM_CUDA), on two_level(2, 4, 1024), d = 64, 3
+     root rounds, backend="cuda": one sdca_block launch of the loss's own
+     library a solve tick; its alpha and w within ROUTE_TOL x max of the
+     same session under the built-in squared loss, which also launches
+     once a solve tick;
   4. time the kernel (CUDA events, warm) and its plain version on one of
      the main path's own ticks, hold them against each other, and compute
      the kernel's bound from that tick's inputs; time it for every loss at
@@ -164,26 +174,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      int8-compressed.  recurrentgemma-2b at full width (d_model 2560,
      vocab 256000, tied, f32 params, bf16 activations, remat,
      xla_chunked attention, logits_chunk 512) cut to one (rec, rec, attn)
-     block, Adafactor, batch 4 x 2048 tokens (one sequence a rank), 4
-     steps (2 data syncs, 1 compressed pod sync; cut from 8 when phase 13
-     came in, to keep the script near 900 s), from PRNGKey(0) (an
-     init alone first, timed by CUDA events with its peak memory, and
-     freed).  Every loss finite and the last two below the first; after
-     each due sync the group's ranks hold torch.equal params; each rank's scan launches, zeroed before the
-     run and read after, equal 2 rec layers x (forward + remat recompute +
-     reverse) x 4; on rank 0 one step's gradients through the kernel match
-     the plain route (autograd through the plain scan) within
-     TRAIN_GRAD_TOL per leaf, every recurrent-layer leaf nonzero.  At
-     SMOKE width in the same spawn: (a) periods=(1, 1) SGD at f32
-     activations equals one process's data-parallel steps within
-     STAR_TOL; (b) a checkpointed run stopped after step 4 and resumed by a
-     fresh session is torch.equal to the uninterrupted run; (c) a
+     block, Adafactor, batch 4 x 2048 tokens (one sequence a rank),
+     periods (1, 2), 2 steps (a data sync after step 1, the compressed pod
+     sync after step 2; cut from 8 steps of periods (2, 2) to keep the
+     script near half its time limit), from PRNGKey(0) (an init alone
+     first, timed by CUDA events with its peak memory, and freed).  Every
+     loss finite and the last below the first; after each due sync the
+     group's ranks hold torch.equal params; each rank's scan launches,
+     zeroed before the run and read after, equal 2 rec layers x (forward
+     + remat recompute + reverse) x 2; on rank 0 one step's gradients
+     through the kernel match the plain route (autograd through the plain
+     scan) within TRAIN_GRAD_TOL per leaf, every recurrent-layer leaf
+     nonzero.  At SMOKE width in the same spawn, periods (2, 2) unless
+     said: (a) periods=(1, 1) SGD at f32 activations equals one
+     process's data-parallel steps within STAR_TOL; (b) a checkpointed
+     run stopped after step 4 and resumed by a fresh session is
+     torch.equal to the uninterrupted run; (c) a
      straggler run drops a replica as the policy decides, losses finite.
      (d) phase 10b: LMSession.sweep(Sweep(lrs=[1e-3, 3e-3], seeds=[0,
      1], local_hs=[1, 2])) (B = 8) at SMOKE width with the int8 root,
      AdamW: one executor build, one data draw a step, B x the code's scan
-     launches, every member torch.equal (params, optimizer state,
-     residual, losses) to its standalone LMSession.run.
+     launches, members 0 and 7 (apart in lr, seed and local_h; all 8
+     before the script was cut to near half its time limit) torch.equal
+     (params, optimizer state, residual, losses) to their standalone
+     LMSession.run.
      Prints seconds per warm step and per outer round, sync seconds by
      level, tokens/s per rank and in total, peak memory per rank and the
      launches;
@@ -191,14 +205,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      3.40 GiB f32), Adafactor, two gloo ranks sharing the card as (pod,
      data) = (1, 2), periods (2,), uncompressed, batch 2 x 2048 (one
      sequence a rank), 2 grid steps of LMSession.sweep(Sweep(lrs=[1e-3,
-     3e-3], seeds=[0, 1])) (B = 4 members on each rank; the first
+     3e-3], seeds=[1])) (B = 2 members on each rank; the first
      without a sync, the second with one).  Cut against phase 9: no int8
      root (a residual per member would add 13.6 GiB a rank) and two
-     ranks, not four; cut from 4 grid steps to 2 to keep the script near
-     half its time limit.  Checks on each rank: one executor
+     ranks, not four; cut from 4 grid steps to 2, and from 4 members
+     (seeds [0, 1]) to 2, to keep the script near half its time limit.
+     Checks on each rank: one executor
      build for the grid (cache_stats), every loss finite, one data draw a
      grid step (not B), scan launches = B x the code's count; members 0
-     and 3 (other lr and seed) torch.equal in params, optimizer state and
+     and 1 (other lr) torch.equal in params, optimizer state and
      losses to their standalone LMSession.run on the same ranks.  Prints
      the seconds of each grid step, the data draw and a member's local
      step (CUDA events the script records around them), a sync, and the
@@ -216,16 +231,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prefill, all on the tensor-core route, none in decode; the same
      prefill through xla_chunked within LM_TOL.  (b) dbrx-132b at full
      width (d_model 6144, 48/8 heads of 128, 16 experts of d_ff 10752,
-     top 4, bf16) cut to DBRX_LAYERS = 2 layers (the whole model is
-     ~246 GiB): 2 flash launches in prefill, none in decode; C in
+     top 4, bf16) cut to DBRX_LAYERS = 1 layer (the whole model is
+     ~246 GiB): 1 flash launch in prefill, none in decode; C in
      prefill and in a decode step, the share of tokens whose kept
      experts agree between the kernel and plain routes; rows whose last
      position kept the same experts within LM_TOL, and the plain route
      with the kernel route's experts pinned within LM_TOL on every row.
      (c) rwkv6-1.6b whole (24 layers, d_model 2048, f32): no flash or
-     scan launch; a 4080-token prefill plus 16 teacher-forced decode
-     steps within RWKV_TOL of a 4096-token prefill, at the config's bf16
-     activations and at float32.  One warm prefill of each leg runs under
+     scan launch; a 1008-token prefill plus 16 teacher-forced decode
+     steps within RWKV_TOL of a RWKV_CHECK_S = 1024-token prefill (4096
+     before the script was cut to near half its limit), at the config's
+     bf16 activations and at float32.  One warm prefill of each leg runs under
      torch.profiler (a 1024-token one for rwkv6).  The flash kernel is
      timed at (a)'s and (b)'s prefill shapes beside its plain version,
      its bound and one SDPA call.  Prints the phase's seconds.
@@ -234,10 +250,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rank): (a) recurrentgemma-2b FULL (26 layers, attention_impl=
      "flash") on (data, model) = (1, 2), two ranks: phase 7's PRNGKey(0)
      weights drawn whole on each rank and cut to its shards, build_cell's
-     prefill at batch 4 x 4096 (phase 7's prompts) then 16 greedy decode
-     steps.  The counts are zeroed before the prefill: each rank must
-     launch flash 8 times at its local (B 4, S 4096, H 5, KV 1, d 256) and
-     the scan 18 times at (4, 4096, 1280), and nothing in decode; the
+     prefill at batch 4 x 4096 (phase 7's prompts) then TP_DECODE = 8
+     greedy decode steps (cut from 16).  The counts are zeroed before the
+     prefill: each rank must launch flash 8 times at its local (B 4, S
+     4096, H 5, KV 1, d 256) and the scan 18 times at (4, 4096, 1280),
+     and nothing in decode; the
      gathered last-position logits within LM_TOL of phase 7's (passed
      through build/tp_smoke/) and equal on both ranks; the share of greedy
      tokens agreeing with phase 7's is printed, with prefill seconds,
@@ -248,24 +265,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      TP_LOSS_RTOL and every rank's parameter shards after it within
      TP_PARAM_TOL of the port's single-rank make_train_step (run first in
      this process), scan launches the code's count at (2, 2048, 1280);
-     step seconds, collective seconds by axis and peak per rank.  (c)
+     step seconds, collective seconds by axis and peak per rank.  Then,
+     in the same spawn, one step each under perf.VARIANTS' "zero1" rules
+     (parameters whole over data, AdamW's moments split over it: each rank
+     updates its cut and all-gathers it) and "fsdp_pure" rules (the batch
+     over data and model, one row a rank, the parameters gathered over
+     both, no tensor parallelism), from the same weights and batch, held
+     to the single-rank step as the baseline is; s per step and
+     collective s by axis printed.  (c)
      flash at (4, 4096, 5, 1, 256, window 2048) and the scan at (4, 4096,
      1280), the TP local shapes, timed as in phase 8.
  13. expert- and head-parallel serving through build_cell and TreeSync
-     over tensor-parallel replicas, gloo ranks sharing the card.  (a)
-     dbrx-132b at full width cut to DBRX_LAYERS = 2 layers on (data,
+     over tensor-parallel replicas, gloo ranks sharing the card; (a) and
+     (b) run in one spawn of two ranks, after (b)'s single-rank runs.  (a)
+     dbrx-132b at full width cut to DBRX_LAYERS = 1 layer on (data,
      model) = (1, 2), two ranks: PRNGKey(0) weights drawn whole and cut to
      each rank's 8 of 16 experts and 24 of 48 q heads (4 of 8 kv), phase
-     11(b)'s prompts (batch 4 x 4096), prefill then 16 greedy decode
-     steps.  Each rank must launch flash twice in prefill at (4, 4096, 24,
+     11(b)'s prompts (batch 4 x 4096), prefill then EP_DECODE = 8 greedy
+     decode steps (cut from 16).  Each rank must launch flash once a layer
+     in prefill at (4, 4096, 24,
      4, 128), all on the tensor-core route, and nothing in decode; the
      gathered last-position logits equal on both ranks and within LM_TOL
      of phase 11(b)'s (passed through build/ep_smoke/) on the rows whose
-     kept experts agree with phase 11's in both layers (the share of
+     kept experts agree with phase 11's in every layer (the share of
      tokens whose kept experts agree printed per layer, as phase 11
      does).  (b) rwkv6-1.6b whole (24 layers, f32 params) head parallel on
-     (1, 2): a 1024-token prefill at batch 4 and 16 teacher-forced decode
-     steps at float32 activations, the prefill's and the last step's
+     (1, 2): a RWKV_TP_PROMPT = 512-token prefill (cut from 1024) at
+     batch 4 and EP_DECODE teacher-forced
+     decode steps at float32 activations, the prefill's and the last step's
      logits within RWKV_TOL["float32"] of the single-rank run made first
      in this process; then the same at the config's bf16 activations,
      whose difference is printed (two orders of the same bf16 sums
@@ -327,6 +354,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# this process's start, and the parent's progress marks (label -> s)
+_T0 = time.perf_counter()
+_PROGRESS: dict = {}
+
+
+def progress(label: str, rank=None) -> None:
+    """A progress mark on the standard error, flushed, so a run cut at its
+    time limit shows where it was: the parent's marks (``rank`` None, kept
+    for the summary line) in seconds from its start, a spawned rank's
+    (rank 0's only) from that rank's start."""
+    t = round(time.perf_counter() - _T0, 1)
+    if rank is None:
+        _PROGRESS[label] = t
+        print(f"chip_smoke: {label} at {t} s", file=sys.stderr, flush=True)
+    elif rank == 0:
+        print(f"chip_smoke rank 0: {label} at {t} s", file=sys.stderr,
+              flush=True)
 sys.path.insert(0, str(ROOT / "src"))
 
 # the kernels' bounds are taken on src/repro_torch/launch/hw.py's H100 SXM
@@ -334,8 +378,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # |kernel - plain| <= TOL * max(1, max|plain|) per output: both run in
 # float32 but sum <w, x_i> in different orders, and the differences ride
-# along H dependent steps; on the logistic loss the 8 Newton steps near
-# the edge of (0, 1) amplify them further.
+# along H dependent steps; on the logistic loss the Newton steps near the
+# edge of (0, 1) amplify them further.
 TOL = 1e-3
 # the compressed run, kernel route against plain route, on w and on X^T
 # alpha / (lambda m): ROUTE_TOL x max|plain| (the sums' order, as TOL
@@ -425,13 +469,15 @@ def check_losses(dev) -> float:
     X = torch.randn(K, m_b, d, generator=g, device=dev)
     lm = 0.1 * K * m_b
     worst = 0.0
-    for name in ("squared", "hinge", "smooth_hinge_1", "logistic"):
-        loss = dual.get_loss(name)
+    losses = [dual.get_loss(name) for name in
+              ("squared", "hinge", "smooth_hinge_1", "logistic")]
+    for loss in losses + [custom_loss()]:
+        name, labels = loss.name, loss.kind not in ("squared", "")
         y = torch.randn(K, m_b, generator=g, device=dev)
-        if name != "squared":
+        if labels:
             y = torch.sign(y)
         alpha = 0.1 * torch.randn(K, m_b, generator=g, device=dev)
-        if name != "squared":      # dual feasibility: alpha * y in [0, 1]
+        if labels:                 # dual feasibility: alpha * y in [0, 1]
             alpha = alpha.abs() * y
         idx = torch.randint(0, m_b, (K, H), generator=g, device=dev,
                             dtype=torch.int32)
@@ -450,8 +496,12 @@ def check_losses(dev) -> float:
             torch.cuda.synchronize()
             e = max_err(got, want)
             worst = max(worst, e)
-            print(f"check sdca_block {name:15s} {label:18s} "
-                  f"max_abs_err={e:.3e}")
+            steps = (f" (damped Newton, at most "
+                     f"{dual.LOGISTIC_NEWTON_STEPS} steps)"
+                     if loss.kind == "logistic" else
+                     " (its own step, CUDA source)" if not loss.kind else "")
+            print(f"check sdca_block {name:18s} {label:18s} "
+                  f"max_abs_err={e:.3e}{steps}")
     return worst
 
 
@@ -1246,7 +1296,8 @@ def elastic_path(problem, topo, sched, sess, plain_run, compressed, swept,
 
 
 # ---- phase 3f: the mesh backend, one process per leaf -----------------------
-MESH_WORLD = 16          # gloo ranks sharing the card, one per leaf
+MESH_WORLD = 8           # gloo ranks sharing the card, one per leaf (cut
+                         # from 16 to keep the script near half its limit)
 MESH_LEAF = 8192         # phase 3's leaf shape: m_b = 8192, d = 512
 MESH_ROUNDS = 5
 MESH_LAMS = (1e-4, 1e-3)
@@ -1257,20 +1308,20 @@ MESH_LAMS = (1e-4, 1e-3)
 # reduce_scatter run is held on w and X^T alpha / (lambda m) to its rtol
 # times max|host| plus the last messages' quanta (int8_quanta)
 MESH_RS_TOL = dict(rtol=1e-5, atol=1e-6)
-# the whole spawn (16 processes reaching the card, the runs, the joins)
+# the whole spawn (8 processes reaching the card, the runs, the joins)
 MESH_SPAWN_TIMEOUT = 300.0
 
 
 def _mesh_setup(dev, n_leaves: int):
     """Phase 3f's problem (phase 3's seeded data drawn on the card at
     n_leaves x 8192 rows, d = 512, ridge, lambda = 1e-4), tree and
-    schedule: two_level(4, 4) for 16 leaves, a star for one."""
+    schedule: two_level(2, 4) for 8 leaves, a star for one."""
     from repro_torch.api import Problem, Schedule, Topology
     from repro_torch.data.synthetic import gaussian_regression
     X, y = gaussian_regression(m=n_leaves * MESH_LEAF, d=512, seed=0,
                                device=dev)
     topo = Topology.star(1, MESH_LEAF) if n_leaves == 1 else \
-        Topology.two_level(4, 4, MESH_LEAF)
+        Topology.two_level(MESH_WORLD // 4, 4, MESH_LEAF)
     return (Problem.ridge(X, y, lam=MESH_LAMS[0]), topo,
             Schedule(rounds=MESH_ROUNDS, level_rounds=[2] if n_leaves > 1
                      else None, local_steps=MESH_LEAF))
@@ -1430,7 +1481,7 @@ def _rs_close(got: dict, want: dict) -> dict:
 
 def mesh_path(dev, card: str) -> dict:
     """Phase 3f: the mesh backend (see the module docstring).  The host
-    runs go first, here; then 16 gloo ranks share the card, then one NCCL
+    runs go first, here; then 8 gloo ranks share the card, then one NCCL
     rank.  Returns the per-rank launches of run (a)."""
     import dataclasses
     import shutil
@@ -1474,7 +1525,8 @@ def mesh_path(dev, card: str) -> dict:
     peaks = [st["peak"] / 2**30 for st in stats]
     gaps = got["psum"]["gaps"]
     print(f"mesh path: {MESH_WORLD} gloo ranks time-sharing one card (not a "
-          f"deployment's speed), two_level(4, 4, {MESH_LEAF}), d=512, H="
+          f"deployment's speed), two_level({MESH_WORLD // 4}, 4, "
+          f"{MESH_LEAF}), d=512, H="
           f"{MESH_LEAF}, {MESH_ROUNDS} rounds: psum {mesh_s:.4f} s per root "
           f"round, reduce_scatter {rs_s:.4f}, host backend {host_s:.4f}; "
           f"spawn and all runs {spawn_s:.1f} s  [{card}]")
@@ -1573,6 +1625,76 @@ def mesh_path(dev, card: str) -> dict:
                         "leaves_per_launch": 1, "ranks": MESH_WORLD,
                         "launches_per_rank": [st["launches"]
                                               for st in stats]}}
+
+
+CUSTOM_CUDA = "return (y - wx - a) / (1.0f + xsq);"
+
+
+def custom_loss():
+    """Phases 1, 2 and 3g's custom loss: the squared loss's formulas
+    registered under a new name (kind "", no closed form in the kernel),
+    its step given in CUDA C++ (the kernel built with it)."""
+    from repro_torch.core import dual
+    return dual.register_loss(dual.Loss(
+        "squared_by_formula", dual.squared.value, dual.squared.conj_neg,
+        dual.squared.coord_delta, gamma=1.0, cuda=CUSTOM_CUDA))
+
+
+def custom_loss_path(dev, card: str) -> dict:
+    """Phase 3g: a loss the kernel has no closed form for on the card (see
+    the module docstring)."""
+    import torch
+    from repro_torch.api import Problem, Session, Topology
+    from repro_torch.core import dual, prng
+    from repro_torch.kernels.sdca import kernel
+    t_phase = time.perf_counter()
+    custom = custom_loss()
+    topo = Topology.two_level(2, 4, 1024, root_rounds=3, group_rounds=2,
+                              local_steps=1024)
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn(topo.m_total, 64, generator=g, device=dev)
+    y = torch.randn(topo.m_total, generator=g, device=dev)
+    runs, counts, secs = {}, {}, {}
+    for loss in (custom, dual.squared):
+        sess = Session.compile(Problem(X, y, loss=loss, lam=1e-3), topo,
+                               backend="cuda", device=dev)
+        ticks = int(sess.executor.solves.sum()) * sess.default_rounds
+        torch.cuda.synchronize()
+        kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runs[loss.name] = sess.run(key=prng.PRNGKey(1))
+        torch.cuda.synchronize()
+        secs[loss.name] = time.perf_counter() - t0
+        counts[loss.name] = (kernel.LAUNCHES, ticks)
+        if kernel.LAUNCHES != ticks:
+            raise AssertionError(f"{loss.name} launched sdca_block "
+                                 f"{kernel.LAUNCHES} times in {ticks} "
+                                 f"solve ticks (one a tick)")
+    launches, ticks = counts[custom.name]
+    worst = 0.0
+    for label in ("alpha", "w"):
+        got = getattr(runs[custom.name], label)
+        want = getattr(runs["squared"], label)
+        err = float((got - want).abs().max())
+        allow = ROUTE_TOL * float(want.abs().max())
+        worst = max(worst, err)
+        if not err <= allow:
+            raise AssertionError(f"the custom loss's {label} is {err} off "
+                                 f"the built-in loss's (allowed {allow})")
+    gaps = runs[custom.name].gaps
+    if not all(math.isfinite(v) for v in gaps) or not gaps[-1] < gaps[0]:
+        raise AssertionError(f"the custom loss's gaps {gaps}")
+    print(f"custom loss (phase 3g): {custom.name!r} (kind '', the squared "
+          f"loss's formulas, its step in CUDA C++) on two_level(2, 4, "
+          f"1024), d=64, 3 root rounds: {launches} sdca_block launches of "
+          f"its own library = its {ticks} solve ticks, "
+          f"{secs[custom.name]:.4f} s; the built-in squared loss "
+          f"{counts['squared'][0]} launches, {secs['squared']:.4f} s; "
+          f"max|d alpha|, max|d w| {worst:.3e} (ROUTE_TOL {ROUTE_TOL} x "
+          f"max); gaps {[f'{v:.3e}' for v in gaps]}; phase 3g took "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"custom_loss": {"launches": launches,
+                            "leaves_per_launch": topo.n_leaves}}
 
 
 def check_flash(dev) -> float:
@@ -2003,8 +2125,11 @@ def time_scan(dev, card: str, B: int, S: int, W: int, label: str) -> dict:
 # ---- phase 9: TreeSync LM training, one rank per replica -------------------
 TRAIN_WORLD = 4          # gloo ranks sharing the card, one per replica
 TRAIN_MESH = (2, 2, 1)   # (pod, data, model)
-TRAIN_PERIODS = (2, 2)   # data syncs every 2 steps, pod syncs every 4
-TRAIN_STEPS = 4          # cut from 8 to keep the script near 900 s
+TRAIN_PERIODS = (1, 2)   # data syncs every step, pod syncs every 2
+TRAIN_STEPS = 2          # one sync of each level: cut from 8 steps of
+                         # periods (2, 2) to keep the script near half its
+                         # time limit
+SMOKE_PERIODS = (2, 2)   # the SMOKE-width runs: data every 2, pod every 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048       # one 2048-token sequence a rank
 TRAIN_SPAWN_TIMEOUT = 900.0
 # gradients through the kernel route against the plain route on one rank,
@@ -2135,6 +2260,7 @@ def _train_rank(rank: int, world: int, root: str) -> None:
     st, init = init_on_card(lambda: sess.init_state(prng.PRNGKey(0)))
     stats["init_card_s"], stats["init_peak"] = init["s"], init["peak"]
     del st
+    progress("phase 9 init alone", rank)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2158,6 +2284,7 @@ def _train_rank(rank: int, world: int, root: str) -> None:
     if stats["launches"] != want:
         raise AssertionError(f"rank {rank}: {stats['launches']} scan "
                              f"launches, the code makes {want}")
+    progress("phase 9 full-width run", rank)
 
     # ---- the kernel route's gradients against the plain route (rank 0) --
     if rank != 0:
@@ -2204,6 +2331,7 @@ def _train_rank(rank: int, world: int, root: str) -> None:
         torch.cuda.empty_cache()
     dist.barrier()
     del sess
+    progress("phase 9 gradient check", rank)
 
     # ---- (a) the star special case at SMOKE width ------------------------
     small32 = dataclasses.replace(recurrentgemma_2b.SMOKE,
@@ -2224,17 +2352,18 @@ def _train_rank(rank: int, world: int, root: str) -> None:
             torch.testing.assert_close(x, y, **STAR_TOL)
             err = max(err, float((x - y).abs().max()))
         stats["star_err"] = err
+    progress("phase 9 (a) star", rank)
 
     # ---- (b) kill after step 4 and resume: the uninterrupted run ----------
     small = recurrentgemma_2b.SMOKE
     int8 = Schedule(compression=("int8", "none"))
     run_b = _smoke_session(mesh, dev, small, make_adamw(lr=1e-3),
-                           TRAIN_PERIODS, int8)
+                           SMOKE_PERIODS, int8)
     full = run_b.run(steps=6, key=0)
     pol = CheckpointPolicy(f"{root}/ckpt", every=1)
     run_b.run(steps=4, key=0, checkpoint=pol)
     fresh = _smoke_session(mesh, dev, small, run_b.problem.optimizer,
-                           TRAIN_PERIODS, int8)
+                           SMOKE_PERIODS, int8)
     resumed = fresh.resume(pol, steps=2)
     same = all(torch.equal(x, y) for x, y in zip(
         tree_leaves(full.state.params) + tree_leaves(full.state.opt_state)
@@ -2247,11 +2376,12 @@ def _train_rank(rank: int, world: int, root: str) -> None:
         raise AssertionError("the resumed run differs from the "
                              "uninterrupted one")
     stats["resume_equal"] = True
+    progress("phase 9 (b) resume", rank)
 
     # ---- (c) stragglers ------------------------------------------------
     topo_kw = dict(level_delays=[1e-3, 5e-2], t_lp=1e-3)
     strag = _smoke_session(mesh, dev, small, make_sgd(lr=0.05),
-                           TRAIN_PERIODS, **topo_kw)
+                           SMOKE_PERIODS, **topo_kw)
 
     def policy():
         return StragglerPolicy(model=StragglerModel(**TRAIN_STRAGGLER),
@@ -2275,9 +2405,11 @@ def _train_rank(rank: int, world: int, root: str) -> None:
     if min(got_parts) == TRAIN_WORLD:
         raise AssertionError("the straggler policy dropped no replica")
     stats["straggler_participants"] = got_parts
+    progress("phase 9 (c) stragglers", rank)
 
     # ---- (d) phase 10b: an LM sweep at SMOKE width, int8 root -----------
     stats["smoke_sweep"] = smoke_sweep(mesh, dev, int8)
+    progress("phase 9 (d) smoke sweep", rank)
     torch.cuda.synchronize()
     stats["total_s"] = time.perf_counter() - t_start
     torch.save(stats, f"{root}/train_stats{rank}.pt")
@@ -2291,10 +2423,16 @@ SWEEP_MESH = (1, 2, 1)   # (pod, data, model): one sync level
 SWEEP_PERIODS = (2,)
 SWEEP_STEPS = 2          # one grid step without a sync, one with
 SWEEP_BATCH = 2          # one 2048-token sequence a rank
-SWEEP_LRS, SWEEP_SEEDS = [1e-3, 3e-3], [0, 1]
-SWEEP_CHECKED = (0, 3)   # members held to their standalone runs
+# two members (cut from four, lrs x seeds [0, 1], to keep the script near
+# half its time limit): each member syncs its 3.40 GiB over gloo
+SWEEP_LRS, SWEEP_SEEDS = [1e-3, 3e-3], [1]
+SWEEP_CHECKED = (0, 1)   # members held to their standalone runs
 SMOKE_SWEEP = dict(lrs=[1e-3, 3e-3], seeds=[0, 1], local_hs=[1, 2])
 SMOKE_SWEEP_STEPS = 4    # 10b: one outer round of periods (2, 2), int8 root
+# 10b's members held to their standalone runs: the first and the last,
+# apart in lr, seed and local_h (all 8 until the script was cut to keep
+# it near half its time limit)
+SMOKE_SWEEP_CHECKED = (0, 7)
 
 
 def _states_equal(a, b) -> bool:
@@ -2332,16 +2470,16 @@ def _sweep_checks(sess, rs, cfg, steps, c0, d0, launches) -> None:
 
 def smoke_sweep(mesh, dev, schedule) -> dict:
     """Phase 10b, on each of phase 9's ranks: Sweep(lrs, seeds, local_hs)
-    at SMOKE width with phase 9's periods and int8 root; every member
-    torch.equal to its standalone run (params, optimizer state, residual
-    and losses)."""
+    at SMOKE width with SMOKE_PERIODS and the int8 root; members
+    SMOKE_SWEEP_CHECKED torch.equal to their standalone runs (params,
+    optimizer state, residual and losses)."""
     import torch
     from repro_torch.api import Sweep
     from repro_torch.configs import recurrentgemma_2b
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.optim import make_adamw
     cfg = recurrentgemma_2b.SMOKE
-    sess = _smoke_session(mesh, dev, cfg, make_adamw(lr=1e-3), TRAIN_PERIODS,
+    sess = _smoke_session(mesh, dev, cfg, make_adamw(lr=1e-3), SMOKE_PERIODS,
                           schedule)
     c0, d0 = sess.cache_stats(), sess.draw_count
     torch.cuda.synchronize()
@@ -2350,7 +2488,8 @@ def smoke_sweep(mesh, dev, schedule) -> dict:
     torch.cuda.synchronize()
     launches = rg.LAUNCHES
     _sweep_checks(sess, rs, cfg, SMOKE_SWEEP_STEPS, c0, d0, launches)
-    for i, pt in enumerate(rs.points):
+    for i in SMOKE_SWEEP_CHECKED:
+        pt = rs.points[i]
         one = sess.run(steps=SMOKE_SWEEP_STEPS, key=pt.seed, lr=pt.lr,
                        local_h=pt.local_h)
         if not _states_equal(one.state, rs.member_state(i)) or [
@@ -2364,7 +2503,7 @@ def smoke_sweep(mesh, dev, schedule) -> dict:
 def _sweep_rank(rank: int, world: int, root: str) -> None:
     """One replica of phase 10, in a spawned process on card 0: the
     full-width sweep, its checks and the standalone runs of members 0 and
-    3.  Each rank saves its numbers; a failed check fails the spawn.  The
+    1.  Each rank saves its numbers; a failed check fails the spawn.  The
     data draws and the local steps are timed on the card's clock by CUDA
     events recorded around each call, read after the sweep: the engine
     itself takes no host synchronize for them."""
@@ -2436,7 +2575,7 @@ def _sweep_rank(rank: int, world: int, root: str) -> None:
     stats["losses"] = rs.losses.tolist()
     stats["points"] = [(p.lr, p.seed) for p in rs.points]
     stats["best"] = rs.best()
-    # members 0 and 3 (other lr and seed) against their standalone runs;
+    # members 0 and 1 (other lr) against their standalone runs;
     # the other members are dropped first
     for i in range(len(rs)):
         if i not in SWEEP_CHECKED:
@@ -2631,11 +2770,12 @@ def train_path(dev, card: str) -> dict:
           f"took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     sm = stats[0]["smoke_sweep"]
     print(f"smoke sweep (phase 10b, on phase 9's ranks): Sweep("
-          f"{SMOKE_SWEEP}) at SMOKE width, periods {TRAIN_PERIODS}, int8 "
+          f"{SMOKE_SWEEP}) at SMOKE width, periods {SMOKE_PERIODS}, int8 "
           f"root: {sm['members']} members, one executor build, one data "
           f"draw a step, scan launches per rank "
-          f"{[s['smoke_sweep']['launches'] for s in stats]}, every member "
-          f"torch.equal to its standalone run")
+          f"{[s['smoke_sweep']['launches'] for s in stats]}, members "
+          f"{list(SMOKE_SWEEP_CHECKED)} torch.equal to their standalone "
+          f"runs")
     return {"launches": [s["launches"] for s in stats],
             "smoke_sweep_launches": [s["smoke_sweep"]["launches"]
                                      for s in stats],
@@ -2650,9 +2790,10 @@ def train_path(dev, card: str) -> dict:
 
 # ---- phase 11: the other architectures' serving paths ------------------------
 ARCH_B, ARCH_S, ARCH_GEN = 4, 4096, 32
-DBRX_LAYERS = 2          # dbrx-132b at full width, cut in depth to fit
-# rwkv6-1.6b's last logits, a 4080-token prefill plus 16 teacher-forced
-# decode steps against a 4096-token prefill, as a share of max|prefill
+DBRX_LAYERS = 1          # dbrx-132b at full width, cut in depth to fit
+                         # (from 2, to keep the script near half its limit)
+# rwkv6-1.6b's last logits, an (S - 16)-token prefill plus 16 teacher-forced
+# decode steps against an S-token prefill, as a share of max|prefill
 # logits|.  At its bf16 activations through 24 layers the chunked WKV
 # (float32 within-chunk products) and the sequential state update round
 # y to bf16 from float32 values summed in other orders, and each flipped
@@ -2661,6 +2802,9 @@ DBRX_LAYERS = 2          # dbrx-132b at full width, cut in depth to fit
 # At float32 activations the same comparison sees only the sums' order
 # through 24 layers
 RWKV_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
+# the prompt tokens of that check (4096, the serving prompt, until the
+# script was cut to keep it near half its time limit)
+RWKV_CHECK_S = 1024
 
 
 def _zero_lm_counts():
@@ -2846,6 +2990,7 @@ def arch_path(dev, card: str, ep_file: Path) -> dict:
         cfg.window, "h2o-danube-1.8b's prefill shape")
     torch.cuda.empty_cache()
 
+    progress("phase 11a")
     # ---- (b) dbrx-132b at full width, DBRX_LAYERS layers: MoE ------------
     cfg = dataclasses.replace(dbrx_132b.FULL, num_layers=DBRX_LAYERS,
                               attention_impl="flash")
@@ -2916,27 +3061,31 @@ def arch_path(dev, card: str, ep_file: Path) -> dict:
         cfg.window, "dbrx-132b's prefill shape")
     torch.cuda.empty_cache()
 
+    progress("phase 11b")
     # ---- (c) rwkv6-1.6b, whole: no attention, no kernel -------------------
     cfg = rwkv6_1_6b.FULL
     leg = _serve_leg(cfg, dev, card)
     params, prompts = leg["params"], leg["prompts"]
-    cut = S - 16
+    n_chk = RWKV_CHECK_S
+    cut = n_chk - 16
     for act in ("bfloat16", "float32"):
         acfg = dataclasses.replace(cfg, activation_dtype=act)
         with torch.no_grad():
-            want, _ = transformer.prefill(acfg, params, prompts)
+            want, _ = transformer.prefill(
+                acfg, params, {"tokens": prompts["tokens"][:, :n_chk]})
             _, cache = transformer.prefill(
                 acfg, params, {"tokens": prompts["tokens"][:, :cut]},
-                max_len=S)
-            for t in range(cut, S):
+                max_len=n_chk)
+            for t in range(cut, n_chk):
                 got, cache = transformer.decode_step(
                     acfg, params, cache, prompts["tokens"][:, t: t + 1])
         for name, t in (("prefill", want), ("decode", got)):
             _check_logits(f"{cfg.name} {act} {name}", t, B, cfg.vocab_size)
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         print(f"arch {cfg.name}: at {act} activations, a {cut}-token "
-              f"prefill and {S - cut} teacher-forced decode steps against a "
-              f"{S}-token prefill: last logits max abs diff {err:.4e}, "
+              f"prefill and {n_chk - cut} teacher-forced decode steps "
+              f"against a {n_chk}-token prefill: last logits max abs diff "
+              f"{err:.4e}, "
               f"max|prefill| {scale:.4e} (tolerance {RWKV_TOL[act]} x "
               f"max|prefill|), argmax agreement "
               f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.2f}"
@@ -2966,7 +3115,8 @@ def arch_path(dev, card: str, ep_file: Path) -> dict:
 # ---- phase 12: tensor parallelism inside a replica ----------------------------
 TP_SERVE_MESH = (1, 2)         # (data, model)
 TP_TRAIN_MESH = (2, 2)
-TP_PROMPT, TP_DECODE = 4096, 16
+TP_PROMPT, TP_DECODE = 4096, 8  # decode cut from 16 steps to keep the
+                                # script near half its time limit
 TP_MAX_LEN = 4096 + 32         # phase 7's cache length (prompt + 32)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 2048, 2
 TP_SPAWN_TIMEOUT = 600.0
@@ -2982,6 +3132,8 @@ TP_PARAM_TOL = dict(rtol=5e-3, atol=1e-3)
 # update left out 1, a reversed one 2)
 TP_MOMENT_NORM_REL = 0.1
 TP_UPDATE_NORM_REL = 0.5
+# phase 12(b)'s one-step variants (launch/perf.py::VARIANTS)
+TP_VARIANTS = ("zero1", "fsdp_pure")
 
 
 def _tp_mesh(shape):
@@ -2992,8 +3144,19 @@ def _tp_mesh(shape):
                     device_type="cuda")
 
 
-def _tp_start(rank: int, world: int, root: str):
-    """Join the gloo group of a phase-12 rank on card 0."""
+def _pg_file(root, tag: str) -> Path:
+    """The rendezvous file of one spawn under ``root``, removed if a run
+    left it: a FileStore file must be new to each process group (one
+    that another group used holds that group's keys, and the new group's
+    ranks can then wait on them until the timeout)."""
+    path = Path(root) / f"pg_{tag}"
+    path.unlink(missing_ok=True)
+    return path
+
+
+def _tp_start(rank: int, world: int, root: str, tag: str):
+    """Join the gloo group of a phase-12 or phase-13 rank on card 0, on
+    the spawn's own rendezvous file ``root/pg_<tag>`` (``_pg_file``)."""
     import os
     from datetime import timedelta
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3001,7 +3164,7 @@ def _tp_start(rank: int, world: int, root: str):
     from repro_torch.runtime import ranks
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    ranks.init(rank, world, f"file://{root}/pg", backend="gloo",
+    ranks.init(rank, world, f"file://{root}/pg_{tag}", backend="gloo",
                timeout=timedelta(seconds=TP_SPAWN_TIMEOUT))
     return torch.device("cuda", 0)
 
@@ -3028,7 +3191,7 @@ def _tp_serve_rank(rank: int, world: int, root: str) -> None:
     from repro_torch.core import prng
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import transformer
-    dev = _tp_start(rank, world, root)
+    dev = _tp_start(rank, world, root, "serve")
     cfg = dataclasses.replace(recurrentgemma_2b.FULL, attention_impl="flash")
     mesh = _tp_mesh(TP_SERVE_MESH)
     B = 4
@@ -3098,7 +3261,7 @@ def _tp_train_rank(rank: int, world: int, root: str) -> None:
     from repro_torch.models import transformer
     from repro_torch.optim import get_optimizer
     from repro_torch.optim.api import tree_leaves
-    dev = _tp_start(rank, world, root)
+    dev = _tp_start(rank, world, root, "train")
     cfg = _train_cfg()
     opt = get_optimizer(cfg)
     mesh = _tp_mesh(TP_TRAIN_MESH)
@@ -3106,9 +3269,12 @@ def _tp_train_rank(rank: int, world: int, root: str) -> None:
                                      TP_TRAIN_BATCH, "train"), mesh,
                       optimizer=opt)
     ctx = cell.ctx
-    params, init = init_on_card(lambda: cell.local(
-        0, transformer.stack_blocks(transformer.init_params(
-            cfg, prng.PRNGKey(0), device=dev))))
+    # the whole weights are drawn once and kept in host memory: each cell
+    # below takes its cut of them
+    whole, init = init_on_card(lambda: transformer.stack_blocks(
+        transformer.init_params(cfg, prng.PRNGKey(0), device=dev)))
+    params = cell.local(0, whole)
+    whole = _to_device(whole, "cpu")
     torch.cuda.empty_cache()
     # AdamW's state is zeros shaped like each shard: its init on the shards
     # is the cut of its init on the whole
@@ -3122,6 +3288,7 @@ def _tp_train_rank(rank: int, world: int, root: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
+    progress("phase 12b init", rank)
     hist = []
     for step in range(TP_TRAIN_STEPS):
         ctx.reset_timing()
@@ -3135,12 +3302,105 @@ def _tp_train_rank(rank: int, world: int, root: str) -> None:
         if step == 0:
             torch.save({"params": params, "opt": state,
                         "coords": ctx.coords}, f"{root}/params{rank}.pt")
+            progress("phase 12b step 1 and its save", rank)
     stats = {"init": init, "history": hist, "counts": _kernel_counts(),
              "peak": torch.cuda.max_memory_allocated(),
              "specs": cell.in_shardings[0],
              "ospecs": cell.in_shardings[1]}
     torch.save(stats, f"{root}/train{rank}.pt")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    progress("phase 12b baseline", rank)
+    # one step under each variant's rules, from the same weights and batch
+    from repro_torch.launch import perf
+    from repro_torch.launch.sharding import map_with_path
+    for name in TP_VARIANTS:
+        vcell = build_cell(cfg, ShapeSpec("tp_train", TP_TRAIN_SEQ,
+                                          TP_TRAIN_BATCH, "train"), mesh,
+                           rules=perf.VARIANTS[name]["rules"], optimizer=opt)
+        vctx = vcell.ctx
+        params = _to_device(vcell.local(0, whole), dev)
+        # AdamW's first state is zeros: the spec's cut of it, whatever the
+        # zero1 axes split
+        state = map_with_path(
+            lambda _p, t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+            vcell.local(1, vcell.arg_shapes[1]), is_leaf=lambda x: False)
+        batch = vcell.local(2, _tp_train_batch(cfg, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        vctx.reset_timing()
+        t0 = time.perf_counter()
+        params, state, m = vcell(params, state, batch)
+        torch.cuda.synchronize()
+        progress(f"phase 12b {name} step", rank)
+        torch.save({"params": params, "opt": state, "coords": vctx.coords,
+                    "specs": vcell.in_shardings[0],
+                    "ospecs": vcell.in_shardings[1],
+                    "sec": time.perf_counter() - t0, "loss": float(m["loss"]),
+                    "coll": dict(vctx.seconds), "calls": dict(vctx.calls),
+                    "peak": torch.cuda.max_memory_allocated()},
+                   f"{root}/{name}{rank}.pt")
+        del params, state, batch, m
+        torch.cuda.empty_cache()
+        progress(f"phase 12b {name} save", rank)
     dist.destroy_process_group()
+
+
+def _to_device(tree, device):
+    from repro_torch.optim.api import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [t.to(device) for t in tree_leaves(tree)])
+
+
+def _tp_norm_rel(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+
+
+def _tp_shards_check(label: str, got: dict, specs, ospecs, p_ref, o_ref,
+                     params):
+    """A rank's parameter and AdamW moment shards after step 1 (``got``:
+    params, opt, coords) against the single-rank step cut by the same
+    specs: each parameter within TP_PARAM_TOL, each leaf's update p1 - p0
+    within TP_UPDATE_NORM_REL and its moments within TP_MOMENT_NORM_REL,
+    norm-relative.  Returns (the largest excess over rtol, the largest
+    moment and update offsets with their leaves)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim.api import tree_leaves
+    cut = functools.partial(sh.shard_tree, mesh=_tp_mesh(TP_TRAIN_MESH),
+                            coords=got["coords"])
+    mine, before = cut(p_ref, specs), cut(params, specs)
+    worst, worst_moment, worst_update = 0.0, (0.0, ""), (0.0, "")
+    for (path, a), b, z in zip(sh.flat_with_path(got["params"]),
+                               tree_leaves(mine), tree_leaves(before),
+                               strict=True):
+        excess = float(((a.float() - b.float()).abs()
+                        - TP_PARAM_TOL["rtol"] * b.float().abs()).max())
+        worst = max(worst, excess)
+        if excess > TP_PARAM_TOL["atol"]:
+            raise AssertionError(f"{label}'s {sh.path_str(path)} after "
+                                 f"step 1 is off the single-rank step")
+        upd = _tp_norm_rel(a.float() - z.float(), b.float() - z.float())
+        worst_update = max(worst_update, (upd, sh.path_str(path)))
+        if not upd < TP_UPDATE_NORM_REL:
+            raise AssertionError(f"{label}'s update of {sh.path_str(path)} "
+                                 f"is {upd:.4f} off the single-rank step's")
+    n_moments = 0
+    for (path, a), b in zip(sh.flat_with_path(got["opt"]),
+                            tree_leaves(cut(o_ref, ospecs)), strict=True):
+        if path[0] not in ("mu", "nu"):
+            continue
+        n_moments += 1
+        off = _tp_norm_rel(a, b)
+        worst_moment = max(worst_moment, (off, sh.path_str(path)))
+        if not off < TP_MOMENT_NORM_REL:
+            raise AssertionError(f"{label}'s {sh.path_str(path)} after "
+                                 f"step 1 is {off:.4f} off the single-rank "
+                                 f"step's")
+    if n_moments != 2 * len(tree_leaves(mine)):
+        raise AssertionError(f"{label}'s optimizer state holds {n_moments} "
+                             f"moments")
+    return worst, worst_moment, worst_update
 
 
 def tp_path(dev, card: str, phase7_file: Path) -> dict:
@@ -3149,11 +3409,9 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
     import shutil
     import torch
     from repro_torch.core import prng
-    from repro_torch.launch import sharding as sh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer
     from repro_torch.optim import get_optimizer
-    from repro_torch.optim.api import tree_leaves
     from repro_torch.runtime import ranks
     t_phase = time.perf_counter()
     root = phase7_file.parent
@@ -3164,8 +3422,10 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
         if f != phase7_file:
             f.unlink()
     n_ranks = TP_SERVE_MESH[0] * TP_SERVE_MESH[1]
+    _pg_file(root, "serve")
     ranks.spawn(_tp_serve_rank, n_ranks, args=(n_ranks, str(root)),
                 timeout=TP_SPAWN_TIMEOUT)
+    progress("phase 12a spawn")
     ref = torch.load(phase7_file, weights_only=False)
     st = [torch.load(root / f"serve{r}.pt", weights_only=False)
           for r in range(n_ranks)]
@@ -3229,6 +3489,7 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
                                  for k in want_shapes},
                     "prefill_calls": [s["prefill_calls"] for s in st]}
 
+    progress("phase 12a checks")
     # ---- (b) training: phase 9's model on (2, 2) -----------------------
     tcfg = _train_cfg()
     opt = get_optimizer(tcfg)
@@ -3243,15 +3504,20 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
     ref_s = time.perf_counter() - t0
     ref_loss = float(m_ref["loss"])
     del batch, m_ref
+    # the single-rank trees (~15 GiB) wait in host memory while the four
+    # ranks share the card (a pure-FSDP rank holds the whole parameters,
+    # their whole gradients and a 2.44 GiB embedding's collective buffers)
+    p_ref, o_ref, params = (_to_device(t, "cpu")
+                            for t in (p_ref, o_ref, params))
     torch.cuda.empty_cache()
+    progress("phase 12b single-rank step")
     n_ranks = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    _pg_file(root, "train")
     ranks.spawn(_tp_train_rank, n_ranks, args=(n_ranks, str(root)),
                 timeout=TP_SPAWN_TIMEOUT)
-
-    def norm_rel(a, b) -> float:
-        return float(torch.linalg.vector_norm((a - b).double())
-                     / max(float(torch.linalg.vector_norm(b.double())),
-                           1e-30))
+    progress("phase 12b spawn")
+    p_ref, o_ref, params = (_to_device(t, dev)
+                            for t in (p_ref, o_ref, params))
 
     worst = 0.0
     worst_moment, worst_update = (0.0, ""), (0.0, "")
@@ -3262,41 +3528,11 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
         s = torch.load(root / f"train{r}.pt", weights_only=False)
         got = torch.load(root / f"params{r}.pt", weights_only=False,
                          map_location=dev)
-        cut = functools.partial(sh.shard_tree, mesh=_tp_mesh(TP_TRAIN_MESH),
-                                coords=got["coords"])
-        mine, before = cut(p_ref, s["specs"]), cut(params, s["specs"])
-        for (path, a), b, z in zip(sh.flat_with_path(got["params"]),
-                                   tree_leaves(mine), tree_leaves(before),
-                                   strict=True):
-            excess = float(((a.float() - b.float()).abs()
-                            - TP_PARAM_TOL["rtol"] * b.float().abs()).max())
-            worst = max(worst, excess)
-            if excess > TP_PARAM_TOL["atol"]:
-                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
-                                     f"step 1 is off the single-rank step")
-            upd = norm_rel(a.float() - z.float(), b.float() - z.float())
-            worst_update = max(worst_update, (upd, sh.path_str(path)))
-            if not upd < TP_UPDATE_NORM_REL:
-                raise AssertionError(f"rank {r}'s update of "
-                                     f"{sh.path_str(path)} is {upd:.4f} "
-                                     f"off the single-rank step's")
-        n_moments = 0
-        for (path, a), b in zip(sh.flat_with_path(got["opt"]),
-                                tree_leaves(cut(o_ref, s["ospecs"])),
-                                strict=True):
-            if path[0] not in ("mu", "nu"):
-                continue
-            n_moments += 1
-            off = norm_rel(a, b)
-            worst_moment = max(worst_moment, (off, sh.path_str(path)))
-            if not off < TP_MOMENT_NORM_REL:
-                raise AssertionError(f"rank {r}'s {sh.path_str(path)} after "
-                                     f"step 1 is {off:.4f} off the "
-                                     f"single-rank step's")
-        if n_moments != 2 * len(tree_leaves(mine)):
-            raise AssertionError(f"rank {r}'s optimizer state holds "
-                                 f"{n_moments} moments")
-        del got, mine, before
+        e, mo, up = _tp_shards_check(f"rank {r}", got, s["specs"],
+                                     s["ospecs"], p_ref, o_ref, params)
+        worst, worst_moment, worst_update = (
+            max(worst, e), max(worst_moment, mo), max(worst_update, up))
+        del got
         h = s["history"]
         if abs(h[0]["loss"] - ref_loss) > TP_LOSS_RTOL * abs(ref_loss) or \
                 not all(math.isfinite(x["loss"]) for x in h):
@@ -3333,9 +3569,37 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
           f"{ref_s:.3f} s  [{card}]")
     out["train"] = {"moment_norm_rel": worst_moment[0],
                     "update_norm_rel": worst_update[0], "excess": worst}
+    progress("phase 12b baseline checks")
+    # the variants' one step, each rank against the single-rank step
+    for name in TP_VARIANTS:
+        worst_v = (0.0, (0.0, ""), (0.0, ""))
+        for r in range(n_ranks):
+            v = torch.load(root / f"{name}{r}.pt", weights_only=False,
+                           map_location=dev)
+            checked = _tp_shards_check(f"{name} rank {r}", v, v["specs"],
+                                       v["ospecs"], p_ref, o_ref, params)
+            worst_v = tuple(max(a, b) for a, b in zip(worst_v, checked))
+            if abs(v["loss"] - ref_loss) > TP_LOSS_RTOL * abs(ref_loss):
+                raise AssertionError(f"{name} rank {r}'s loss {v['loss']} "
+                                     f"against the single-rank {ref_loss}")
+            print(f"tp train {name} rank {r} (phase 12b): loss "
+                  f"{v['loss']:.6f} (single-rank {ref_loss:.6f}), one step "
+                  f"{v['sec']:.3f} s, collectives {v['coll']} s in "
+                  f"{v['calls']} calls, peak {v['peak'] / 2**30:.3f} GiB  "
+                  f"[{card}]")
+            out.setdefault(name, []).append(
+                {"sec": v["sec"], "coll": v["coll"], "calls": v["calls"]})
+            del v
+        print(f"tp train {name} (phase 12b): every rank's shards after one "
+              f"step within rtol {TP_PARAM_TOL['rtol']} / atol "
+              f"{TP_PARAM_TOL['atol']} of the single-rank step's (largest "
+              f"excess {worst_v[0]:.3e}); moments largest "
+              f"{worst_v[1][0]:.4e} ({worst_v[1][1]}), updates largest "
+              f"{worst_v[2][0]:.4e} ({worst_v[2][1]})  [{card}]")
     del p_ref, o_ref, params
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
+    progress("phase 12b variant checks")
 
     # ---- (c) the kernels at the TP local shapes ------------------------
     out["flash_attention"] = time_flash(dev, card, 4, 4096, 5, 1, 256, 2048,
@@ -3349,8 +3613,10 @@ def tp_path(dev, card: str, phase7_file: Path) -> dict:
 
 # ---- phase 13: expert- and head-parallel serving, TreeSync over TP ----------
 EP_MESH = (1, 2)               # (data, model)
-EP_DECODE = 16
-RWKV_TP_PROMPT = 1024
+EP_DECODE = 8                  # cut from 16 to keep the script near half
+                               # its time limit
+RWKV_TP_PROMPT = 512           # cut from 1024 to keep the script near half
+                               # its time limit
 TSTP_MESH = (2, 2)             # (data, model): two replicas of two ranks
 TSTP_PERIODS = (2,)            # the int8 root syncs every 2 steps
 TSTP_STEPS = 2                 # cut from 4 to keep the script near 1000 s
@@ -3472,17 +3738,20 @@ def _ep_cfgs(which: str):
             for act in ("float32", "bfloat16")]
 
 
-def _ep_serve_rank(rank: int, world: int, root: str, which: str) -> None:
-    """One rank of phase 13(a) (``which`` "dbrx": expert parallel) or (b)
-    ("rwkv": head parallel), in a spawned process on card 0, on (data,
-    model) = EP_MESH."""
+def _ep_serve_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 13(a) (dbrx: expert parallel) and then (b)
+    (rwkv: head parallel), in one spawned process on card 0, on (data,
+    model) = EP_MESH; each leg's numbers go to its own file."""
     import torch
     import torch.distributed as dist
-    dev = _tp_start(rank, world, root)
-    teacher = which == "rwkv"
-    torch.save(_ep_leg(_ep_cfgs(which), _tp_mesh(EP_MESH), dev,
-                       RWKV_TP_PROMPT if teacher else ARCH_S, teacher),
-               f"{root}/{which}{rank}.pt")
+    dev = _tp_start(rank, world, root, "ep")
+    for which in ("dbrx", "rwkv"):
+        teacher = which == "rwkv"
+        torch.save(_ep_leg(_ep_cfgs(which), _tp_mesh(EP_MESH), dev,
+                           RWKV_TP_PROMPT if teacher else ARCH_S, teacher),
+                   f"{root}/{which}{rank}.pt")
+        torch.cuda.empty_cache()
+        progress(f"phase 13 {which} leg", rank)
     dist.destroy_process_group()
 
 
@@ -3500,7 +3769,7 @@ def _tstp_rank(rank: int, world: int, root: str) -> None:
     from repro_torch.core import prng
     from repro_torch.kernels.rglru import kernel as rg
     from repro_torch.optim import make_adafactor
-    dev = _tp_start(rank, world, root)
+    dev = _tp_start(rank, world, root, "tstp")
     mesh = init_device_mesh("cuda", TSTP_MESH,
                             mesh_dim_names=("data", "model"))
     cfg = _train_cfg()
@@ -3619,14 +3888,12 @@ def _tstp_reference(dev) -> dict:
 
 
 def _ep_dbrx(dev, card: str, root: Path, ep_file: Path) -> dict:
-    """Phase 13(a): dbrx-132b expert parallel on EP_MESH, against phase
-    11(b)'s single-rank run (``ep_file``)."""
+    """Phase 13(a): dbrx-132b expert parallel on EP_MESH (the ranks'
+    files under ``root``), against phase 11(b)'s single-rank run
+    (``ep_file``)."""
     import torch
-    from repro_torch.runtime import ranks
     B = ARCH_B
     n_ranks = EP_MESH[0] * EP_MESH[1]
-    ranks.spawn(_ep_serve_rank, n_ranks, args=(n_ranks, str(root), "dbrx"),
-                timeout=EP_SPAWN_TIMEOUT)
     ref = torch.load(ep_file, weights_only=False)
     cfg = _ep_cfgs("dbrx")[0]
     st = [torch.load(root / f"dbrx{r}.pt", weights_only=False)[0]
@@ -3653,7 +3920,7 @@ def _ep_dbrx(dev, card: str, root: Path, ep_file: Path) -> dict:
         raise AssertionError("the two ranks' gathered dbrx logits differ")
     # a token whose experts flip between the runs moves by a share of its
     # hidden state (phase 11's note): rows whose last position kept the
-    # same experts in both layers are held to LM_TOL
+    # same experts in every layer are held to LM_TOL
     share = [float((a == b).all(-1).float().mean())
              for a, b in zip(st[0]["kept"], ref["kept"], strict=True)]
     last = [b * ARCH_S + ARCH_S - 1 for b in range(B)]
@@ -3684,16 +3951,13 @@ def _ep_dbrx(dev, card: str, root: Path, ep_file: Path) -> dict:
             "tok_per_s": [B * EP_DECODE / s["decode_s"] for s in st]}
 
 
-def _hp_rwkv(dev, card: str, root: Path) -> dict:
+def _hp_rwkv(dev, card: str, root: Path, refs: list) -> dict:
     """Phase 13(b): rwkv6-1.6b head parallel on EP_MESH at float32 and at
-    bf16 activations, against the single-rank runs made first here."""
+    bf16 activations (the ranks' files under ``root``), against the
+    single-rank runs ``refs`` made first in this process."""
     import torch
-    from repro_torch.runtime import ranks
     B = ARCH_B
-    refs = _rwkv_single(dev)
     n_ranks = EP_MESH[0] * EP_MESH[1]
-    ranks.spawn(_ep_serve_rank, n_ranks, args=(n_ranks, str(root), "rwkv"),
-                timeout=EP_SPAWN_TIMEOUT)
     cfgs = _ep_cfgs("rwkv")
     legs = [torch.load(root / f"rwkv{r}.pt", weights_only=False)
             for r in range(n_ranks)]
@@ -3758,9 +4022,12 @@ def _tstp(dev, card: str, root: Path) -> dict:
     want = _tstp_reference(dev)
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
+    progress("phase 13c single-rank steps")
     n_ranks = TSTP_MESH[0] * TSTP_MESH[1]
+    _pg_file(root, "tstp")
     ranks.spawn(_tstp_rank, n_ranks, args=(n_ranks, str(root)),
                 timeout=EP_SPAWN_TIMEOUT)
+    progress("phase 13c spawn")
 
     def norm_rel(a, b) -> float:
         return float(torch.linalg.vector_norm((a - b).double())
@@ -3880,14 +4147,28 @@ def ep_path(dev, card: str, ep_file: Path) -> dict:
     import shutil
     import torch
     from repro_torch.configs import dbrx_132b
+    from repro_torch.runtime import ranks
     t_phase = time.perf_counter()
     root = ep_file.parent
+    # (a) and (b) share one spawn, after (b)'s single-rank runs
+    refs = _rwkv_single(dev)
+    torch.cuda.empty_cache()
+    progress("phase 13b single-rank runs")
+    n_ranks = EP_MESH[0] * EP_MESH[1]
+    _pg_file(root, "ep")
+    ranks.spawn(_ep_serve_rank, n_ranks, args=(n_ranks, str(root)),
+                timeout=EP_SPAWN_TIMEOUT)
+    progress("phase 13ab spawn")
     out = {"dbrx": _ep_dbrx(dev, card, root, ep_file)}
     torch.cuda.empty_cache()
-    out["rwkv"] = _hp_rwkv(dev, card, root)
+    progress("phase 13a")
+    out["rwkv"] = _hp_rwkv(dev, card, root, refs)
+    del refs
     torch.cuda.empty_cache()
+    progress("phase 13b")
     out["tstp"] = _tstp(dev, card, root)
     torch.cuda.empty_cache()
+    progress("phase 13c")
     shutil.rmtree(root, ignore_errors=True)
     out["launches"] = {k: v for leg in ("dbrx", "rwkv", "tstp")
                        for k, v in out[leg].pop("launches").items()}
@@ -4041,15 +4322,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    progress("phase 1")
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all([("sdca_block", kernel.prelude(custom_loss()))])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(built) or 'nothing (cached)'}")
 
-    # ---- 2. kernel vs plain, four losses --------------------------------------
+    progress("phase 2")
+    # ---- 2. kernel vs plain, four losses and a custom one --------------------
     worst = check_losses(dev)
 
+    progress("phase 3")
     # ---- 3. the main path ---------------------------------------------------
     n_groups, per_group, m_leaf, d = 8, 16, 8192, 512
     lam, rounds, more = 1e-4, 5, 2
@@ -4127,22 +4411,32 @@ def main() -> int:
 
     profile_round(sess, res2, card)
 
+    progress("phase 3b")
     # ---- 3b. the compressed, delay-planned main path --------------------
     compressed = compressed_path(problem, dev, card)
 
+    progress("phase 3c")
     # ---- 3c. batched sweeps; 3d. stragglers and acceleration ------------
     swept = sweep_path(problem, topo, dev, card)
+    progress("phase 3d")
     strag = straggler_accel_path(problem, topo, res, compressed["fitted_C"],
                                  dev, card)
 
+    progress("phase 3e")
     # ---- 3e. checkpoints, kill and resume, elastic membership, fleets ----
     elastic = elastic_path(problem, topo, sched, sess, res, compressed,
                            swept, dev, card)
     del compressed["session"], swept["session"], swept["sweep_set"]
 
+    progress("phase 3f")
     # ---- 3f. the mesh backend: one process per leaf ---------------------
     meshed = mesh_path(dev, card)
 
+    progress("phase 3g")
+    # ---- 3g. a custom loss on the card: its own step in the kernel -------
+    custom = custom_loss_path(dev, card)
+
+    progress("phase 4")
     # ---- 4. the kernel on one of the main path's ticks -----------------------
     ex, data = sess.executor, sess.data
     K, m_b = sess.plan.n_leaves, sess.plan.m_b
@@ -4191,13 +4485,16 @@ def main() -> int:
           f"max_abs_err {err:.3e}  [{card}]")
     print("sdca_block by loss at that shape: " + ", ".join(
         f"{k} {v:.4f} ms/launch = {v * 1e3 / idx.shape[1]:.4f} us/step"
-        for k, v in per_loss.items()) + f"  [{card}]")
+        for k, v in per_loss.items()) + f" (logistic: damped Newton, at "
+        f"most {dual.LOGISTIC_NEWTON_STEPS} steps a coordinate)  [{card}]")
+    progress("phase 5-6")
     # ---- 5-6. the LM kernels against their plain versions ------------------
     flash_err = check_flash(dev)
     rglru_err = check_rglru(dev)
     del X, y, problem, sess, res, res2, data, ex, args, got, want, cls_args
     torch.cuda.empty_cache()
 
+    progress("phase 7")
     # ---- 7. the serving path ---------------------------------------------------
     import shutil
     tp_root = ROOT / "build" / "tp_smoke"
@@ -4206,6 +4503,7 @@ def main() -> int:
     lm_launches, served = serve_path(dev, card, phase7_file)
     torch.cuda.empty_cache()
 
+    progress("phase 8")
     # ---- 8. the LM kernels timed at the serving shape ------------------------
     lm = time_lm_kernels(dev, card)
     lm["flash_attention"]["max_abs_err"] = max(
@@ -4213,15 +4511,18 @@ def main() -> int:
     lm["rglru_scan"]["max_abs_err"] = max(lm["rglru_scan"]["max_abs_err"],
                                           rglru_err)
 
+    progress("phase 9")
     # ---- 9. TreeSync LM training, one rank per replica ----------------------
     torch.cuda.empty_cache()
     trained = train_path(dev, card)
 
+    progress("phase 10")
     # ---- 10. the LM sweep, one executor per grid ---------------------------
     torch.cuda.empty_cache()
     swept_lm = lm_sweep_path(dev, card)
     reverse = time_reverse_scan(dev, card)
 
+    progress("phase 11")
     # ---- 11. the other architectures: dense, MoE, RWKV6 -------------------
     torch.cuda.empty_cache()
     ep_root = ROOT / "build" / "ep_smoke"
@@ -4232,18 +4533,21 @@ def main() -> int:
         [lm["flash_attention"]["max_abs_err"]]
         + [r["max_abs_err"] for r in arched["flash_shapes"].values()])
 
+    progress("phase 12")
     # ---- 12. tensor parallelism inside a replica --------------------------
     torch.cuda.empty_cache()
     tp = tp_path(dev, card, phase7_file)
     for name in ("flash_attention", "rglru_scan"):
         lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
                                       tp[name]["max_abs_err"])
+    progress("phase 13")
     # ---- 13. expert- and head-parallel serving, TreeSync over TP -------
     torch.cuda.empty_cache()
     ep = ep_path(dev, card, ep_file)
     lm["flash_attention"]["max_abs_err"] = max(
         lm["flash_attention"]["max_abs_err"],
         ep["flash_attention"]["max_abs_err"])
+    progress("phase 14")
     # ---- 14. the cost count against phases 7 and 12(a) ------------------
     cost_path(card, served, tp["serve"]["prefill_calls"])
     tp_paths = {name: {k: v[name] for k, v in {**tp["launches"],
@@ -4284,7 +4588,7 @@ def main() -> int:
             ("rglru_scan", "rglru", "rglru_scan",
              "src/repro/kernels/rglru/kernel.py:71"))]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first "
-          f"phase to the result")
+          f"phase to the result; marks (s from the start) {_PROGRESS}")
     print(json.dumps({"kernels": [{
         "name": "sdca_block",
         "route": "cuda",
@@ -4300,7 +4604,7 @@ def main() -> int:
             **{name: {k: swept[name][k]
                       for k in ("launches", "leaves_per_launch")}
                for name in ("sweep", "sweep_local_hs")},
-            **strag, **elastic, **meshed},
+            **strag, **elastic, **meshed, **custom},
         "batched": swept["batched"],
         "max_abs_err": max(worst, swept["batched"]["max_abs_err"]),
         "ms": ms,

@@ -48,13 +48,13 @@
 //     value per lane, and taken with a shuffle, so no global load sits on
 //     the chain either.
 // What remains per step: the row's shared-memory loads, the shuffle
-// all-reduce, the loss's scalar update (8 Newton iterations with two logf
-// each for the logistic loss) and the w update.  Loading the next step's
-// row and alpha, y, xsq before this step's dot was tried and made the
-// squared loss's step slower on the card.  Four warps load alpha, y and
-// xsq into shared memory before the chain and write delta alpha after it;
-// a, y and xsq stay in shared memory, a_i read every step because idx may
-// repeat.
+// all-reduce, the loss's scalar update (for the logistic loss up to 16
+// damped Newton iterations, two logf each, about 5 on typical data) and
+// the w update.  Loading the next step's row and alpha, y, xsq before this
+// step's dot was tried and made the squared loss's step slower on the
+// card.  Four warps load alpha, y and xsq into shared memory before the
+// chain and write delta alpha after it; a, y and xsq stay in shared
+// memory, a_i read every step because idx may repeat.
 //
 // Plain C interface, loaded with ctypes (kernels/_build.py); the launch
 // goes on the caller's stream and the return value is cudaGetLastError().
@@ -69,7 +69,20 @@ constexpr int kThreads = 128;     // warp 0 steps, warp 1 copies rows;
 constexpr int kGroup = 4;         // rows per mbarrier of the ring
 constexpr int kRingFloats = 8192;   // the ring's budget: 32 KiB
 
-enum LossKind { kSquared = 0, kHinge = 1, kSmoothHinge = 2, kLogistic = 3 };
+enum LossKind {
+  kSquared = 0,
+  kHinge = 1,
+  kSmoothHinge = 2,
+  kLogistic = 3,
+  kCustom = 4     // a loss's own step, built with SDCA_CUSTOM_LOSS
+};
+
+// the logistic step's damped Newton iterations: at most
+// core/dual.py::LOGISTIC_NEWTON_STEPS, ending once a step moves the
+// iterate by at most LOGISTIC_STEP_TOL (every lane holds the same
+// scalars, so the exit is warp-uniform)
+constexpr int kLogisticNewtonSteps = 16;
+constexpr float kLogisticStepTol = 1e-6f;
 
 __device__ __forceinline__ float clip01(float q) {
   return fminf(fmaxf(q, 0.0f), 1.0f);
@@ -105,7 +118,7 @@ __device__ __forceinline__ float coord_delta<kSmoothHinge>(float wx, float a,
   return y * clip01(q) - a;
 }
 
-// logistic: 8 damped Newton steps on u = (a + d) y in (eps, 1 - eps)
+// logistic: damped Newton steps on u = (a + d) y in (eps, 1 - eps)
 template <>
 __device__ __forceinline__ float coord_delta<kLogistic>(float wx, float a,
                                                         float y, float xsq,
@@ -114,17 +127,31 @@ __device__ __forceinline__ float coord_delta<kLogistic>(float wx, float a,
   const float hi = 0.999999f;
   float d = fminf(fmaxf(a * y, 0.25f), 0.75f) * y - a;
 #pragma unroll 1
-  for (int s = 0; s < 8; ++s) {
+  for (int s = 0; s < kLogisticNewtonSteps; ++s) {
     const float u = fminf(fmaxf((a + d) * y, lo), hi);
     const float grad = -xsq * d - wx - y * (logf(u) - logf(1.0f - u));
     const float hess = -xsq - 1.0f / (u * (1.0f - u));
     float dn = d - grad / hess;
     const float un = (a + dn) * y;
     if (un <= 0.0f || un >= 1.0f) dn = fminf(fmaxf(un, lo), hi) * y - a;
+    const bool small = fabsf(dn - d) <= kLogisticStepTol;
     d = dn;
+    if (small) break;
   }
   return d;
 }
+
+#ifdef SDCA_CUSTOM_LOSS
+// a registered loss's step: the prelude this library was built with
+// (kernels/sdca/kernel.py::prelude, from the loss's `cuda` source)
+// defines sdca_custom_coord_delta
+template <>
+__device__ __forceinline__ float coord_delta<kCustom>(float wx, float a,
+                                                      float y, float xsq,
+                                                      float g) {
+  return sdca_custom_coord_delta(wx, a, y, xsq, g);
+}
+#endif
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -484,7 +511,8 @@ int sdca_block_smem_limit(int device) {
 // alpha, xsq (B, K, m_b); idx, mask (B, K, H); da (B, K, m_b); dw (B, K, d);
 // lm (B,) on the device.  w_stride: 0 for one w per config, d for
 // per-leaf rows; w_cfg_stride: the floats between two configs' w.
-// loss: 0 squared, 1 hinge, 2 smoothed hinge (smoothing g), 3 logistic.
+// loss: 0 squared, 1 hinge, 2 smoothed hinge (smoothing g), 3 logistic,
+// 4 the custom loss a library built with SDCA_CUSTOM_LOSS holds.
 // mask may be null (no step gating).  Returns a cudaError_t.
 int sdca_block_launch(const float* X, const float* y, const float* alpha,
                       const float* w, const float* xsq, const int32_t* idx,
@@ -506,6 +534,10 @@ int sdca_block_launch(const float* X, const float* y, const float* alpha,
       return SDCA_LOSS(kSmoothHinge);
     case kLogistic:
       return SDCA_LOSS(kLogistic);
+#ifdef SDCA_CUSTOM_LOSS
+    case kCustom:
+      return SDCA_LOSS(kCustom);
+#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,6 +12,13 @@ kernel to launch.  ``LAUNCHES`` counts kernel launches and ``LEAVES``
 the (config, leaf) blocks they solved, so a run can show that its leaf
 solves -- and a sweep's B configs -- went through one launch a tick.
 
+A registered loss the kernel has no closed form for (``kind == ""``;
+the reference's Pallas kernel traces its ``coord_delta`` into its body)
+launches the same kernel built with the loss's own step: its ``cuda``
+source goes into a :func:`prelude` that the build ``-include``s, one
+library per source (``kernels/_build.py``), and the launch names it by
+code 4.  Such a loss without ``cuda`` source raises on CUDA tensors.
+
 On ``meta`` tensors (a cost count, ``kernels/counting.py``) a launch is
 not made: the open counts get it by (B, K, m_b, d, H) with :func:`cost`
 at the most distinct rows the draws could name, and empty meta outputs
@@ -20,7 +27,7 @@ are returned.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,9 +42,10 @@ LAUNCHES = 0            # kernel launches since the last reset
 LEAVES = 0              # (config, leaf) blocks those launches solved
 
 _LOSS_IDS = {"squared": 0, "hinge": 1, "smooth_hinge": 2, "logistic": 3}
+CUSTOM_ID = 4           # a loss's own step (csrc: kCustom)
 RING_FLOATS = 8192      # the row ring's budget (csrc: kRingFloats)
 RING_GROUP = 4          # rows per mbarrier of the ring (csrc: kGroup)
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}    # by prelude ("": the built-ins)
 
 
 def ring_depth(d: int) -> int:
@@ -81,11 +89,25 @@ def cost(rows: int, B: int, K: int, m_b: int, d: int, H: int
     return 4 * B * K * H * d, nbytes
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def prelude(loss: Loss) -> str:
+    """The C++ that ``sdca_block.cu`` is built after for ``loss``: ""
+    for a closed form, else the loss's ``cuda`` body as the
+    ``sdca_custom_coord_delta`` that ``coord_delta<kCustom>`` calls."""
+    if loss.kind:
+        return ""
+    return ("#define SDCA_CUSTOM_LOSS 1\n"
+            "__device__ __forceinline__ float sdca_custom_coord_delta(\n"
+            "    float wx, float a, float y, float xsq, float g) {\n"
+            f"{loss.cuda}\n}}\n")
+
+
+def _library(loss: Optional[Loss] = None):
+    """The built library that holds ``loss``'s step (the built-in losses'
+    one when ``loss`` is None or a closed form)."""
+    head = "" if loss is None else prelude(loss)
+    if head not in _libs:
         from repro_torch.kernels import _build
-        lib = _build.load("sdca_block")
+        lib = _build.load("sdca_block", head)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdca_block_launch.argtypes = ([p] * 9 + [i] * 6
                                           + [ctypes.c_longlong, p, i, f, p])
@@ -94,18 +116,22 @@ def _library():
         lib.sdca_block_smem_limit.restype = ctypes.c_int
         lib.sdca_block_smem_bytes.argtypes = [i, i]
         lib.sdca_block_smem_bytes.restype = ctypes.c_longlong
-        _lib = lib
-    return _lib
+        _libs[head] = lib
+    return _libs[head]
 
 
 def loss_id(loss: Loss) -> int:
-    """The kernel's code for ``loss``; raises for a loss it has no closed
-    form for."""
-    if loss.kind not in _LOSS_IDS:
-        raise NotImplementedError(
-            f"the CUDA sdca_block kernel has no coord_delta for loss "
-            f"{loss.name!r} (kernels: {sorted(_LOSS_IDS)})")
-    return _LOSS_IDS[loss.kind]
+    """The kernel's code for ``loss``: a closed form's, or
+    :data:`CUSTOM_ID` for a ``kind ""`` loss with ``cuda`` source; raises
+    for any other."""
+    if loss.kind in _LOSS_IDS:
+        return _LOSS_IDS[loss.kind]
+    if not loss.kind and loss.cuda:
+        return CUSTOM_ID
+    raise NotImplementedError(
+        f"the CUDA sdca_block kernel has no coord_delta for loss "
+        f"{loss.name!r} (kernels: {sorted(_LOSS_IDS)}, or a loss's own "
+        f"step given as its Loss.cuda source)")
 
 
 def _check(name: str, t: Tensor, dtype, shape, device):
@@ -200,7 +226,7 @@ def sdca_block_launch_batched(
         return (torch.empty((B, K, m_b), dtype=f32, device=dev),
                 torch.empty((B, K, d), dtype=f32, device=dev))
     code = loss_id(loss)
-    lib = _library()
+    lib = _library(loss)
     check_smem(m_b, d, lib.sdca_block_smem_limit(dev.index))
     da = torch.empty((B, K, m_b), dtype=f32, device=dev)
     dw = torch.empty((B, K, d), dtype=f32, device=dev)

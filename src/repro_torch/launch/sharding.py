@@ -277,43 +277,56 @@ def param_shardings(cfg: ModelConfig, params_shape: PyTree, mesh,
     return map_with_path(lambda _p, s: (mesh, s), specs)
 
 
+def zero1_extend(spec: P, shape, mesh, rules: AxisRules) -> P:
+    """``spec`` with the rules' zero1 axes added to the first unsharded,
+    divisible dim of ``shape`` (``spec`` as it is when the rules have
+    none, padded to ``shape``'s rank when none fits)."""
+    z = rules.get("zero1")
+    if not z:
+        return spec
+    out = list(spec) + [None] * (len(shape) - len(spec))
+    used = {a for s in out if s
+            for a in (s if isinstance(s, tuple) else (s,))}
+    for i, (dim, s) in enumerate(zip(shape, out, strict=False)):
+        if s is not None:
+            continue
+        got = _fit(dim, z, mesh, used, None)
+        if got is not None:
+            out[i] = got
+            return P(*out)
+    return P(*out)
+
+
 def opt_state_specs(cfg: ModelConfig, opt_shape: PyTree, params_shape: PyTree,
                     mesh, rules: AxisRules = DEFAULT_RULES) -> PyTree:
     """Optimizer-state specs: moments inherit their parameter's spec;
     Adafactor factored vectors inherit the spec minus the reduced dim;
-    scalars replicate."""
-    pspecs = param_specs(cfg, params_shape, mesh, rules)
+    scalars replicate; each then extended by the zero1 axes
+    (:func:`zero1_extend`)."""
+    return state_specs_of(
+        opt_shape, params_shape, param_specs(cfg, params_shape, mesh, rules),
+        lambda spec, shape: zero1_extend(spec, shape, mesh, rules))
+
+
+def state_specs_of(opt_shape: PyTree, params_shape: PyTree, pspecs: PyTree,
+                   extend: Callable = lambda spec, shape: spec) -> PyTree:
+    """The optimizer-state specs that :func:`opt_state_specs` derives from
+    the parameter specs ``pspecs``, each passed through ``extend(spec,
+    shape)`` (the identity: the state laid out as the parameters are)."""
     flat_p = {path: spec for path, spec in flat_with_path(pspecs)}
     flat_shapes = {path: _shape(leaf)
                    for path, leaf in flat_with_path(params_shape)}
-
-    def zero1_extend(spec: P, shape) -> P:
-        """Add the zero1 axes to the first unsharded, divisible dim."""
-        z = rules.get("zero1")
-        if not z:
-            return spec
-        out = list(spec) + [None] * (len(shape) - len(spec))
-        used = {a for s in out if s
-                for a in (s if isinstance(s, tuple) else (s,))}
-        for i, (dim, s) in enumerate(zip(shape, out, strict=False)):
-            if s is not None:
-                continue
-            got = _fit(dim, z, mesh, used, None)
-            if got is not None:
-                out[i] = got
-                return P(*out)
-        return P(*out)
 
     def match(keys, cand, shape):
         if cand not in flat_p:
             return None
         spec, pshape = flat_p[cand], flat_shapes[cand]
         if shape == pshape:
-            return zero1_extend(spec, shape)
+            return extend(spec, shape)
         if keys[-1] == "vr" and shape == pshape[:-1]:
-            return zero1_extend(P(*spec[:-1]), shape)
+            return extend(P(*spec[:-1]), shape)
         if keys[-1] == "vc" and shape == pshape[:-2] + pshape[-1:]:
-            return zero1_extend(P(*(spec[:-2] + spec[-1:])), shape)
+            return extend(P(*(spec[:-2] + spec[-1:])), shape)
         return None
 
     def visit(path, leaf):
@@ -357,11 +370,25 @@ def batch_specs(cfg: ModelConfig, mesh, batch_shape: Dict[str, Any],
     return out
 
 
+BATCHED_CACHE = ("k", "v", "h", "conv", "wkv", "tm_prev", "cm_prev")
+
+
 def cache_specs(cfg: ModelConfig, cache_shape: PyTree, mesh,
                 rules: AxisRules = DEFAULT_RULES) -> PyTree:
     """Decode-cache specs. Attention caches (stacked: (L, B, n, kv, hd)):
     batch over data axes, context slots over `cache_seq`; recurrent states
-    (L, B, W)/(L, B, H, N, N): batch over data, channel/head over model."""
+    (L, B, W)/(L, B, H, N, N): batch over data, channel/head over model.
+
+    An axis the batch dim takes is not given to a later dim of the same
+    cache (the slots, heads or channels): the reference's specs map it
+    twice where ``cache_batch`` holds ``model`` (``fsdp_pure``), which jax
+    refuses (``DuplicateSpecError``); under every other rule set the two
+    agree."""
+    batch = next((_shape(leaf)[1 if "blocks" in path else 0]
+                  for path, leaf in flat_with_path(cache_shape)
+                  if path[-1] in BATCHED_CACHE), None)
+    used = set() if batch is None else set(entry_axes(
+        _batch_axes(mesh, rules, batch, "cache_batch")))
 
     def visit(path, leaf):
         keys = list(path)
@@ -376,23 +403,23 @@ def cache_specs(cfg: ModelConfig, cache_shape: PyTree, mesh,
             spec[lead] = _batch_axes(mesh, rules, shape[lead], "cache_batch")
             cs = rules.get("cache_seq")
             if cs:
-                spec[lead + 1] = _fit(shape[lead + 1], cs, mesh, set(), None)
+                spec[lead + 1] = _fit(shape[lead + 1], cs, mesh, used, None)
             ch = rules.get("cache_heads")
             if ch:
-                spec[lead + 2] = _fit(shape[lead + 2], ch, mesh, set(),
+                spec[lead + 2] = _fit(shape[lead + 2], ch, mesh, used,
                                       cfg.num_kv_heads)
         elif name == "slot_pos":
             cs = rules.get("cache_seq")
             if cs:
-                spec[lead] = _fit(shape[lead], cs, mesh, set(), None)
-        elif name in ("h", "conv", "wkv", "tm_prev", "cm_prev"):
+                spec[lead] = _fit(shape[lead], cs, mesh, used, None)
+        elif name in BATCHED_CACHE:
             spec[lead] = _batch_axes(mesh, rules, shape[lead], "cache_batch")
             # trailing channel dim over model when divisible
-            got = _fit(shape[-1], ("model",), mesh, set(), None)
+            got = _fit(shape[-1], ("model",), mesh, used, None)
             if name == "wkv" and len(shape) > lead + 1:
                 # (L, B, H, N, N): shard heads
                 spec[lead + 1] = _fit(shape[lead + 1], ("model",), mesh,
-                                      set(), None)
+                                      used, None)
             elif got is not None and len(shape) - 1 > lead:
                 spec[-1] = got
         return P(*spec)

@@ -15,6 +15,14 @@ optimizer state, batch and cache, cut by the specs in ``in_shardings``.
 The parameters are gathered over ``data`` once, at the start of a step,
 not block by block where they are used as the reference's XLA program
 does: during a step a rank holds them whole but for the ``model`` split.
+Every rule set of ``launch/perf.py::VARIANTS`` lays out: under ZeRO-1
+rules the optimizer updates this rank's cut of each parameter and the
+cuts are all-gathered (``shardctx.optimizer_step``); under pure-FSDP
+rules ``model`` is a batch axis; where ``cache_batch`` leaves the cache
+whole over an axis the tokens are split over (``serve_headdata``),
+prefill hands its cache out so, and each rank decodes its rows of the
+tokens against its rows of the cache and gathers the new cache entries
+of every row over that axis (``shardctx.own_rows`` / ``rows_to_cache``).
 The shape stand-ins (``params_shape`` and friends) are meta tensors from
 the init functions themselves: no memory and no draw.
 :meth:`CellProgram.lower` runs one rank's step on them and counts its
@@ -147,12 +155,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                     metrics = {k: metrics[k] + m_i[k] for k in metrics}
                 grads = tree_unflatten(acc, [g / microbatches for g in flat])
                 metrics = {k: v / microbatches for k, v in metrics.items()}
-            kw = {}
-            shards = shardctx.leaf_shards(cfg, params)
-            if shards is not None:
-                kw["shards"] = shards
-            params, opt_state = optimizer.update(params, grads, opt_state,
-                                                 lr=lr, **kw)
+            params, opt_state = shardctx.optimizer_step(
+                cfg, optimizer, params, grads, opt_state, lr=lr)
             return params, opt_state, metrics
 
     return train_step
@@ -272,6 +276,23 @@ def _whole_batch(step: Callable, ctx, bspecs, i: int) -> Callable:
     return run
 
 
+def _cache_rows_out(step: Callable, ctx) -> Callable:
+    """The prefill ``step`` with the cache it builds on this rank's rows
+    handed out on the cache's rows, as ``cache_specs`` cuts it: every leaf
+    with a batch dim (dim 0 of the serving layout) through
+    ``shardctx.rows_to_cache``."""
+
+    def run(params, batch):
+        logits, cache = step(params, batch)
+        with _shard_scope(ctx):
+            return logits, sh.map_with_path(
+                lambda path, t: shardctx.rows_to_cache(t)
+                if path[-1] in sh.BATCHED_CACHE else t,
+                cache, is_leaf=lambda x: False)
+
+    return run
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                rules: sh.AxisRules = sh.DEFAULT_RULES,
                optimizer: Optional[Optimizer] = None,
@@ -313,13 +334,15 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     notes["out_shardings"] = (sh.P(b_ax, None), cspecs)
     if shape.kind == "prefill":
         def make(c):
-            return _whole_batch(make_prefill_step(
-                cfg, max_len=shape.seq_len, shard_ctx=c), c, bspecs, 1)
+            return _cache_rows_out(_whole_batch(make_prefill_step(
+                cfg, max_len=shape.seq_len, shard_ctx=c), c, bspecs, 1), c)
 
         return CellProgram("prefill", make(ctx), (pshape, batch),
                            (pspecs, bspecs), notes, ctx, make)
 
-    # decode: one new token against a seq_len-deep cache
+    # decode: one new token against a seq_len-deep cache; each rank decodes
+    # its rows of the tokens, against its rows of a cache that may hold
+    # more (``shardctx.own_rows``)
     def make(c):
         return make_serve_step(cfg, shard_ctx=c, max_len=shape.seq_len)
 

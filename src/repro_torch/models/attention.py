@@ -260,22 +260,27 @@ def decode_attention(p, cfg: ModelConfig, x: Tensor, pos: int, cache: dict,
     hq = q.shape[2]
     tp = _heads_split(cfg)[0]
 
-    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    k_all, v_all, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
     if max_len is None:
         if shardctx.model_size() > 1:
             raise ValueError("decode under a 'model' axis needs max_len, "
                              "the cache's context length")
-        n, s0, n_here = k.shape[1], 0, k.shape[1]
+        n, s0, n_here = k_all.shape[1], 0, k_all.shape[1]
     else:
         n, s0, n_here = cache_slots(cfg, max_len, window)
-    if n_here != k.shape[1]:
-        raise ValueError(f"a cache of {k.shape[1]} slots here, the layer "
-                         f"has {n_here} of {n}")
+    if n_here != k_all.shape[1]:
+        raise ValueError(f"a cache of {k_all.shape[1]} slots here, the "
+                         f"layer has {n_here} of {n}")
     slot = pos % n  # ring for windowed layers; identity while pos < n
     if s0 <= slot < s0 + n_here:
-        k[:, slot - s0] = k_new[:, 0].to(k.dtype)
-        v[:, slot - s0] = v_new[:, 0].to(v.dtype)
+        # every row of the cache (gathered where it holds more rows than
+        # this rank decodes); attention reads this rank's rows
+        k_all[:, slot - s0] = shardctx.rows_to_cache(
+            k_new[:, 0].to(k_all.dtype))
+        v_all[:, slot - s0] = shardctx.rows_to_cache(
+            v_new[:, 0].to(v_all.dtype))
         slot_pos[slot - s0] = pos
+    k, v = shardctx.own_rows(k_all), shardctx.own_rows(v_all)
     win = window if window is not None else cfg.window
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if win is not None:
@@ -318,4 +323,4 @@ def decode_attention(p, cfg: ModelConfig, x: Tensor, pos: int, cache: dict,
     # a bf16 cache under f32 activations: o is promoted, as in jnp's matmul
     o = o.to(torch.promote_types(o.dtype, p["wo"].dtype))
     out = _out_proj(p, cfg, o.reshape(B, 1, hq * hd))
-    return out, {"k": k, "v": v, "slot_pos": slot_pos}
+    return out, {"k": k_all, "v": v_all, "slot_pos": slot_pos}

@@ -17,9 +17,14 @@ and the collectives are the ``torch.autograd.Function``s below, built on
   row-parallel output's partial sums (and the vocab-parallel embedding);
 * :func:`gather_from_model` -- all-gather forward, reduce-scatter
   backward, over ``model`` (RG-LRU's gate input, logits);
-* :func:`gather_params` -- FSDP's gather over the batch axes (the same
-  all-gather / reduce-scatter pair over ``data``; a parameter replicated
-  over a batch axis has its gradient summed over it), once per step;
+* :func:`gather_params` -- FSDP's gather over the axes that are not
+  tensor parallel (the same all-gather / reduce-scatter pair, over
+  ``data``, or over ``data`` and ``model`` at once for a dim split over
+  both; a parameter replicated over such an axis has its gradient summed
+  over it), once per step;
+* :func:`optimizer_step` -- the optimizer on this rank's shards, and
+  under ZeRO-1 rules (``zero1``) on this rank's cut of each parameter
+  whose state the rules split further, the cuts all-gathered after;
 * :func:`sum_over_model` -- all-reduce forward and backward: a partial
   sum whose total each rank uses on its own share (the sum of squares of
   :func:`rms_norm_over_model`, RWKV6's ``ln_x`` over split channels);
@@ -30,6 +35,16 @@ and the collectives are the ``torch.autograd.Function``s below, built on
 
 :func:`expert_range` is this rank's block of an expert-parallel MoE
 layer's experts.
+
+The batch axes of a context are the live axes its rules put in
+``act_batch``.  ``model`` is tensor parallel unless it is one of them:
+under pure-FSDP rules (``launch/perf.py::_FSDP_PURE``) it is a batch axis,
+every parameter dim split over it is gathered at the step's start like
+one split over ``data``, and no tensor-parallel code runs.  The decode
+cache's rows are split over the batch axes in ``cache_batch``; where that
+leaves the cache whole over some (``serve_headdata``), a rank decodes its
+own rows of it (:func:`own_rows`) and gathers every row's new entries
+over those axes (:func:`rows_to_cache`).
 
 Which of a sub-layer's dims run split over ``model`` is read from the
 parameter specs the context computed (:func:`split_over_model`, by the
@@ -88,7 +103,6 @@ class _Active:
 # GroupComms by (mesh ranks, mesh axes, group axes); building one is a
 # collective, so every rank of the world builds the same ones in order
 _GROUPS: Dict[tuple, object] = {}
-BATCH_AXES = ("pod", "data")
 
 
 def _fibers(mesh, axes: Tuple[str, ...]):
@@ -208,6 +222,16 @@ class ShardContext:
         # its rows its own, no batch axis summed over)
         self.live = tuple(a for a in names if axis_size(mesh, a) > 1
                           and (axes is None or a in axes))
+        # the rows' axes, from the rules (AxisRules' default without
+        # them); "model" is tensor parallel unless it is one (pure FSDP)
+        rows = ("pod", "data") if rules is None else \
+            rules.get("act_batch") or ()
+        self.batch = tuple(a for a in self.live if a in rows)
+        self.tp = "model" in self.live and "model" not in self.batch
+        # the batch axes the decode cache's rows are split over
+        # (``cache_batch``); the cache is whole over the others
+        crows = rows if rules is None else rules.get("cache_batch") or ()
+        self.cache_batch = tuple(a for a in self.batch if a in crows)
         self.counting = getattr(mesh, "mesh", None) is None
         self.collectives: List[CommCall] = []
         self.comms: Dict[Tuple[str, ...], object] = {}
@@ -232,6 +256,7 @@ class ShardContext:
         self.calls: Dict[str, int] = defaultdict(int)
         self._pspecs: Dict = {}
         self._model_dims: Dict = {}
+        self._zero1: Dict = {}
 
     @property
     def member(self) -> bool:
@@ -319,6 +344,29 @@ class ShardContext:
                 cfg, params_shape(cfg), self.mesh, self.rules)
         return self._pspecs[cfg]
 
+    def zero1_specs(self, cfg, optimizer):
+        """Under ZeRO-1 rules, for ``optimizer`` on ``cfg`` (computed once):
+        the parameter specs with the zero1 axes added (the cut of each
+        parameter a rank updates, stacked layout), and the flat optimizer
+        state specs as held (``opt_state_specs``) and as the update uses
+        them (laid out like the cut)."""
+        key = (cfg, optimizer)
+        if key not in self._zero1:
+            from repro_torch.launch import sharding as sh
+            from repro_torch.launch.steps import params_shape
+            pshape = params_shape(cfg)
+            oshape = optimizer.init(pshape)
+            cut = sh.map_with_path(
+                lambda _p, spec, t: sh.zero1_extend(
+                    spec, tuple(t.shape), self.mesh, self.rules),
+                self.param_specs(cfg), pshape)
+            held = [s for _, s in sh.flat_with_path(sh.opt_state_specs(
+                cfg, oshape, pshape, self.mesh, self.rules))]
+            used = [s for _, s in sh.flat_with_path(sh.state_specs_of(
+                oshape, pshape, cut))]
+            self._zero1[key] = (cut, held, used)
+        return self._zero1[key]
+
     def model_dims(self, cfg, leaf: Tuple[str, ...]) -> Tuple[bool, ...]:
         """Per dim of the parameter leaves whose path ends with ``leaf``
         (the stacked blocks' leading dim left out): whether their spec
@@ -338,7 +386,13 @@ class ShardContext:
         return self._model_dims[key]
 
     def batch_axes(self) -> Tuple[str, ...]:
-        return tuple(a for a in BATCH_AXES if a in self.live)
+        """The live axes the rows are split over."""
+        return self.batch
+
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """The live axes parameters are gathered over: all but a tensor
+        parallel ``model``."""
+        return tuple(a for a in self.live if a != "model" or not self.tp)
 
     def reset_timing(self) -> None:
         self.seconds.clear()
@@ -488,32 +542,33 @@ class _GatherWhole(torch.autograd.Function):
 
 
 def model_size() -> int:
+    """The tensor-parallel ``model`` axis' size (1 where it is not)."""
     ctx = _Active.ctx
-    return 1 if ctx is None else axis_size(ctx.mesh, "model")
+    return 1 if ctx is None or not ctx.tp else axis_size(ctx.mesh, "model")
 
 
 def model_rank() -> int:
     ctx = _Active.ctx
-    return 0 if ctx is None else ctx.coords.get("model", 0)
+    return 0 if ctx is None or not ctx.tp else ctx.coords.get("model", 0)
 
 
 def copy_to_model(x: Tensor) -> Tensor:
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _Copy.apply(x, ctx, ("model",))
 
 
 def reduce_from_model(x: Tensor) -> Tensor:
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _Reduce.apply(x, ctx, ("model",))
 
 
 def gather_from_model(x: Tensor, dim: int) -> Tensor:
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _Gather.apply(x, ctx, dim, ("model",))
 
@@ -522,7 +577,7 @@ def sum_over_model(x: Tensor) -> Tensor:
     """The sum of every rank's partial ``x`` over ``model``, all-reduced in
     the backward too (each rank's use of the total is its own share)."""
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _SumBoth.apply(x, ctx, ("model",))
 
@@ -531,7 +586,7 @@ def reduce_scatter_over_model(x: Tensor, dim: int) -> Tensor:
     """This rank's chunk along ``dim`` of the sum over ``model`` of every
     rank's partial ``x``."""
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _ReduceScatter.apply(x, ctx, dim % x.dim(), ("model",))
 
@@ -540,7 +595,7 @@ def gather_whole_over_model(x: Tensor, dim: int) -> Tensor:
     """Every rank's chunk of ``dim`` made whole, for a use that is the same
     on every rank (its gradient cut back to this rank's chunk)."""
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return x
     return _GatherWhole.apply(x, ctx, dim % x.dim(), ("model",))
 
@@ -579,9 +634,10 @@ def own_chunk(x: Tensor, dim: int) -> Tensor:
 def split_over_model(cfg, leaf: Tuple[str, ...], dim: int) -> bool:
     """Whether ``param_specs`` splits dim ``dim`` of the parameter leaf
     whose path ends with ``leaf`` (``("mix", "wq")``) over ``model``;
-    False outside a context or on a ``model`` axis of 1."""
+    False outside a context, on a ``model`` axis of 1 or one that is a
+    batch axis."""
     ctx = _Active.ctx
-    if ctx is None or "model" not in ctx.live:
+    if ctx is None or not ctx.tp:
         return False
     return ctx.model_dims(cfg, leaf)[dim]
 
@@ -623,13 +679,16 @@ def gather_from_batch(x: Tensor, dim: int = 0) -> Tensor:
 
 def local_range(n: int, logical: str) -> Tuple[int, int]:
     """(start, length) of this rank's share of a dim of size ``n`` that
-    the rules put on ``logical`` (the whole dim when it falls back)."""
+    the rules put on ``logical`` (the whole dim when it falls back); the
+    batch axes split the rows, never such a dim (as ``launch/sharding.py::
+    cache_specs`` keeps them)."""
     ctx = _Active.ctx
     if ctx is None:
         return 0, n
     from repro_torch.launch.sharding import _fit, entry_axes
     axes = ctx.rules.get(logical)
-    got = _fit(n, axes, ctx.mesh, set(), None) if axes else None
+    got = _fit(n, axes, ctx.mesh, set(ctx.batch_axes()), None) \
+        if axes else None
     if got is None:
         return 0, n
     axes = entry_axes(got)
@@ -639,9 +698,12 @@ def local_range(n: int, logical: str) -> Tuple[int, int]:
 
 def gather_params(cfg, params):
     """FSDP's gather: ``params`` (this rank's shards, either layout) whole
-    over the batch axes and still split over ``model``.  Each gathered dim
-    is an all-gather forward and a reduce-scatter backward; a leaf
-    replicated over a batch axis gets its gradient summed over that axis.
+    over the axes that are not tensor parallel (``fsdp_axes``) and still
+    split over a tensor-parallel ``model``.  Each gathered dim is an
+    all-gather forward and a reduce-scatter backward, over all of its
+    entry's axes at once (major first, as :meth:`ShardContext.index`
+    orders them); a leaf replicated over such an axis gets its gradient
+    summed over that axis.
 
     The steps call it once, at the start of a step, for every leaf; the
     reference's XLA program gathers each block's leaves where it uses
@@ -649,26 +711,26 @@ def gather_params(cfg, params):
     whole parameters split only over ``model``, and FSDP saves parameter
     memory only between steps (the optimizer state stays sharded)."""
     ctx = _Active.ctx
-    if ctx is None or not ctx.batch_axes():
+    if ctx is None or not ctx.fsdp_axes():
         return params
     from repro_torch.launch.sharding import (entry_axes, for_layout,
                                              map_with_path, spec_axes)
-    baxes = ctx.batch_axes()
+    faxes = ctx.fsdp_axes()
     specs = for_layout(ctx.param_specs(cfg), params)
 
     def use(_path, spec, t):
-        rep = tuple(a for a in baxes if a not in spec_axes(spec))
+        rep = tuple(a for a in faxes if a not in spec_axes(spec))
         if rep:
             t = _Copy.apply(t, ctx, rep)
         for dim, entry in enumerate(spec):
             axes = entry_axes(entry)
-            on = tuple(a for a in axes if a in baxes)
+            on = tuple(a for a in axes if a in faxes)
             if not on:
                 continue
             if on != axes:
                 raise NotImplementedError(
-                    f"a parameter dim split over both batch and model axes "
-                    f"({axes})")
+                    f"a parameter dim split over both a batch axis and the "
+                    f"tensor-parallel model axis ({axes})")
             t = _Gather.apply(t, ctx, dim, axes)
         return t
 
@@ -705,3 +767,111 @@ def leaf_shards(cfg, params):
     shapes = flat_with_path(params_shape(cfg), is_leaf=lambda x: False)
     return [LeafShard(s, tuple(t.shape), ctx)
             for (_, s), (_, t) in zip(specs, shapes, strict=True)]
+
+
+def _cache_whole_over() -> Tuple[str, ...]:
+    """The batch axes the decode cache's rows are whole over (where
+    ``cache_batch`` leaves them out of the batch's, ``serve_headdata``)."""
+    ctx = _Active.ctx
+    if ctx is None or ctx.cache_batch == ctx.batch:
+        return ()
+    if ctx.batch[:len(ctx.cache_batch)] != ctx.cache_batch:
+        raise NotImplementedError(
+            f"a decode cache whose rows are split over {ctx.cache_batch}, "
+            f"the batch over {ctx.batch}: the cache's axes must be the "
+            f"batch's major ones")
+    return ctx.batch[len(ctx.cache_batch):]
+
+
+def own_rows(t: Tensor) -> Tensor:
+    """This rank's rows (dim 0) of a decode-cache tensor whose rows are
+    whole over some batch axes (:func:`_cache_whole_over`): a view, so a
+    write into it lands in the cache."""
+    axes = _cache_whole_over()
+    if not axes:
+        return t
+    ctx = _Active.ctx
+    c = t.shape[0] // ctx.size(axes)
+    return t.narrow(0, ctx.index(axes) * c, c)
+
+
+def rows_to_cache(t: Tensor) -> Tensor:
+    """The cache's rows (dim 0) of ``t``, computed on this rank's rows:
+    every rank's gathered over the batch axes the cache is whole over."""
+    axes = _cache_whole_over()
+    if not axes:
+        return t
+    return _Active.ctx.gather(t, 0, axes)
+
+
+def move_dim(ctx: ShardContext, t: Tensor, dim: int, src, dst) -> Tensor:
+    """``t``, split along ``dim`` over the axes of spec entry ``src``, as
+    split over those of ``dst``: gathered whole over ``src``, then this
+    rank's chunk of ``dst`` (no collective when the two agree)."""
+    from repro_torch.launch.sharding import entry_axes
+    was, now = entry_axes(src), entry_axes(dst)
+    if was == now:
+        return t
+    if was:
+        t = ctx.gather(t, dim, was)
+    if now:
+        c = t.shape[dim] // ctx.size(now)
+        t = t.narrow(dim, ctx.index(now) * c, c).contiguous()
+    return t
+
+
+def _respec(ctx: ShardContext, t: Tensor, src, dst) -> Tensor:
+    """``t``, this rank's shard under spec ``src``, as its shard under
+    ``dst``: :func:`move_dim` on every dim."""
+    for dim, (a, b) in enumerate(zip(src, dst, strict=True)):
+        t = move_dim(ctx, t, dim, a, b)
+    return t
+
+
+def optimizer_step(cfg, optimizer, params, grads, opt_state, lr=None):
+    """``optimizer.update`` on this rank's shards (``shards=`` from
+    :func:`leaf_shards`; outside a context, on the whole tree).
+
+    Under rules with ``zero1`` set, ``opt_state`` is cut by
+    ``launch/sharding.py::opt_state_specs``, which splits a leaf's state
+    over the zero1 axes where its parameter is whole over them.  Then the
+    optimizer runs on this rank's cut of each such parameter and of its
+    gradient (reduced over the batch axes already), against its own shard
+    of the state, and the updated cuts are all-gathered over the zero1
+    axes, so that every rank holds its whole shard of the parameter again:
+    the reference's update under any layout.  A state leaf whose zero1 cut
+    lies on another dim than its parameter's (Adafactor's ``vc`` of a leaf
+    cut along its rows) is laid out as the parameter's cut for the update
+    and back after; the optimizers stay layout-blind, their sums over a
+    leaf crossing the zero1 axes through :class:`LeafShard`."""
+    ctx = _Active.ctx
+    if ctx is None:
+        return optimizer.update(params, grads, opt_state, lr=lr)
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim.api import tree_leaves, tree_unflatten
+    shards = leaf_shards(cfg, params)
+    if not ctx.rules.get("zero1"):
+        return optimizer.update(params, grads, opt_state, lr=lr,
+                                shards=shards)
+    cut_specs, held, used = ctx.zero1_specs(cfg, optimizer)
+    pspecs = ctx.param_specs(cfg)
+    flat_cut = [s for _, s in sh.flat_with_path(sh.for_layout(cut_specs,
+                                                              params))]
+    flat_p = [s for _, s in sh.flat_with_path(sh.for_layout(pspecs, params))]
+    cut = [_respec(ctx, t, a, b) for t, a, b in
+           zip(tree_leaves(params), flat_p, flat_cut, strict=True)]
+    gcut = [_respec(ctx, t, a, b) for t, a, b in
+            zip(tree_leaves(grads), flat_p, flat_cut, strict=True)]
+    state = [_respec(ctx, t, a, b) for t, a, b in
+             zip(tree_leaves(opt_state), held, used, strict=True)]
+    new_p, new_s = optimizer.update(
+        tree_unflatten(params, cut), tree_unflatten(grads, gcut),
+        tree_unflatten(opt_state, state), lr=lr,
+        shards=[LeafShard(c, s.shape, ctx) for c, s in
+                zip(flat_cut, shards, strict=True)])
+    new_p = [_respec(ctx, t, b, a) for t, a, b in
+             zip(tree_leaves(new_p), flat_p, flat_cut, strict=True)]
+    new_s = [_respec(ctx, t, b, a) for t, a, b in
+             zip(tree_leaves(new_s), held, used, strict=True)]
+    return (tree_unflatten(params, new_p),
+            tree_unflatten(opt_state, new_s))

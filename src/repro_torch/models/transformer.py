@@ -343,6 +343,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _own_rows(cache: dict) -> dict:
+    """A recurrent cache's states (every leaf batched) on this rank's
+    rows (``shardctx.own_rows``)."""
+    return {k: shardctx.own_rows(t) for k, t in cache.items()}
+
+
+def _rows_to_cache(cache: dict) -> dict:
+    """A recurrent cache's new states on the cache's rows
+    (``shardctx.rows_to_cache``)."""
+    return {k: shardctx.rows_to_cache(t) for k, t in cache.items()}
+
+
 def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
                      cache, max_len: Optional[int] = None
                      ) -> Tuple[Tensor, PyTree]:
@@ -352,13 +364,15 @@ def _sublayer_decode(p, cfg: ModelConfig, kind: str, x: Tensor, pos: int,
         o, cache = attn_mod.decode_attention(p["mix"], cfg, h, pos, cache,
                                              max_len=max_len)
     elif kind == "rec":
-        o, cache = rglru_mod.rglru_decode(p["mix"], cfg, h, cache)
+        o, cache = rglru_mod.rglru_decode(p["mix"], cfg, h, _own_rows(cache))
+        cache = _rows_to_cache(cache)
     elif kind == "rwkv":
+        cache = _own_rows(cache)
         o, cache = rwkv_mod.time_mix_decode(p["mix"], cfg, h, cache)
         x = x + o
         h2 = rms_norm(x, p["ln2"])
         o, cache = rwkv_mod.channel_mix_decode(p["mix"], cfg, h2, cache)
-        return x + o, cache
+        return x + o, _rows_to_cache(cache)
     else:
         raise _unknown(kind)
     x = x + o

@@ -197,6 +197,69 @@ def test_session_cuda_backend_matches_the_cpu_run(cuda_device):
     assert torch.equal(res.next_key, cpu.next_key)
 
 
+@pytest.mark.parametrize("w_scale", [0.1, 3.0])
+def test_logistic_kernel_matches_its_plain_version_at_every_newton_depth(
+        w_scale, cuda_device):
+    """The logistic launch against its plain version where the damped
+    Newton steps end soonest (small w) and where they run longer (large w,
+    margins far from 0): both end a coordinate at its first step of at
+    most 1e-6, after at most 16."""
+    X, y, alpha, w, idx, mask = _block("logistic", 8, 256, 128, 512, 6,
+                                       True, True, cuda_device)
+    w = w * (w_scale / 0.1)
+    got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.logistic,
+                                   lm=204.8, step_mask=mask)
+    want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=dual.logistic,
+                              lm=204.8, step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+def test_custom_loss_on_the_card_launches_its_own_step(cuda_device):
+    """A registered loss the kernel has no closed form for (the squared
+    loss's formulas under a new name, its step given in CUDA C++) is
+    launched from a library built with that step: the launch equals the
+    plain version (the loss's ``coord_delta``), and a session on the card
+    launches once a solve tick and agrees with the built-in squared
+    loss's run."""
+    custom = dual.register_loss(dual.Loss(
+        "squared_by_formula", dual.squared.value, dual.squared.conj_neg,
+        dual.squared.coord_delta, gamma=1.0,
+        cuda="return (y - wx - a) / (1.0f + xsq);"))
+    X, y, alpha, w, idx, mask = _block("squared", 8, 256, 128, 512, 6,
+                                       True, True, cuda_device)
+    got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=custom,
+                                   lm=204.8, step_mask=mask)
+    want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=custom, lm=204.8,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+    topo = Topology.two_level(2, 4, 256, root_rounds=3, group_rounds=2,
+                              local_steps=256)
+    rng = np.random.default_rng(4)
+    X = torch.from_numpy(rng.standard_normal((topo.m_total, 64)).astype(
+        np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.standard_normal(topo.m_total).astype(
+        np.float32)).to(cuda_device)
+    runs = {}
+    for loss in (custom, dual.squared):
+        sess = Session.compile(Problem(X, y, loss=loss, lam=0.1), topo,
+                               backend="cuda", device=cuda_device)
+        n0 = kernel.LAUNCHES
+        runs[loss.name] = sess.run(key=prng.PRNGKey(2))
+        torch.cuda.synchronize()
+        ticks = int(sess.executor.solves.sum()) * sess.default_rounds
+        assert kernel.LAUNCHES - n0 == ticks
+    a, b = runs["squared_by_formula"], runs["squared"]
+    for g, r in ((a.alpha, b.alpha), (a.w, b.w)):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
 def test_compression_on_the_card_matches_the_cpu(cuda_device):
     """int8 codes, scales and roundtrips and top-k selections (ties
     included) on the card equal the CPU's for the same tensors."""

@@ -37,9 +37,11 @@ from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import dryrun, perf, steps  # noqa: E402
 from repro_torch.launch import roofline as rf  # noqa: E402
+from repro_torch.launch import sharding as sh  # noqa: E402
 from repro_torch.launch.mesh import RankMesh, make_abstract_mesh  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import get_optimizer  # noqa: E402
+from repro_torch.optim.api import tree_leaves  # noqa: E402
 from repro_torch.runtime import ranks  # noqa: E402
 
 WORLD = 4
@@ -147,6 +149,73 @@ def test_perf_run_variant_runs_one_variant(tmp_path, monkeypatch):
                            shape=_cut("train_4k"), mesh=_mesh22())
     assert rec["status"] == "ok" and rec["variant"] == "mb2"
     assert (tmp_path / "qwen3-32b__train_4k__abstract22__mb2.json").exists()
+
+
+# every variant on qwen3 SMOKE in every shape, and ZeRO-1 / pure FSDP
+# training of an MoE, an RWKV6 and the Adafactor config
+VARIANT_CELLS = [("qwen3-32b", v) for v in perf.VARIANTS] + [
+    (arch, v) for arch in ("dbrx-132b", "rwkv6-1.6b", "arctic-480b")
+    for v in ("zero1", "fsdp_pure")]
+
+
+@pytest.mark.parametrize("arch,variant", VARIANT_CELLS)
+def test_every_variant_counts_at_smoke_width(arch, variant):
+    cfg = get_smoke_config(arch)
+    names = list(SHAPES) if arch == "qwen3-32b" else ["train_4k"]
+    for name in names:
+        rec = perf.run_variant(arch, name, "abstract22", variant, save=False,
+                               cfg=cfg, shape=_cut(name), mesh=_mesh22())
+        ok, why = steps.cell_is_supported(cfg, SHAPES[name])
+        if not ok:
+            assert rec["status"] == "skipped" and rec["reason"] == why
+            continue
+        assert rec["status"] == "ok", (name, rec.get("error"))
+        assert rec["collectives"]["n_ops"] > 0
+
+
+def test_zero1_prices_the_all_gather_of_the_updated_cuts():
+    """A ZeRO-1 train step all-gathers each updated cut over "data": the
+    counting comm records those gathers, the parameter shards' bytes in
+    all; with ``zero1`` off (the same rules otherwise) nothing is gathered
+    over "data"."""
+    cfg = get_smoke_config("qwen3-32b")
+    rules = perf.VARIANTS["zero1"]["rules"]
+    shape = _cut("train_4k")
+
+    def gathered(r):
+        cell = steps.build_cell(cfg, shape, _mesh22(), rules=r)
+        return sum(c.result_bytes for c in cell.lower().calls
+                   if c.op == "all-gather" and c.axes == ("data",))
+
+    local = sum(t.numel() * t.element_size() for t in tree_leaves(
+        sh.shard_tree(steps.params_shape(cfg), sh.param_specs(
+            cfg, steps.params_shape(cfg), _mesh22(), rules), _mesh22(),
+            {"data": 0, "model": 0})))
+    assert gathered(rules) == local
+    assert gathered(dataclasses.replace(rules, zero1=None)) == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "recurrentgemma-2b"])
+def test_serve_headdata_decodes_each_row_once(arch):
+    """Under ``serve_headdata`` the cache is whole over "data" and the
+    tokens are split over it: a rank decodes its rows only, so a decode
+    step counts the baseline's flops per chip, and adds the all-gather of
+    the new cache entries over "data" (on the ranks that hold the new
+    slot, where "model" splits the slots: summed over the four)."""
+    cfg = get_smoke_config(arch)
+    shape = _cut("decode_32k")
+
+    def counted(rules):
+        cell = steps.build_cell(cfg, shape, _mesh22(), rules=rules)
+        lows = [cell.lower(rank=r) for r in range(4)]
+        return (lows[0].cost_analysis()["flops"],
+                sum(1 for low in lows for c in low.calls
+                    if c.axes == ("data",)))
+
+    base, base_calls = counted(sh.DEFAULT_RULES)
+    head, head_calls = counted(perf.VARIANTS["serve_headdata"]["rules"])
+    assert head == base
+    assert head_calls > base_calls
 
 
 def test_dryrun_cli_lists_the_cells(capsys):

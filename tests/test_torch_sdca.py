@@ -21,6 +21,7 @@ from repro_torch.core.local_sdca import local_sdca as t_local_sdca  # noqa: E402
 from repro_torch.kernels.sdca import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.sdca.ops import sdca_block_solve as t_solve  # noqa: E402
 from repro_torch.kernels.sdca.ref import sdca_block_ref as t_ref  # noqa: E402
+from test_torch_dual import jloss  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -63,7 +64,7 @@ def test_ref_matches_jax_ref_and_pallas_kernel(loss_name, K, m_b, d, H):
     lm = 0.1 * K * m_b
     da, dw = t_ref(*_torch(X, y, alpha, w, idx), loss=tdual.get_loss(
         loss_name), lm=lm)
-    lj = jdual.get_loss(loss_name)
+    lj = jloss(loss_name)
     da_r, dw_r = j_ref(X, y, alpha, w, idx, loss=lj, lm=lm)
     da_k, dw_k = j_kernel(X, y, alpha, w, idx, loss=lj, lm=lm,
                           interpret=True)
@@ -79,8 +80,8 @@ def test_ref_per_leaf_w_and_step_mask_match_jax(loss_name):
     lm = 0.05 * 3 * 48
     da, dw = t_ref(*_torch(X, y, alpha, w, idx), loss=tdual.get_loss(
         loss_name), lm=lm, step_mask=torch.from_numpy(mask))
-    da_k, dw_k = j_kernel(X, y, alpha, w, idx, loss=jdual.get_loss(
-        loss_name), lm=lm, step_mask=mask, interpret=True)
+    da_k, dw_k = j_kernel(X, y, alpha, w, idx, loss=jloss(loss_name),
+                          lm=lm, step_mask=mask, interpret=True)
     np.testing.assert_allclose(da.numpy(), np.asarray(da_k), **TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(dw_k), **TOL)
 
@@ -116,6 +117,27 @@ def test_wrapper_names_losses_the_kernel_has_no_closed_form_for():
         [0, 2, 1, 3]
 
 
+def test_a_custom_loss_with_cuda_source_builds_its_own_library():
+    """A ``kind ""`` loss with its step in CUDA C++ is the kernel's code 4,
+    and ``sdca_block.cu`` is built after a prelude that defines the step
+    from that source: a library of its own, named by a hash that holds
+    the prelude; the built-in losses' library has none."""
+    from repro_torch.kernels import _build
+    body = "return (y - wx - a) / (1.0f + xsq);"
+    custom = tdual.Loss("custom", tdual.squared.value,
+                        tdual.squared.conj_neg, tdual.squared.coord_delta,
+                        gamma=1.0, cuda=body)
+    assert t_kernel.loss_id(custom) == t_kernel.CUSTOM_ID == 4
+    head = t_kernel.prelude(custom)
+    assert "#define SDCA_CUSTOM_LOSS" in head and body in head
+    assert "sdca_custom_coord_delta(" in head
+    assert t_kernel.prelude(tdual.squared) == ""
+    src = next(s for s in _build.sources() if s.stem == "sdca_block")
+    assert "SDCA_CUSTOM_LOSS" in src.read_text()
+    assert _build.library_path(src, head) != _build.library_path(src)
+    assert _build.library_path(src, "") == _build.library_path(src)
+
+
 def test_block_solve_matches_jax():
     """One CoCoA round: the (K, H) draws from one key are integer-exact,
     the averaged iterates agree to float32."""
@@ -140,7 +162,7 @@ def test_local_sdca_matches_jax(loss_name):
         np.asarray(kj)), loss=tdual.get_loss(loss_name), lam=0.1,
         m_total=80, num_steps=120)
     ja, jw = j_local_sdca(jnp.asarray(X), jnp.asarray(y), jnp.asarray(alpha),
-                          jnp.asarray(w), kj, loss=jdual.get_loss(loss_name),
+                          jnp.asarray(w), kj, loss=jloss(loss_name),
                           lam=0.1, m_total=80, num_steps=120)
     np.testing.assert_allclose(da.numpy(), np.asarray(ja), **TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(jw), **TOL)

@@ -13,15 +13,18 @@ from repro.api import Problem as JProblem  # noqa: E402
 from repro.api import Schedule as JSchedule  # noqa: E402
 from repro.api import Session as JSession  # noqa: E402
 from repro.api import Topology as JTopology  # noqa: E402
+from repro.core import dual as jdual  # noqa: E402
 from repro.core.engine import host as jhost  # noqa: E402
 from repro.core.engine import plan as jplan  # noqa: E402
 from repro_torch.api import Problem, Schedule, Session, Topology  # noqa: E402
 from repro_torch.api import convert  # noqa: E402
+from repro_torch.core import dual as tdual  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.engine import host as thost  # noqa: E402
 from repro_torch.core.engine import plan as tplan  # noqa: E402
 from repro_torch.kernels.sdca import kernel as t_kernel  # noqa: E402
 from test_api import TOPOLOGIES  # noqa: E402
+from test_torch_dual import jloss  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -76,8 +79,8 @@ def test_session_run_matches_jax(case, jax_backend):
 def test_session_run_matches_jax_classification_losses(loss):
     topo = TOPOLOGIES["two_level"]()
     X, y = data(topo.m_total, seed=1, labels=True)
-    ref = JSession.compile(JProblem(X, y, loss=loss, lam=LAM), topo).run(
-        rounds=3, key=jax.random.PRNGKey(1))
+    ref = JSession.compile(JProblem(X, y, loss=jloss(loss), lam=LAM),
+                           topo).run(rounds=3, key=jax.random.PRNGKey(1))
     res = Session.compile(Problem(X, y, loss=loss, lam=LAM),
                           port_topology("two_level"), backend="torch",
                           device="cpu").run(rounds=3, key=prng.PRNGKey(1))
@@ -160,6 +163,38 @@ def test_cuda_backend_on_cpu_tensors_is_the_plain_path_bitwise():
         rounds=2, key=prng.PRNGKey(2))
     assert t_kernel.LAUNCHES == before
     assert torch.equal(a.alpha, b.alpha) and torch.equal(a.w, b.w)
+
+
+def test_custom_loss_session_matches_the_references_registered_loss():
+    """A registered loss the kernel has no closed form for (the squared
+    loss's formulas under a new name, ``kind`` "", with its step in CUDA
+    C++ for the card) against the reference's ``register_loss`` of the
+    same formulas, which its kernels trace.  On CPU tensors
+    ``backend="cuda"`` runs the plain version, the loss's ``coord_delta``,
+    so it equals ``backend="torch"`` bit for bit."""
+    name = "squared_by_formula"
+    jdual.register_loss(jdual.Loss(name, jdual.squared.value,
+                                   jdual.squared.conj_neg,
+                                   jdual.squared.coord_delta, gamma=1.0))
+    custom = tdual.register_loss(tdual.Loss(
+        name, tdual.squared.value, tdual.squared.conj_neg,
+        tdual.squared.coord_delta, gamma=1.0,
+        cuda="return (y - wx - a) / (1.0f + xsq);"))
+    assert t_kernel.loss_id(custom) == t_kernel.CUSTOM_ID
+    topo = TOPOLOGIES["two_level"]()
+    X, y = data(topo.m_total, seed=2)
+    ref = JSession.compile(JProblem(X, y, loss=name, lam=LAM), topo,
+                           backend="pallas").run(
+        rounds=3, key=jax.random.PRNGKey(1))
+    before = t_kernel.LAUNCHES
+    runs = [Session.compile(Problem(X, y, loss=name, lam=LAM),
+                            port_topology("two_level"), backend=backend,
+                            device="cpu").run(rounds=3, key=prng.PRNGKey(1))
+            for backend in ("cuda", "torch")]
+    assert t_kernel.LAUNCHES == before          # no kernel ran
+    assert_close_runs(runs[0], ref)
+    assert torch.equal(runs[0].alpha, runs[1].alpha)
+    assert torch.equal(runs[0].w, runs[1].w)
 
 
 def test_convert_carries_a_reference_run_into_the_port():

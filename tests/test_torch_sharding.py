@@ -8,7 +8,12 @@ abstract meshes (16, 16), (8, 16), (4, 2), (2, 2) and (1, 2) of ("data",
   * param_specs and its dropped list, explain_shardings;
   * opt_state_specs under AdamW and Adafactor;
   * cache_specs and batch_specs (train, prefill and decode inputs);
-  * core/treesync.py's tp_rules and replica_specs.
+  * core/treesync.py's tp_rules and replica_specs;
+  * under every rule set of launch/perf.py::VARIANTS on (2, 2), the
+    parameter, optimizer-state and cache specs, the cache's but for one
+    departure: an axis its batch dim takes is not given to a later dim
+    (the reference maps ``model`` twice under ``fsdp_pure``, which jax
+    refuses with a DuplicateSpecError).
 
 Then tests/test_sharding.py's six spec tests and tests/test_runtime.py's
 fold_batch / shrink_survivors tests, replayed on the port.  Everything
@@ -34,6 +39,7 @@ from repro.optim import make_adamw as jadamw  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core import treesync as tsy  # noqa: E402
+from repro_torch.launch import perf  # noqa: E402
 from repro_torch.launch import sharding as sh  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import make_abstract_mesh  # noqa: E402
@@ -112,6 +118,51 @@ def test_every_spec_is_the_references(arch, which):
                           where)
     assert tsy.tp_rules() == sh.AxisRules(**dataclasses.asdict(
         jtsy.tp_rules()))
+
+
+def _without(entry, axes):
+    left = tuple(a for a in sh.entry_axes(entry) if a not in axes)
+    return None if not left else left[0] if len(left) == 1 else left
+
+
+@pytest.mark.parametrize("variant", list(perf.VARIANTS))
+def test_variant_specs_are_the_references_but_a_twice_mapped_axis(variant):
+    rules = perf.VARIANTS[variant].get("rules", sh.DEFAULT_RULES)
+    jrules = jsh.AxisRules(**dataclasses.asdict(rules))
+    m, jm = make_abstract_mesh((2, 2), ("data", "model")), \
+        jmesh((2, 2), ("data", "model"))
+    batch = sh.entry_axes(sh._batch_axes(m, rules, 8, "cache_batch"))
+    for arch in ("qwen3-32b", "recurrentgemma-2b", "rwkv6-1.6b",
+                 "dbrx-132b"):
+        cfg, jcfg = ARCHS[arch].SMOKE, JARCHS[arch].SMOKE
+        ps, jps = steps.params_shape(cfg), jsteps.params_shape(jcfg)
+        assert_same_specs(tflat(sh.param_specs(cfg, ps, m, rules)),
+                          jflat(jsh.param_specs(jcfg, jps, jm, jrules)),
+                          arch)
+        for os_, jos in ((make_adamw().init(ps),
+                          jax.eval_shape(jadamw().init, jps)),
+                         (make_adafactor(min_dim_size_to_factor=32).init(ps),
+                          jax.eval_shape(jadafactor(
+                              min_dim_size_to_factor=32).init, jps))):
+            assert_same_specs(
+                tflat(sh.opt_state_specs(cfg, os_, ps, m, rules)),
+                jflat(jsh.opt_state_specs(jcfg, jos, jps, jm, jrules)),
+                arch)
+        got = tflat(sh.cache_specs(cfg, steps.cache_shape(cfg, 8, 64), m,
+                                   rules))
+        want = jflat(jsh.cache_specs(jcfg, jsteps.cache_shape(jcfg, 8, 64),
+                                     jm, jrules))
+        assert list(got) == list(want)
+        for k, spec in want.items():
+            lead = 1 if k.startswith("blocks/") else 0
+            rows = k.rsplit("/", 1)[-1] != "slot_pos"
+            expect = tuple(e if rows and d == lead else _without(e, batch)
+                           for d, e in enumerate(spec))
+            assert tuple(got[k]) == expect, (arch, k, got[k], spec)
+            twice = len(sh.spec_axes(spec)) > len(set(sh.spec_axes(spec)))
+            assert (tuple(got[k]) != tuple(spec)) == (
+                twice or (not rows and bool(set(batch)
+                                            & set(sh.spec_axes(spec))))), k
 
 
 def test_p_is_a_tuple_written_as_the_reference_writes_it():

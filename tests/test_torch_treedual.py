@@ -31,6 +31,7 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import treedual as ttd  # noqa: E402
 from repro_torch.core.engine import plan as tplan  # noqa: E402
 from repro_torch.core.local_sdca import local_sdca_epochs  # noqa: E402
+from test_torch_dual import jloss  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -124,7 +125,7 @@ def test_oracle_matches_the_reference_oracle_for_classification(loss):
     tree = jtree.two_level(2, 2, 24, root_rounds=3, group_rounds=2,
                            local_steps=40)
     X, y = data(tree.total_data(), d=12, seed=3, labels=True)
-    want = jtd.tree_dual_solve_reference(tree, X, y, loss=JD.get_loss(loss),
+    want = jtd.tree_dual_solve_reference(tree, X, y, loss=jloss(loss),
                                          lam=LAM, key=jax.random.PRNGKey(1))
     got = ttd.tree_dual_solve_reference(
         port_tree(tree), torch.from_numpy(X), torch.from_numpy(y),
