@@ -63,6 +63,7 @@ from repro_torch.api.schedule import (ResolvedSchedule, Schedule,
                                       leaf_h_spec, runtime_tree)
 from repro_torch.api.topology import Topology
 from repro_torch.core import dual as dual_mod
+from repro_torch.core import instrument
 from repro_torch.core import prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.delay import fit_C
@@ -96,6 +97,7 @@ def materialize_history(history) -> None:
     pending = [e for e in history if not isinstance(e["dual"], float)]
     if not pending:
         return
+    instrument.count("host_syncs")
     vals = torch.stack([torch.stack([e["dual"], e["primal"]])
                         for e in pending]).tolist()
     for e, (dv, pv) in zip(pending, vals, strict=True):
@@ -427,23 +429,30 @@ class Session:
         def record(t: int, a_flat: Tensor, extra: Optional[dict] = None):
             if not record_history:
                 return
-            dv, pv = _objective(a_flat, X, y, loss, lam)
-            time = clock["async"] if straggler is not None else \
-                t0_time + t * dt
-            record_round(history, t0_round + t, time, dv, pv)
-            if extra:
-                history[-1].update(extra)
+            with instrument.span("record"):
+                dv, pv = _objective(a_flat, X, y, loss, lam)
+                time = clock["async"] if straggler is not None else \
+                    t0_time + t * dt
+                record_round(history, t0_round + t, time, dv, pv)
+                if extra:
+                    history[-1].update(extra)
+                if on_round is not None:
+                    materialize_history(history)   # streaming needs floats
             if on_round is not None:
-                materialize_history(history)     # streaming needs floats
                 on_round(history[-1])
 
-        part_ones = torch.as_tensor(plan_mod.full_participation(plan),
-                                    device=dev)
+        instrument.begin_run()
+        part_np = plan_mod.full_participation(plan)
+        part_ones = torch.as_tensor(part_np, device=dev)
+        instrument.count_h2d(part_np, part_ones)
 
         def steps_dev(h):
-            arr = plan_mod.full_steps(plan) if h is None else \
-                plan_mod.steps_for_h(plan, h)
-            return torch.as_tensor(arr, device=dev)
+            with instrument.span("step_mask"):
+                arr = plan_mod.full_steps(plan) if h is None else \
+                    plan_mod.steps_for_h(plan, h)
+                out = torch.as_tensor(arr, device=dev)
+            instrument.count_h2d(arr, out)
+            return out
 
         def h_effective(h):
             """Per-leaf step counts a chunk actually runs (clamped to the
@@ -460,11 +469,14 @@ class Session:
         next_h = None
         # every round's keys from one walk of the equivalent monolithic
         # tree (the legacy chain), moved to the device once
-        keys_all = prng.as_key(
-            plan_mod.chunked_key_plan(chunk_tree, plan, k, T)).to(dev)
+        with instrument.span("key_plan"):
+            keys_np = plan_mod.chunked_key_plan(chunk_tree, plan, k, T)
+            keys_all = prng.as_key(keys_np).to(dev)
+        instrument.count_h2d(keys_np, keys_all)
         if record_initial:
             record(0, alpha)
         for t in range(1, T + 1):
+            instrument.at_round(t)
             prt, extra = part_ones, None
             # the last chunk's adaptive H suggestion feeds this chunk (a new
             # step mask only), compared on the effective per-leaf counts,
@@ -480,8 +492,9 @@ class Session:
                 next_h = None
             if straggler is not None:
                 st = straggler.step(final=(t == T))
-                prt = torch.as_tensor(
-                    plan_mod.chunk_participation(plan, st.mask), device=dev)
+                part_np = plan_mod.chunk_participation(plan, st.mask)
+                prt = torch.as_tensor(part_np, device=dev)
+                instrument.count_h2d(part_np, prt)
                 clock["async"] += st.dt_async
                 clock["sync"] += st.dt_sync
                 extra = {"time_sync": clock["sync"],
@@ -707,8 +720,11 @@ class Session:
             alpha, w = warm_start
         if k is None:
             k = prng.PRNGKey(0)
+        src = (alpha, w)
         alpha = torch.as_tensor(alpha, dtype=X.dtype, device=dev)
         w = torch.as_tensor(w, dtype=X.dtype, device=dev)
+        for v, t in zip(src, (alpha, w)):
+            instrument.count_h2d(v, t)
         if tuple(alpha.shape) != (self.problem.m,):
             raise ValueError(f"warm-start alpha must be ({self.problem.m},),"
                              f" got {tuple(alpha.shape)}")

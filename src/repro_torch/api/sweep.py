@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.api.schedule import Schedule
 from repro_torch.core import dual as dual_mod
+from repro_torch.core import instrument
 from repro_torch.core import prng
 from repro_torch.core.engine import host as host_mod
 from repro_torch.core.engine import plan as plan_mod
@@ -387,22 +388,31 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
         for pt in pts]
     B = len(pts)
 
+    instrument.begin_run()
     raw_keys = [pt.key().cpu() for pt in pts]
-    keys_all = prng.as_key(np.stack([
-        plan_mod.chunked_key_plan(chunk, plan, k, T)
-        for k in raw_keys])).to(dev)                     # (B, T, S, n, 2)
-    steps = torch.as_tensor(np.stack([_steps_for_point(gsess, pt)
-                                      for pt in pts]), device=dev)
+    with instrument.span("key_plan"):
+        keys_np = np.stack([plan_mod.chunked_key_plan(chunk, plan, k, T)
+                            for k in raw_keys])
+        keys_all = prng.as_key(keys_np).to(dev)          # (B, T, S, n, 2)
+    instrument.count_h2d(keys_np, keys_all)
+    with instrument.span("step_mask"):
+        steps_np = np.stack([_steps_for_point(gsess, pt) for pt in pts])
+        steps = torch.as_tensor(steps_np, device=dev)
+    instrument.count_h2d(steps_np, steps)
     lms = [host_mod.regularizer_scale(pt.lam, m) for pt in pts]
     acc_args = (float(gsess.acceleration),) if accelerated else ()
     method = get_method("sdca_acc" if accelerated else "sdca")
     ex = method.executor(plan=plan, loss=loss, backend=gsess.backend,
                          device=dev, batched=True,
                          **gsess.executor_options())
-    part = torch.as_tensor(plan_mod.full_participation(plan), device=dev)
+    part_np = plan_mod.full_participation(plan)
+    part = torch.as_tensor(part_np, device=dev)
+    instrument.count_h2d(part_np, part)
     if warm is not None:
         a = torch.as_tensor(warm[0], dtype=X.dtype, device=dev)
         w = torch.as_tensor(warm[1], dtype=X.dtype, device=dev)
+        instrument.count_h2d(warm[0], a)
+        instrument.count_h2d(warm[1], w)
     else:
         a = torch.zeros((B, m), dtype=X.dtype, device=dev)
         w = torch.zeros((B, prob.d), dtype=X.dtype, device=dev)
@@ -431,6 +441,8 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
             t0, payload = mgr.restore(template)
             a = torch.as_tensor(payload["a"], device=dev)
             w = torch.as_tensor(payload["w"], device=dev)
+            instrument.count_h2d(payload["a"], a)
+            instrument.count_h2d(payload["w"], w)
             hist_prefix = [list(h) for h in meta.get(
                 "histories", [[] for _ in pts])]
 
@@ -441,13 +453,17 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
     recorded: List[tuple] = []
 
     def rec(t, a_batch):
-        recorded.append((t, [
-            _objective(a_batch[b].clone(), X, y, loss, float(pt.lam))
-            for b, pt in enumerate(pts)]))
+        with instrument.span("record"):
+            recorded.append((t, [
+                _objective(a_batch[b].clone(), X, y, loss, float(pt.lam))
+                for b, pt in enumerate(pts)]))
 
     def hists_now() -> List[List[dict]]:
         out = [list(h) for h in hist_prefix]
-        if recorded:
+        if not recorded:
+            return out
+        with instrument.span("record"):
+            instrument.count("host_syncs")
             vals = torch.stack([torch.stack([torch.stack(v) for v in row])
                                 for _, row in recorded]).tolist()
             for (t_r, _), vrow in zip(recorded, vals, strict=True):
@@ -460,6 +476,7 @@ def _run_group_batched(gsess, pts: List[SweepPoint], rounds, record_history,
     if record_history and t0 == 0:
         rec(0, a)
     for t in range(t0 + 1, T + 1):
+        instrument.at_round(t)
         state = ex.step(gsess.data, keys_all[:, t - 1], state, part, steps,
                         lms, *acc_args)
         if record_history and (t % every == 0 or t == T):

@@ -60,6 +60,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import compression as comp_mod
+from repro_torch.core import instrument
 from repro_torch.core import prng
 from repro_torch.core.dual import Loss
 from repro_torch.core.engine.plan import (TreePlan, full_participation,
@@ -234,6 +235,10 @@ class HostExecutor(nn.Module):
         # host-side tick structure: which ticks solve, which depths sync
         self.solves = plan.solve_mask.max(axis=1) > 0            # (S,)
         self.events = plan.sync_mask.max(axis=2) > 0             # (S, D)
+        # per tick, the depths that sync: the tick.sync range's argument,
+        # which tells a root sync from a group sync in a trace viewer
+        self.sync_depths = [",".join(str(dd) for dd in np.flatnonzero(ev))
+                            for ev in self.events]
         # edge compression: per compressed depth, its residual slot and
         # its leaves grouped by (kind, frac), so each roundtrip is one
         # call over a row block (a row = one edge's message: all leaves
@@ -378,6 +383,8 @@ class HostExecutor(nn.Module):
             acc = None
         if self.batched:
             # once a root round, before the tick loop: B host floats
+            if isinstance(lm, Tensor):
+                instrument.count("host_syncs")
             lms = lm.tolist() if isinstance(lm, Tensor) else lm  # analysis: allow(host-sync-in-tick) read once per step, not per tick
             return self._run(data, keys, state, participation, steps,
                              [float(v) for v in lms], acc)
@@ -393,6 +400,7 @@ class HostExecutor(nn.Module):
         if getattr(self, "_lm_key", None) != key:
             self._lm_dev = sdca_kernel.lm_array(lm_host, device)
             self._lm_key = key
+            instrument.count_h2d(lm_host, self._lm_dev)
         return self._lm_dev
 
     def _run(self, data: BlockedData, keys: Tensor, state: ExecState,
@@ -414,21 +422,26 @@ class HostExecutor(nn.Module):
             (), acc != 0.0, dtype=torch.bool, device=dev)
         for s in range(plan.n_ticks):
             if self.solves[s]:
-                idx = self.draw_idx(keys[:, s, R].contiguous())
-                # the static per-leaf H gate x the solve slot x the runtime
-                # step mask; all-ones steps multiply by exactly 1.0
-                mk = self.hmask * self.solve_mask[s][R, None] * steps[:, s, R]
-                da, dw = self.leaf_solve(data, a, w, xsq, idx, mk, lms)
-                a = a + da
-                w = w + dw
+                with instrument.span("tick.draw", device=dev, tick=s):
+                    idx = self.draw_idx(keys[:, s, R].contiguous())
+                with instrument.span("tick.solve", tick=s):
+                    # the static per-leaf H gate x the solve slot x the
+                    # runtime step mask; all-ones steps multiply by 1.0
+                    mk = self.hmask * self.solve_mask[s][R, None] * \
+                        steps[:, s, R]
+                    da, dw = self.leaf_solve(data, a, w, xsq, idx, mk, lms)
+                    a = a + da
+                    w = w + dw
             if not self.events[s].any():
                 continue
-            # the syncs config by config, on each config's own slice
-            for b, c in enumerate(carries):
-                c.a, c.w = a[b], w[b]
-                self._sync(s, c, participation[s], one, acc, acc_on)
-            a = torch.stack([c.a for c in carries])
-            w = torch.stack([c.w for c in carries])
+            with instrument.span("tick.sync", tick=s,
+                                 depth=self.sync_depths[s]):
+                # the syncs config by config, on each config's own slice
+                for b, c in enumerate(carries):
+                    c.a, c.w = a[b], w[b]
+                    self._sync(s, c, participation[s], one, acc, acc_on)
+                a = torch.stack([c.a for c in carries])
+                w = torch.stack([c.w for c in carries])
         return _stack_carries(a, w, carries)
 
     def _sync(self, s: int, c: _Carry, part: Tensor, one: Tensor,

@@ -9,17 +9,24 @@ delay model and the per-root-round history, as in the JAX package's
 * batched histories: the sweep layer (``api/sweep.py``) stores a config
   batch's series as ``(B, T)`` arrays -- :func:`stack_histories` /
   :func:`history_row` convert between that schema and the per-run dict
-  lists (NaN-padded where members recorded fewer rounds).
+  lists (NaN-padded where members recorded fewer rounds);
+* spans and counters of the solve path (:func:`span`, :func:`count`,
+  :func:`snapshot`, :func:`reset`): on while a ``torch.profiler`` session
+  records, off otherwise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.tree import TreeNode
+
+Tensor = torch.Tensor
 
 HISTORY_FIELDS = ("round", "time", "dual", "primal", "gap")
 
@@ -133,3 +140,145 @@ def history_row(stacked: Dict[str, np.ndarray], b: int) -> List[dict]:
             "gap": float(stacked["gap"][b, t]),
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# spans and counters of the solve path
+# ---------------------------------------------------------------------------
+# Tracing is on while a torch.profiler session records and off otherwise:
+# no flag, no environment variable.  Off, a span is one check and returns a
+# shared null context, and a count returns at once.  On, a span enters
+# ``torch.profiler.record_function("repro_torch.<name>")`` (the range lands
+# in the profiler's trace beside the device's kernels) and adds its host
+# time to a per-name aggregate.  Given a CUDA ``device`` whose current
+# stream still has work queued when the span opens, it also records a pair
+# of CUDA events around the span's work, resolved by ``snapshot()`` and
+# never inside the traced code: that work then waits behind the queue
+# while the host issues it, so the pair times the device and not the
+# host's issue.  A span that opens on an idle stream records no pair (the
+# stream would run each launch as the host issues it).  The aggregates
+# keep whatever the profiled windows recorded until ``reset()``.
+#
+# Names (``Session.run``, the sweep's batched groups, ``core/engine/host.py``):
+#   spans    key_plan, step_mask, record, tick.draw (with device events),
+#            tick.solve, tick.sync -- flat phases: inside a run no span
+#            encloses another; the ``run=<n>`` argument links them
+#   counters h2d_bytes (host-built operands handed to the run's device),
+#            host_syncs (blocking reads of the device)
+SPAN_PREFIX = "repro_torch."
+
+tracing = torch.autograd._profiler_enabled
+
+_NULL = contextlib.nullcontext()
+_spans: Dict[str, List[float]] = {}        # name -> [count, host seconds]
+_device_ms: Dict[str, List[float]] = {}    # name -> [count, stream ms] of
+#                                            spans opened on a busy stream
+_pending: List[tuple] = []                 # (name, start, end) CUDA events
+_counts: Dict[str, int] = {}
+_attrs: Dict[str, int] = {}                # run, round of the spans now
+_run = 0
+
+
+class _Span:
+    __slots__ = ("name", "rf", "stream", "start", "t0")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.name = name
+        args = " ".join(f"{k}={v}" for k, v in {**_attrs, **attrs}.items())
+        self.rf = torch.profiler.record_function(SPAN_PREFIX + name,
+                                                 args or None)
+        self.stream = None
+        if device is not False and torch.device(device).type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+        self.start = None
+
+    def __enter__(self):
+        self.rf.__enter__()
+        # Stream.query() does not block: True once the stream is idle
+        if self.stream is not None and not self.stream.query():
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            _pending.append((self.name, self.start, end))
+        agg = _spans.setdefault(self.name, [0, 0.0])
+        agg[0] += 1
+        agg[1] += dt * 1e-9
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, *, device=False, **attrs):
+    """A context manager timing one phase ``name`` while tracing is on (a
+    shared null context otherwise).  ``device`` is the device the phase's
+    work runs on: on a CUDA device whose current stream is busy when the
+    span opens, the phase's work is also timed on that stream.  ``attrs``
+    (``tick=``, ``depth=``) join the run's ``run`` and ``round`` in the
+    profiler range's arguments."""
+    if not tracing():
+        return _NULL
+    return _Span(name, device, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while tracing is on."""
+    if tracing():
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def count_h2d(src, t: Tensor) -> None:
+    """Count ``t``'s bytes under ``h2d_bytes`` when ``t`` was made from
+    host data ``src`` (an array, a list, or a tensor on another device):
+    a tensor the caller already holds on ``t``'s device is no copy."""
+    if tracing() and not (isinstance(src, Tensor) and src.device == t.device):
+        _counts["h2d_bytes"] = _counts.get("h2d_bytes", 0) + t.nbytes
+
+
+def begin_run() -> None:
+    """A new run identifier (``run=<n>``) for the spans that follow: one
+    ``Session.run`` or one batched sweep group."""
+    global _run
+    if tracing():
+        _run += 1
+        _attrs.clear()
+        _attrs["run"] = _run
+
+
+def at_round(t: int) -> None:
+    """The root round (``round=<t>``) of the spans that follow."""
+    if tracing():
+        _attrs["round"] = int(t)
+
+
+def snapshot() -> dict:
+    """The aggregates so far: ``{"spans": {name: {"count", "seconds"}},
+    "device_ms": {name: {"count", "ms"}}, "counts": {name: n}}``;
+    ``device_ms`` counts only the spans that opened on a busy stream.  The
+    CUDA events recorded since the last call are resolved here (each end
+    event waited for), so call it after the traced work."""
+    for name, start, end in _pending:
+        end.synchronize()
+        agg = _device_ms.setdefault(name, [0, 0.0])
+        agg[0] += 1
+        agg[1] += start.elapsed_time(end)
+    _pending.clear()
+    return {
+        "spans": {k: {"count": c, "seconds": s}
+                  for k, (c, s) in _spans.items()},
+        "device_ms": {k: {"count": c, "ms": ms}
+                      for k, (c, ms) in _device_ms.items()},
+        "counts": dict(_counts),
+    }
+
+
+def reset() -> None:
+    """Drop every aggregate and pending event pair."""
+    for d in (_spans, _device_ms, _counts, _attrs):
+        d.clear()
+    _pending.clear()
