@@ -14,6 +14,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at most 16) and phase 3g's custom loss (its own library) at K=8,
      m_b=512, d=256, H=1024, with a shared w, and with per-leaf w plus a
      step mask;
+ 2b. hold the threefry_randint kernel (a solve tick's coordinate draws)
+     against core/prng.py::randint on the same keys on the card, torch.equal:
+     at the benchmark cells' tick shapes (1 x 128 x 50,000 draws of m_b
+     3,125; 1 x 128 x 72,624 of m_b 4,539; 8 x 128 x 50,000 of m_b 3,125),
+     at phase 3's (1 x 128 x 8,192 of m_b 8,192), at a mixed-H shape (2 x
+     128 rows, H 50,000 / 12,500 / 3,125 / 1 and m_b 3,125 / 1 / 70,001 /
+     4,539, zeros beyond each row's H) and through HostExecutor.draw_idx on
+     an 8-leaf tree of mixed H and m_b (m_b 1 and above 2^16 among them)
+     against the same executor's plain draws on the CPU.  Each shape's
+     kernel ms (CUDA events, launches queued behind a sleep), plain ms,
+     the plain version's temporaries and the integer-operation bound
+     (kernels/prng/kernel.py::cost at launch/hw.py's PEAK_INT32_OPS) are
+     printed;
   3. drive the main path through its user entry points: tree-network SDCA
      on a two-level tree of 8 groups x 16 workers x 8192 examples (m =
      1,048,576, d = 512, ridge, lambda = 1e-4), Schedule(rounds=5,
@@ -22,9 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      is compiled twice: the first compile builds the executor (one host
      cache miss), the second must take the same executor from the cache
      (one hit, no miss); both compile times and cache deltas are
-     printed.  The kernel's launch count is zeroed just before and read
-     just after; it must equal
-     the run's solve ticks.  The duality gap must fall and w must match
+     printed.  The kernel's launch count, and the threefry_randint
+     kernel's, are zeroed just before and read just after; each must
+     equal the run's solve ticks.  The duality gap must fall and w must match
      X^T alpha / (lambda m);
      One more warm root round runs under torch.profiler (wall time,
      device busy share, device time by kernel); its launches come after
@@ -60,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      [1e-3, 3e-4, 1e-4, 3e-5], seeds=[0, 1]) (B = 8), then a local_hs=
      [2048, 8192] sweep at lambda = 1e-4.  The launch and leaf counts are
      zeroed before and read after each sweep: exactly one sdca_block launch
-     per solve tick, each of B x 128 leaves.  Every member must equal its
+     per solve tick, each of B x 128 leaves, and one threefry_randint
+     launch per solve tick for all B configs.  Every member must equal its
      standalone Session.run(lam=, key=, local_h=) (torch.equal on alpha and
      w), its gap must fall and its w match X^T alpha / (lambda m) within
      1e-3 of the max.  Prints the seconds per root round of each sweep and
@@ -340,7 +354,10 @@ its by_shape phase 11's prefill shapes; the rglru_scan row's
 launches_by_path gives the serving path's and, per rank, phase 9's, 10b's
 and 10's; both add phase 12's and phase 13's per rank, "tp_by_shape" phase 12(a)'s
 local shapes, "tp_local_shape" phase 12(c)'s timing and, in the flash row,
-"ep_local_shape" phase 13(d)'s) and, last, the device line.  Needs
+"ep_local_shape" phase 13(d)'s; the threefry_randint row's launches are
+phase 3's run, its launches_by_path adds 3c's sweeps, its ms, plain_ms and
+bound_ms are phase 2b's at phase 3's tick shape and its by_shape the
+benchmark cells' and the mixed-H shape's) and, last, the device line.  Needs
 one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -399,7 +416,8 @@ LM_TOL = 5e-2
 
 
 # the kernels of this package, by the names the profiler shows
-PORT_KERNELS = ("sdca_block_kernel", "flash_fwd", "rglru_scan_kernel")
+PORT_KERNELS = ("sdca_block_kernel", "flash_fwd", "rglru_scan_kernel",
+                "threefry_randint_kernel")
 
 
 def card_line() -> str:
@@ -509,6 +527,142 @@ def time_plain_ms(fn, reps: int) -> float:
     """Like time_ms after one warm call (the plain versions are long)."""
     fn()
     return time_ms(fn, reps)
+
+
+# (configs, leaves, H, m_b) of the solve ticks phase 2b draws at: the
+# benchmark cells' (H = 16 m_b) and phase 3's
+DRAW_SHAPES = {
+    "epsilon-svm-tree128.heavy-delay": (1, 128, 50_000, 3_125),
+    "covtype-logreg-tree128.heavy-delay": (1, 128, 72_624, 4_539),
+    "epsilon-svm-tree128.grid8": (8, 128, 50_000, 3_125),
+    "main": (1, 128, 8_192, 8_192),
+}
+
+
+def queued_ms(fn, reps: int) -> float:
+    """ms a call of fn on the card, its launches queued behind a sleep
+    kernel so that the host's issue of each launch is not timed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 26)
+    return time_ms(fn, reps)
+
+
+def draw_path(dev, card: str) -> dict:
+    """Phase 2b: the threefry_randint kernel against core/prng.py::randint
+    on the same keys (see the module docstring).  Returns each shape's
+    ms, plain ms, bound and the plain version's temporaries."""
+    import torch
+    from repro_torch.core import dual, prng
+    from repro_torch.core.engine.host import HostExecutor
+    from repro_torch.core.engine.plan import compile_tree
+    from repro_torch.core.tree import TreeNode
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.kernels.prng import ref as pref
+    from repro_torch.launch import hw
+    t_phase = time.perf_counter()
+    n0 = pk.LAUNCHES
+    gen = torch.Generator().manual_seed(30)
+
+    def keys_of(*lead):
+        return torch.randint(0, 2 ** 32, lead + (2,), generator=gen,
+                             dtype=torch.int64).to(dev)
+
+    def plain_temporaries(fn, out_bytes):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base - out_bytes
+
+    def measure(label, keys, hcap, mb, width, plain):
+        got = pk.randint_rows(keys, hcap, mb, width)
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"threefry_randint differs from "
+                                 f"prng.randint at {label}")
+        for li, h in enumerate(hcap.tolist()):
+            if h < width and bool(got[..., li, h:].any()):
+                raise AssertionError(f"threefry_randint wrote beyond row "
+                                     f"{li}'s H at {label}")
+        del want
+        rows, draws = got.numel() // width, int(hcap.sum()) * (
+            got.numel() // width // hcap.numel())
+        ms = queued_ms(lambda: pk.randint_rows(keys, hcap, mb, width), 20)
+        plain_ms = time_plain_ms(plain, 2)
+        temps = plain_temporaries(plain, got.nbytes)
+        ops, nbytes = pk.cost(rows, draws, width)
+        t_ops = ops / hw.PEAK_INT32_OPS * 1e3
+        t_bytes = nbytes / hw.HBM_BW * 1e3
+        print(f"threefry_randint at {label} ({tuple(got.shape)}, {draws} "
+              f"draws): kernel {ms:.4f} ms/launch, prng.randint {plain_ms:.3f} "
+              f"ms with {temps / 1e6:.1f} MB of temporaries above its "
+              f"{got.nbytes / 1e6:.1f} MB output, bound {max(t_ops, t_bytes):.4f} "
+              f"ms ({'operations' if t_ops >= t_bytes else 'bytes'}: {ops} "
+              f"integer ops, {nbytes} B; {100 * max(t_ops, t_bytes) / ms:.1f}% "
+              f"of it), torch.equal  [{card}]")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "draws": draws, "plain_temporaries_bytes": temps,
+                "max_abs_err": 0}
+
+    out = {}
+    for label, (B, n, H, m_b) in DRAW_SHAPES.items():
+        keys = keys_of(B, n) if B > 1 else keys_of(n)
+        hcap = torch.full((n,), H, dtype=torch.int32, device=dev)
+        mb = torch.full((n,), m_b, dtype=torch.int32, device=dev)
+        lead = tuple(keys.shape[:-2])
+        out[label] = measure(
+            label, keys, hcap, mb, H,
+            lambda k=keys, H=H, mb=mb, lead=lead: prng.randint(
+                k, (H,), 0, mb.expand(lead + (mb.numel(),))))
+        torch.cuda.empty_cache()
+
+    # mixed H and m_b in one launch, against randint once per H
+    n, width = 128, 50_000
+    hcap = torch.tensor([50_000, 12_500, 3_125, 1] * (n // 4),
+                        dtype=torch.int32, device=dev)
+    mb = torch.tensor([3_125, 1, 70_001, 4_539] * (n // 4),
+                      dtype=torch.int32, device=dev)
+    keys = keys_of(2, n)
+    groups = pref.h_groups(hcap, mb)
+    out["mixed"] = measure(
+        "mixed H", keys, hcap, mb, width,
+        lambda: pref.randint_rows_ref(keys, hcap, mb, width, groups))
+    del keys, groups
+    torch.cuda.empty_cache()
+
+    # HostExecutor.draw_idx on a tree of mixed H and m_b: the card's one
+    # launch against the same executor's plain draws on the CPU
+    hs = [8192, 2048, 8192, 512, 1, 8192, 4096, 300]
+    sizes = [8192, 1, 70_001, 4_539, 8192, 3_125, 100_000, 7]
+    leaves = [TreeNode(name=f"l{i}", rounds=h, data_size=m)
+              for i, (h, m) in enumerate(zip(hs, sizes))]
+    tree = TreeNode(name="root", rounds=2, children=tuple(
+        TreeNode(name=f"g{g}", rounds=2, children=tuple(leaves[4 * g:
+                                                               4 * g + 4]))
+        for g in range(2)))
+    plan = compile_tree(tree)
+    loss = dual.get_loss("squared")
+    on_card = HostExecutor(plan, loss=loss, backend="cuda", device=dev)
+    on_cpu = HostExecutor(plan, loss=loss, backend="torch", device="cpu")
+    keys = keys_of(3, len(hs)).cpu()
+    before = pk.LAUNCHES
+    got = on_card.draw_idx(keys.to(dev))
+    if pk.LAUNCHES != before + 1 or not torch.equal(got.cpu(),
+                                                    on_cpu.draw_idx(keys)):
+        raise AssertionError("HostExecutor.draw_idx on the card differs from "
+                             "its plain draws of a mixed-H tree, or took "
+                             f"{pk.LAUNCHES - before} launches")
+    print(f"threefry_randint through HostExecutor.draw_idx, 3 configs x 8 "
+          f"leaves of H {hs} and m_b {sizes}: one launch, torch.equal to "
+          f"the CPU's plain draws; phase 2b took "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    pk.LAUNCHES = n0
+    return out
 
 
 def capture_targets(ex, targets: list):
@@ -778,6 +932,7 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
     from repro_torch.api import Schedule, Session
     from repro_torch.core import dual
     from repro_torch.core.engine import host as host_mod
+    from repro_torch.kernels.prng import kernel as prng_kernel
     from repro_torch.kernels.sdca import kernel, ref
     from repro_torch.launch import hw
     rounds = 5
@@ -791,12 +946,13 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
     for name, grid in grids.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernel.LAUNCHES = kernel.LEAVES = 0
+        kernel.LAUNCHES = kernel.LEAVES = prng_kernel.LAUNCHES = 0
         t0 = time.perf_counter()
         rs = sess.sweep(**grid)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, leaves = kernel.LAUNCHES, kernel.LEAVES
+        draw_launches = prng_kernel.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         B = len(rs)
         print(f"sweep path: Session.sweep({', '.join(f'{k}={v}' for k, v in grid.items())}) "
@@ -810,6 +966,10 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
             raise AssertionError(f"{name}: {launches} launches of {leaves} "
                                  f"leaves, expected {solves * rounds} of "
                                  f"{B * n} leaves each")
+        if draw_launches != solves * rounds:
+            raise AssertionError(f"{name}: {draw_launches} threefry_randint "
+                                 f"launches for {solves * rounds} solve "
+                                 f"ticks of {B} configs")
         single_s = []
         for pt in rs.points:
             torch.cuda.synchronize()
@@ -841,7 +1001,8 @@ def sweep_path(problem, topo, dev, card, h: int = 8192) -> dict:
               f"root round (first), {min(single_s):.4f} (fastest) against "
               f"{secs / rounds:.4f} for the batch of {B}  [{card}]")
         out[name] = {"launches": launches, "leaves_per_launch": leaves //
-                     launches, "s_per_round": secs / rounds,
+                     launches, "draw_launches": draw_launches,
+                     "s_per_round": secs / rounds,
                      "single_s_per_round": min(single_s), "peak": peak}
         sets[name] = rs
 
@@ -4310,6 +4471,7 @@ def main() -> int:
     from repro_torch.core.engine import plan as plan_mod
     from repro_torch.data.synthetic import gaussian_regression
     from repro_torch.kernels import _build
+    from repro_torch.kernels.prng import kernel as prng_kernel
     from repro_torch.kernels.sdca import kernel, ref
     from repro_torch.launch import hw
 
@@ -4332,6 +4494,10 @@ def main() -> int:
     progress("phase 2")
     # ---- 2. kernel vs plain, four losses and a custom one --------------------
     worst = check_losses(dev)
+
+    progress("phase 2b")
+    # ---- 2b. the draw kernel vs prng.randint --------------------------------
+    drawn = draw_path(dev, card)
 
     progress("phase 3")
     # ---- 3. the main path ---------------------------------------------------
@@ -4373,7 +4539,7 @@ def main() -> int:
     del compiled, one
     solve_ticks = int(sess.executor.solves.sum()) * (rounds + more)
     torch.cuda.synchronize()
-    kernel.LAUNCHES = 0
+    kernel.LAUNCHES = prng_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     res = sess.run(key=prng.PRNGKey(0))
     torch.cuda.synchronize()
@@ -4381,7 +4547,7 @@ def main() -> int:
     res2 = sess.run(rounds=more, warm_start=res)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = kernel.LAUNCHES
+    launches, draw_launches = kernel.LAUNCHES, prng_kernel.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     gaps = list(res.gaps) + list(res2.gaps)
     print(f"main path: m={problem.m} d={d} leaves={topo.n_leaves} "
@@ -4392,6 +4558,11 @@ def main() -> int:
     if launches != solve_ticks:
         raise AssertionError(f"sdca_block launched {launches} times, the "
                              f"run had {solve_ticks} solve ticks")
+    print(f"main path: {draw_launches} threefry_randint launches for "
+          f"{solve_ticks} solve ticks")
+    if draw_launches != solve_ticks:
+        raise AssertionError(f"threefry_randint launched {draw_launches} "
+                             f"times, the run had {solve_ticks} solve ticks")
     if not all(math.isfinite(g) for g in gaps):
         raise AssertionError(f"non-finite gap in {gaps}")
     # the dual ascends every round but the primal need not, so the gap is
@@ -4611,6 +4782,21 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }, {
+        "name": "threefry_randint",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/prng/csrc/threefry_randint.cu",
+        # no TPU kernel: the reference's draws are jax.random, fused by XLA
+        "replaces": None,
+        "launches": draw_launches,
+        "launches_by_path": {
+            "main": {"launches": draw_launches, "rows_per_launch": K},
+            **{name: {"launches": swept[name]["draw_launches"],
+                      "rows_per_launch": swept[name]["leaves_per_launch"]}
+               for name in ("sweep", "sweep_local_hs")}},
+        "by_shape": {k: v for k, v in drawn.items() if k != "main"},
+        **drawn["main"],
         "library_ms": None,
     }] + lm_rows}))
     print(json.dumps({"ok": True, "device": {

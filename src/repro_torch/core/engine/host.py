@@ -65,6 +65,8 @@ from repro_torch.core import prng
 from repro_torch.core.dual import Loss
 from repro_torch.core.engine.plan import (TreePlan, full_participation,
                                           full_steps)
+from repro_torch.kernels.prng import kernel as prng_kernel
+from repro_torch.kernels.prng import ref as prng_ref
 from repro_torch.kernels.sdca import kernel as sdca_kernel
 from repro_torch.kernels.sdca.ref import sdca_steps_ref_batched
 
@@ -217,16 +219,16 @@ class HostExecutor(nn.Module):
         buf("solve_mask", plan.solve_mask, torch.float32)
         buf("sync_mask", plan.sync_mask, torch.float32)
         buf("refresh_mask", plan.refresh_mask, torch.float32)
-        # the carried leaves grouped by H capacity: each group draws its
-        # exact randint shape (the legacy draw has no prefix property)
-        leaf_h, own_sizes = plan.leaf_h[rows], sizes[rows]
-        self.h_groups = []
-        for h in sorted({int(v) for v in leaf_h}):
-            hrows = np.nonzero(leaf_h == h)[0]
-            self.h_groups.append((
-                h, torch.as_tensor(hrows, device=dev),
-                torch.as_tensor(own_sizes[hrows], dtype=torch.int64,
-                                device=dev)))
+        # the carried leaves' H capacities and block sizes, the draws'
+        # operands; the draws are as wide as the one H, else h_max
+        leaf_h = plan.leaf_h[rows]
+        hs = {int(v) for v in leaf_h}
+        self.draw_width = hs.pop() if len(hs) == 1 else h_max
+        buf("draw_h", leaf_h, torch.int32)
+        buf("draw_mb", sizes[rows], torch.int32)
+        # the plain draws' grouping by H, built once (the kernel needs none)
+        self.draw_groups = (None if dev.type == "cuda" else
+                            prng_ref.h_groups(self.draw_h, self.draw_mb))
         member = plan.sync_mask.max(axis=0) > 0                  # (D, n)
         self.groups = [_Segments(plan.group_ids[dd], member[dd],
                                  plan.n_groups[dd]) for dd in range(D)]
@@ -280,20 +282,13 @@ class HostExecutor(nn.Module):
     def draw_idx(self, keys_s: Tensor) -> Tensor:
         """A tick's coordinate draws from its (..., n, 2) keys: ``randint(
         key_l, (H_l,), 0, m_b_l)`` per leaf, exactly as the legacy
-        recursion, as (..., n, h_max) int32 (one batch of integer ops for
-        any leading config axes)."""
-        lead = tuple(keys_s.shape[:-2])
-        if len(self.h_groups) == 1:
-            h, _, mb = self.h_groups[0]
-            return prng.randint(keys_s, (h,), 0,
-                                mb.expand(lead + tuple(mb.shape)))
-        idx = torch.zeros(lead + (self.plan.n_leaves, self.plan.h_max),
-                          dtype=torch.int32, device=keys_s.device)
-        for h, rows, mb in self.h_groups:
-            idx[..., rows, :h] = prng.randint(
-                keys_s[..., rows, :], (h,), 0,
-                mb.expand(lead + tuple(mb.shape)))
-        return idx
+        recursion, as (..., n, h_max) int32 with zeros beyond each leaf's
+        H ((..., n, H) when every leaf has the same H).  On the card one
+        ``threefry_randint`` launch covers every config and leaf; CPU keys
+        take its plain version, ``core/prng.py::randint`` per H, over the
+        grouping by H built once in ``__init__``."""
+        return prng_kernel.randint_rows(keys_s, self.draw_h, self.draw_mb,
+                                        self.draw_width, self.draw_groups)
 
     def leaf_solve(self, data: BlockedData, a, w, xsq, idx, mk, lms):
         """One solve tick for B configs: ``a`` (B, n, m_b), ``w`` (B, n,

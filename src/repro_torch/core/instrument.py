@@ -164,7 +164,9 @@ def history_row(stacked: Dict[str, np.ndarray], b: int) -> List[dict]:
 #            tick.solve, tick.sync -- flat phases: inside a run no span
 #            encloses another; the ``run=<n>`` argument links them
 #   counters h2d_bytes (host-built operands handed to the run's device),
-#            host_syncs (blocking reads of the device)
+#            host_syncs (blocking reads of the device),
+#            draw.kernel_ticks (threefry_randint launches, counted at the
+#            launch: one a solve tick whose draws went through the kernel)
 SPAN_PREFIX = "repro_torch."
 
 tracing = torch.autograd._profiler_enabled

@@ -14,4 +14,8 @@ at first use.
   rglru            -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t:
                       the counterpart of ``rglru_scan_kernel``; the LM
                       prefill's recurrent layers.
+  prng             -- a solve tick's coordinate draws, jax's threefry
+                      ``randint`` for every (config, leaf) row in one
+                      launch; no TPU counterpart (the reference's draws
+                      are ``jax.random``, fused by XLA).
 """

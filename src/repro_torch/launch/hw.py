@@ -3,12 +3,16 @@ package's ``launch/hw.py`` holds its target's; these are the port's).
 
 Rates are the NVIDIA H100 SXM5 data sheet's dense (no sparsity) peaks;
 none is measured here.  ``chip_smoke.py`` takes its kernels' bounds from
-``HBM_BW``, ``PEAK_FLOPS_F32`` and ``PEAK_FLOPS_BF16``.
+``HBM_BW``, ``PEAK_FLOPS_F32``, ``PEAK_FLOPS_BF16`` and ``PEAK_INT32_OPS``.
 """
 
 PEAK_FLOPS_BF16 = 989e12      # per GPU, dense bf16 tensor cores
 PEAK_FLOPS_TF32 = 494.7e12    # per GPU, dense TF32 tensor cores
 PEAK_FLOPS_F32 = 67e12        # per GPU, float32 outside the tensor cores
+# per GPU, 32-bit integer operations: 128 lanes an SM (the integer ALU's
+# 64 and integer multiply-adds on the FMA pipe's) x 132 SMs x the 1.98 GHz
+# boost clock; the data sheet gives no integer rate
+PEAK_INT32_OPS = 132 * 128 * 1.98e9
 HBM_BW = 3.35e12              # bytes/s per GPU, HBM3
 NVLINK_BW = 450e9             # bytes/s per GPU per direction, NVLink 4
 # a link that leaves the node: one 400 Gb/s NDR InfiniBand port per GPU

@@ -249,3 +249,5 @@ def test_draw_events_on_the_card():
     pairs = snap["device_ms"].get("tick.draw", {"count": 0})["count"]
     assert pairs <= ROUNDS * solves
     assert snap["counts"]["h2d_bytes"] == _operand_bytes(sess.plan)
+    # every tick's draws were one threefry_randint launch
+    assert snap["counts"]["draw.kernel_ticks"] == ROUNDS * solves
