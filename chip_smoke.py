@@ -13,7 +13,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      damped Newton steps until one moves the coordinate by at most 1e-6,
      at most 16) and phase 3g's custom loss (its own library) at K=8,
      m_b=512, d=256, H=1024, with a shared w, and with per-leaf w plus a
-     step mask;
+     step mask; then the same at d = 2,000 (rows and w scaled to the d =
+     256 shape's norms), on the shared-memory route (K=8, m_b=512) and on
+     the global-leaf route's first leaf (K=2, m_b=16,037), H=1024, where
+     the profiler's device name must show w in 16 register chunks
+     (<loss, 16>; the built-in losses: the profiler records no kernel of
+     the custom loss's library);
  2b. hold the threefry_randint kernel (a solve tick's coordinate draws)
      against core/prng.py::randint on the same keys on the card, torch.equal:
      at the benchmark cells' tick shapes (1 x 128 x 50,000 draws of m_b
@@ -36,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2,000 (K = 8, H = 50,000, per-leaf w, a random step mask): the same
      steps on a leaf of 16,037 rows (global-leaf route) and on its first
      16,036 (shared-memory route) torch.equal, the larger against the
-     plain version.  LAUNCHES_BY_ROUTE is zeroed just before each of these
+     plain version.  Both at lambda m = 1, where the dot decides the
+     step: at least INTERIOR_MIN of the drawn coordinates must end with
+     alpha_i y_i inside (0, 1) (at the star's lambda m of 40 every step
+     clips).  LAUNCHES_BY_ROUTE is zeroed just before each of these
      checked launches and read just after them: one shared-memory and two
      global-leaf launches in all.
      Each shape's kernel ms (CUDA events), plain ms and least-work bound
@@ -384,6 +392,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -495,50 +504,98 @@ def profile_round(sess, warm, card: str) -> None:
           f"busy {busy_ms:.3f} ms ({share}); by kernel: {names}  [{card}]")
 
 
-def check_losses(dev) -> float:
+def check_losses(dev, limit: int) -> float:
     """Phase 2: the kernel against the plain version, every loss, shared
-    and per-leaf w, with and without a step mask."""
+    and per-leaf w, with and without a step mask, at CHECK_SHAPES (the
+    d = 2,000 shapes on both routes, ``limit`` the device's shared memory
+    a block, with w in the stepping warp's 16 register chunks: for the
+    built-in losses the device name's <loss, NC> is read from the
+    profiler and must say NC = 16)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dual
     from repro_torch.kernels.sdca import kernel, ref
-    K, m_b, d, H = 8, 512, 256, 1024
     g = torch.Generator(device=dev).manual_seed(0)
-    X = torch.randn(K, m_b, d, generator=g, device=dev)
-    lm = 0.1 * K * m_b
     worst = 0.0
     losses = [dual.get_loss(name) for name in
               ("squared", "hinge", "smooth_hinge_1", "logistic")]
-    for loss in losses + [custom_loss()]:
-        name, labels = loss.name, loss.kind not in ("squared", "")
-        y = torch.randn(K, m_b, generator=g, device=dev)
-        if labels:
-            y = torch.sign(y)
-        alpha = 0.1 * torch.randn(K, m_b, generator=g, device=dev)
-        if labels:                 # dual feasibility: alpha * y in [0, 1]
-            alpha = alpha.abs() * y
-        idx = torch.randint(0, m_b, (K, H), generator=g, device=dev,
-                            dtype=torch.int32)
-        cases = {
-            "shared w": (0.1 * torch.randn(d, generator=g, device=dev),
-                         None),
-            "per-leaf w + mask": (
-                0.1 * torch.randn(K, d, generator=g, device=dev),
-                (torch.rand(K, H, generator=g, device=dev) < 0.8).float()),
-        }
-        for label, (w, mask) in cases.items():
-            got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=loss,
-                                           lm=lm, step_mask=mask)
-            want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=loss, lm=lm,
-                                      step_mask=mask)
-            torch.cuda.synchronize()
-            e = max_err(got, want)
-            worst = max(worst, e)
-            steps = (f" (damped Newton, at most "
-                     f"{dual.LOGISTIC_NEWTON_STEPS} steps)"
-                     if loss.kind == "logistic" else
-                     " (its own step, CUDA source)" if not loss.kind else "")
-            print(f"check sdca_block {name:18s} {label:18s} "
-                  f"max_abs_err={e:.3e}{steps}")
+    for K, m_b, d, H, route in CHECK_SHAPES:
+        # rows of the d = 256 shape's norm, lambda m of the d = 256 shape,
+        # so that the steps are alike at every d
+        X = torch.randn(K, m_b, d, generator=g, device=dev)
+        if d != 256:
+            X *= math.sqrt(256 / d)
+        lm = 0.1 * 8 * 512
+        nc16 = d == 2000
+        shape = f"K={K} m_b={m_b} d={d} H={H}, {route} route"
+        if kernel.route(m_b, d, limit) != route:
+            raise AssertionError(f"{shape}: the kernel takes the "
+                                 f"{kernel.route(m_b, d, limit)} route")
+        for loss in losses + [custom_loss()]:
+            name, labels = loss.name, loss.kind not in ("squared", "")
+            y = torch.randn(K, m_b, generator=g, device=dev)
+            if labels:
+                y = torch.sign(y)
+            alpha = 0.1 * torch.randn(K, m_b, generator=g, device=dev)
+            if labels:             # dual feasibility: alpha * y in [0, 1]
+                alpha = alpha.abs() * y
+            idx = torch.randint(0, m_b, (K, H), generator=g, device=dev,
+                                dtype=torch.int32)
+            cases = {
+                "shared w": (0.1 * torch.randn(d, generator=g, device=dev),
+                             None),
+                "per-leaf w + mask": (
+                    0.1 * torch.randn(K, d, generator=g, device=dev),
+                    (torch.rand(K, H, generator=g, device=dev) < 0.8)
+                    .float()),
+            }
+            for label, (w, mask) in cases.items():
+                if nc16:
+                    w = w * math.sqrt(256 / d)
+                # the profiler records no kernel of a custom loss's own
+                # library (seen on the card); it takes the same ladder
+                if nc16 and loss.kind:
+                    kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=loss,
+                                             lm=lm, step_mask=mask)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        got = kernel.sdca_block_kernel(
+                            X, y, alpha, w, idx, loss=loss, lm=lm,
+                            step_mask=mask)
+                        torch.cuda.synchronize()
+                    names = [e.key for e in prof.key_averages()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA
+                             and "sdca_block_kernel" in e.key]
+                    want_name = ("sdca_block_kernel_gmem_leaf"
+                                 if route == "gmem_leaf"
+                                 else "sdca_block_kernel")
+                    if len(names) != 1 or not re.search(
+                            rf"{want_name}<\d+, 16>\(", names[0]):
+                        raise AssertionError(
+                            f"{shape}, {name}, {label}: expected "
+                            f"{want_name}<loss, 16>, the profiler saw "
+                            f"{names}")
+                else:
+                    got = kernel.sdca_block_kernel(X, y, alpha, w, idx,
+                                                   loss=loss, lm=lm,
+                                                   step_mask=mask)
+                want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=loss,
+                                          lm=lm, step_mask=mask)
+                torch.cuda.synchronize()
+                e = max_err(got, want)
+                worst = max(worst, e)
+                steps = (f" (damped Newton, at most "
+                         f"{dual.LOGISTIC_NEWTON_STEPS} steps)"
+                         if loss.kind == "logistic" else
+                         " (its own step, CUDA source)" if not loss.kind
+                         else "")
+                print(f"check sdca_block {name:18s} {label:18s} "
+                      f"max_abs_err={e:.3e}{steps}"
+                      + (f"  [{shape}, NC = 16]" if nc16 and loss.kind
+                         else f"  [{shape}]" if nc16 else ""))
+        del X
     return worst
 
 
@@ -690,6 +747,15 @@ def draw_path(dev, card: str) -> dict:
 # shared-memory route and one of 16,037 the global-leaf route
 STAR_SHAPE = (8, 50_000, 2000, 50_000)
 BOUNDARY_M = 16_036
+# phase 2c: the least share of drawn coordinates whose step the dot
+# decides (about a quarter at lambda m = 1; none at the star's lambda m)
+INTERIOR_MIN = 0.1
+# phase 2's (K, m_b, d, H, route): the d = 256 shape, and d = 2,000 (w in
+# 16 register chunks) on the shared-memory route and on the global-leaf
+# route's first leaf
+CHECK_SHAPES = ((8, 512, 256, 1024, "smem_leaf"),
+                (8, 512, 2000, 1024, "smem_leaf"),
+                (2, BOUNDARY_M + 1, 2000, 1024, "gmem_leaf"))
 
 
 def gmem_leaf_path(dev, card: str) -> dict:
@@ -708,8 +774,10 @@ def gmem_leaf_path(dev, card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(31)
 
     def operands(K, m_b, d, H, draws, per_leaf, masked):
-        """Unit-norm rows as in epsilon, labels +-1, a feasible alpha,
-        lambda m of the star cell (1e-4 x 400,000)."""
+        """Unit-norm rows as in epsilon, labels +-1, a feasible alpha, and
+        lambda m = 1, so that <w, x_i> decides each step: at the star
+        cell's lambda m (1e-4 x 400,000) every hinge step clips to
+        alpha_i = y_i whatever the dot is."""
         X = torch.randn(K, m_b, d, generator=g, device=dev)
         X /= X.norm(dim=2, keepdim=True)
         y = torch.sign(torch.randn(K, m_b, generator=g, device=dev))
@@ -720,7 +788,7 @@ def gmem_leaf_path(dev, card: str) -> dict:
                             dtype=torch.int32)
         mask = (torch.rand(1, K, H, generator=g, device=dev) < 0.9).float() \
             if masked else torch.ones(1, K, H, device=dev)
-        lms = [1e-4 * 400_000]
+        lms = [1.0]
         xsq = (torch.sum(X * X, dim=2) / lms[0])[None]
         return (X, y, alpha, w, xsq, idx), dict(loss=loss, lms=lms,
                                                 step_mask=mask)
@@ -734,6 +802,21 @@ def gmem_leaf_path(dev, card: str) -> dict:
         want = ref.sdca_steps_ref_batched(*args, **kw)
         torch.cuda.synchronize()
         return want, (time.perf_counter() - t0) * 1e3
+
+    def interior(args, want):
+        """The share of the drawn coordinates whose new alpha_i y_i lies
+        strictly inside (0, 1), where the step is not clipped; it must be
+        at least INTERIOR_MIN, so that a wrong dot shows."""
+        X, y, alpha, w, xsq, idx = args
+        ay = (alpha + want[0]) * y
+        drawn = torch.zeros_like(ay, dtype=torch.bool)
+        drawn.scatter_(2, idx.long(), True)
+        share = float(((ay > 1e-6) & (ay < 1 - 1e-6))[drawn].float().mean())
+        if not share >= INTERIOR_MIN:
+            raise AssertionError(f"phase 2c: {share:.4f} of the drawn "
+                                 f"coordinates end inside (0, 1), under "
+                                 f"{INTERIOR_MIN}")
+        return share
 
     def bound(args, K, m_b, d, H):
         idx = args[5]
@@ -757,6 +840,7 @@ def gmem_leaf_path(dev, card: str) -> dict:
     alpha_in = args[2].clone()
     want, star_plain_ms = plain(args, kw)
     star_err = max_err(got, want)
+    star_inside = interior(args, want)
     if not torch.equal(args[2], alpha_in):
         raise AssertionError("the global-leaf route wrote the caller's alpha")
     del got, want, alpha_in
@@ -767,7 +851,8 @@ def gmem_leaf_path(dev, card: str) -> dict:
           f"kernel {star_ms:.4f} ms/launch = {star_ms * 1e3 / H:.4f} us a "
           f"step, plain {star_plain_ms:.1f} ms, bound {star_bound:.4f} ms "
           f"({star_by}; {100 * star_bound / star_ms:.4f}% of it), "
-          f"max_abs_err {star_err:.3e}  [{card}]")
+          f"max_abs_err {star_err:.3e}, {star_inside:.4f} of the drawn "
+          f"alpha_i y_i inside (0, 1)  [{card}]")
     del args, kw
     torch.cuda.empty_cache()
 
@@ -799,6 +884,7 @@ def gmem_leaf_path(dev, card: str) -> dict:
                              f"the same steps")
     want, edge_plain_ms = plain(big, kw)
     edge_err = max_err(got_big, want)
+    edge_inside = interior(big, want)
     del got_small, got_big, want
     edge_ms = {"smem_leaf": time_ms(lambda: launch(small, kw), 3),
                "gmem_leaf": time_ms(lambda: launch(big, kw), 3)}
@@ -808,7 +894,8 @@ def gmem_leaf_path(dev, card: str) -> dict:
           f"{edge_ms['smem_leaf']:.4f} ms/launch, global-leaf route at "
           f"m_b={m + 1} {edge_ms['gmem_leaf']:.4f} ms/launch, torch.equal "
           f"on the same steps; plain {edge_plain_ms:.1f} ms, bound "
-          f"{edge_bound:.4f} ms ({edge_by}), max_abs_err {edge_err:.3e}; "
+          f"{edge_bound:.4f} ms ({edge_by}), max_abs_err {edge_err:.3e}, "
+          f"{edge_inside:.4f} of the drawn alpha_i y_i inside (0, 1); "
           f"launches by route {counted}; phase 2c took "
           f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
     del big, small, X, y, alpha, w, xsq, idx, kw
@@ -820,11 +907,13 @@ def gmem_leaf_path(dev, card: str) -> dict:
             "star": {"shape": dict(K=K, m_b=m_b, d=d, H=H), "ms": star_ms,
                      "us_per_step": star_ms * 1e3 / H,
                      "plain_ms": star_plain_ms, "bound_ms": star_bound,
-                     "bound_by": star_by, "max_abs_err": star_err},
+                     "bound_by": star_by, "max_abs_err": star_err,
+                     "interior_share": star_inside},
             "boundary": {"shape": dict(K=K, m_b=[m, m + 1], d=d, H=H),
                          "ms": edge_ms, "plain_ms": edge_plain_ms,
                          "bound_ms": edge_bound, "bound_by": edge_by,
-                         "max_abs_err": edge_err, "routes_equal": True}}
+                         "max_abs_err": edge_err, "routes_equal": True,
+                         "interior_share": edge_inside}}
 
 
 def capture_targets(ex, targets: list):
@@ -4655,7 +4744,8 @@ def main() -> int:
 
     progress("phase 2")
     # ---- 2. kernel vs plain, four losses and a custom one --------------------
-    worst = check_losses(dev)
+    worst = check_losses(
+        dev, kernel._library().sdca_block_smem_limit(dev.index))
 
     progress("phase 2b")
     # ---- 2b. the draw kernel vs prng.randint --------------------------------

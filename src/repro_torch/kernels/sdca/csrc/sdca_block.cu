@@ -36,14 +36,24 @@
 //     (cp.async.mbarrier.arrive.noinc).  The stepping warp waits once per
 //     group of G steps and never issues a copy.
 //   * One warp steps a leaf, so no block barrier sits in the step loop.
-//     With d % 4 == 0, d <= 1024 and 16-byte aligned w, each lane holds its
-//     d/32 elements of w in registers (NC float4 chunks lane, lane + 32,
-//     ..., NC fixed at compile time); <w, x_i> is an xor-shuffle all-reduce,
-//     so every lane has the sum; every lane then evaluates coord_delta on
-//     identical inputs and writes the identical a_i, so nothing is
-//     broadcast through shared memory and no lane waits for another.  Other
-//     d keep w in shared memory, each lane owning the same elements in the
-//     dot and the update (still no barrier).
+//     With d % 4 == 0, d <= 2048 and 16-byte aligned w and dw, each lane
+//     holds its d/32 elements of w in registers (NC float4 chunks lane,
+//     lane + 32, ..., NC = 1, 2, 4, 8 or 16 fixed at compile time; at d =
+//     2,000 lanes 0-19 hold a 16th); <w, x_i> is an xor-shuffle
+//     all-reduce, so every lane has the sum; every lane then evaluates
+//     coord_delta on identical inputs and writes the identical a_i, so
+//     nothing is broadcast through shared memory and no lane waits for
+//     another.  Other d keep w in shared memory, each lane owning the same
+//     elements in the dot and the update (still no barrier), a 4-byte
+//     load-FMA-store chain the compiler cannot reorder, several times
+//     slower a step than the register chunks (PERF.md, section 6, has the
+//     measured steps).  w's space in shared memory stays reserved either
+//     way, so the routes' sizes do not depend on the pointers.
+//   * What bounds the d = 2,000 step in registers: the ring.  At d = 2,000
+//     it holds one group of 4 rows (32 KiB), so the producer refills it
+//     only once the group's four steps are done, and each group waits a
+//     copy round trip.  At 128 or more resident leaves the row stream
+//     itself (8,000 B a leaf a step) is the next bound.
 //   * idx and the step mask are read 32 steps at a time, a block ahead, one
 //     value per lane, and taken with a shuffle, so no global load sits on
 //     the chain either.
@@ -416,8 +426,15 @@ __device__ __forceinline__ void leaf_chain(
         p4[t] = w4[t].x * x4[t].x + w4[t].y * x4[t].y + w4[t].z * x4[t].z +
                 w4[t].w * x4[t].w;
       }
+      // 16 partials are folded to 8 first: the tree's loop over 16 left p4
+      // in local memory (a 64-byte stack frame, 16 stores a step); the
+      // additions and their order are the loop's
+      if constexpr (NC == 16) {
 #pragma unroll
-      for (int n = NC; n > 1; n >>= 1)
+        for (int t = 0; t < 8; ++t) p4[t] += p4[t + 8];
+      }
+#pragma unroll
+      for (int n = NC < 16 ? NC : 8; n > 1; n >>= 1)
 #pragma unroll
         for (int t = 0; t < n / 2; ++t) p4[t] += p4[t + n / 2];
       part = p4[0];
@@ -637,9 +654,9 @@ cudaError_t launch(const float* X, const float* y, const float* alpha,
                    long long w_cfg_stride, const float* lm, float g,
                    bool gmem_leaf, cudaStream_t stream) {
   // bulk copies need 16-byte aligned rows of a multiple of 16 bytes; w in
-  // registers needs float4 access to w and dw and d <= 1024
+  // registers needs float4 access to w and dw and d <= 2048
   const bool bulk = d % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  const bool reg_w = d % 4 == 0 && d <= 1024 &&
+  const bool reg_w = d % 4 == 0 && d <= 2048 &&
                      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(dw) % 16 == 0;
   const int bulk_i = bulk ? 1 : 0;
@@ -652,7 +669,8 @@ cudaError_t launch(const float* X, const float* y, const float* alpha,
   if (d <= 128) return SDCA_ROUTE(1);
   if (d <= 256) return SDCA_ROUTE(2);
   if (d <= 512) return SDCA_ROUTE(4);
-  return SDCA_ROUTE(8);
+  if (d <= 1024) return SDCA_ROUTE(8);
+  return SDCA_ROUTE(16);
 #undef SDCA_ROUTE
 #undef SDCA_PATH
 }

@@ -26,6 +26,13 @@ above 11,621 on an H100) the launch raises.  ``LAUNCHES_BY_ROUTE``
 counts the launches of each route; a trace tells them apart by the
 kernel's device name.
 
+On both routes the stepping warp holds w in registers, NC float4 chunks
+a lane (NC = 1, 2, 4, 8 or 16, the second template argument of the
+device name), where d % 4 == 0, d <= 2,048 and w and delta w are 16-byte
+aligned; otherwise w lives in shared memory (NC = 0).  Its space there
+is reserved either way, so :func:`smem_bytes`, :func:`gmem_leaf_smem_bytes`
+and :func:`route` do not depend on where w lives.
+
 A registered loss the kernel has no closed form for (``kind == ""``;
 the reference's Pallas kernel traces its ``coord_delta`` into its body)
 launches the same kernel built with the loss's own step: its ``cuda``

@@ -73,7 +73,10 @@ EDGE_SHAPES = {
     "H = 1": (2, 40, 512, 1, None),
     "H = 0": (2, 40, 512, 0, None),
     "d % 4 != 0 (4-byte copies, w in shared memory)": (2, 64, 13, 200, None),
-    "d > 1024 (bulk copies, w in shared memory)": (2, 32, 2048, 60, None),
+    "d = 2,048 (bulk copies, w in 16 register chunks)": (2, 32, 2048, 60,
+                                                         None),
+    "d > 2,048 (bulk copies, w in shared memory)": (2, 32, 2052, 60, None),
+    "d = 2,000, idx repeating within the ring": (3, 64, 2000, 300, (0, 4)),
     "out-of-range idx (clamped)": (2, 50, 100, 100, (-5, 55)),
     "ring of 12, a partial last group, w in 8 chunks": (2, 40, 600, 77,
                                                        None),
@@ -116,6 +119,44 @@ def test_kernel_takes_rows_of_an_unaligned_block(cuda_device):
     got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.hinge,
                                    lm=9.6, step_mask=mask)
     want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=dual.hinge, lm=9.6,
+                              step_mask=mask)
+    for g, r in zip(got, want, strict=True):
+        assert float((g - r).abs().max()) <= REL * max(
+            1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("m_b,route,offset,nc", [
+    (64, "sdca_block_kernel", 0, 16),
+    (64, "sdca_block_kernel", 4, 0),
+    (16_037, "sdca_block_kernel_gmem_leaf", 0, 16),
+    (16_037, "sdca_block_kernel_gmem_leaf", 4, 0),
+])
+def test_w_in_registers_at_d_2000_needs_aligned_w(m_b, route, offset, nc,
+                                                  cuda_device):
+    """At d = 2,000 the stepping warp keeps w in 16 float4 chunks a lane
+    when w and dw are 16-byte aligned; w 4 bytes off a 16-byte boundary
+    takes the shared-memory loop (NC = 0, the device name says which).
+    Both match the plain version, on either route."""
+    from torch.profiler import ProfilerActivity, profile
+    X, y, alpha, w, idx, mask = _block("hinge", 2, m_b, 2000, 200, 12, True,
+                                       True, cuda_device)
+    w = torch.cat([torch.zeros(offset // 4, device=cuda_device),
+                   w.flatten()])[offset // 4:].view(w.shape)
+    assert w.data_ptr() % 16 == offset
+    lm = 0.1 * 2 * m_b
+    kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.hinge, lm=lm,
+                             step_mask=mask)           # builds the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = kernel.sdca_block_kernel(X, y, alpha, w, idx, loss=dual.hinge,
+                                       lm=lm, step_mask=mask)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "sdca_block_kernel" in e.key]
+    assert len(names) == 1 and f"{route}<1, {nc}>(" in names[0], names
+    want = ref.sdca_block_ref(X, y, alpha, w, idx, loss=dual.hinge, lm=lm,
                               step_mask=mask)
     for g, r in zip(got, want, strict=True):
         assert float((g - r).abs().max()) <= REL * max(

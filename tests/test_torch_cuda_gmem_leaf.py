@@ -109,8 +109,9 @@ def test_gmem_leaf_matches_plain_version(loss_name, B, per_leaf, masked,
 # (K, m_b, d, H, idx range): the route's row copies, where w lives, the
 # step count against the blocks of 32 steps the scalars come in
 EDGE_SHAPES = {
-    "first leaf of the route at d = 2,000 (w in shared memory)":
+    "first leaf of the route at d = 2,000 (w in 16 register chunks)":
         (2, 16_037, 2000, 200, None),
+    "d > 2,048 (w in shared memory)": (2, 20_000, 2052, 200, None),
     "first leaf of the route at d = 54 (4-byte copies)":
         (2, 19_060, 54, 300, None),
     "d % 4 != 0": (2, 20_000, 13, 300, None),
@@ -158,6 +159,20 @@ def _repeats(m_b, lead):
     return seq
 
 
+def _repeats_against_plain(loss_name, per_leaf, d, device):
+    """2 configs x 4 leaves of 20,000 rows in ``d`` dimensions, each leaf
+    and config drawing :func:`_repeats` at another offset within the
+    blocks of 32 steps, against the plain version."""
+    K, B, m_b = 4, 2, 20_000
+    rows = [_repeats(m_b, lead) for lead in (0, 7, 19, 31, 1, 13, 26, 30)]
+    H = min(len(r) for r in rows)
+    X, y, alpha, w, _, mask, xsq, lms = _operands(
+        loss_name, B, K, m_b, d, H, 17, per_leaf, per_leaf, device)
+    idx = torch.tensor([r[:H] for r in rows], dtype=torch.int32,
+                       device=device).view(B, K, H)
+    _launch_against_plain(loss_name, X, y, alpha, w, idx, mask, xsq, lms)
+
+
 @pytest.mark.parametrize("per_leaf", [False, True])
 @pytest.mark.parametrize("loss_name", LOSSES)
 def test_gmem_leaf_is_exact_where_a_coordinate_is_drawn_again(
@@ -165,14 +180,16 @@ def test_gmem_leaf_is_exact_where_a_coordinate_is_drawn_again(
     """Repeated coordinates at every distance up to and past the window a
     step's alpha is loaded ahead, each leaf and config at another offset
     within the blocks of 32 steps: a stale alpha would break the chain."""
-    K, B, m_b = 4, 2, 20_000
-    rows = [_repeats(m_b, lead) for lead in (0, 7, 19, 31, 1, 13, 26, 30)]
-    H = min(len(r) for r in rows)
-    X, y, alpha, w, _, mask, xsq, lms = _operands(
-        loss_name, B, K, m_b, 64, H, 17, per_leaf, per_leaf, cuda_device)
-    idx = torch.tensor([r[:H] for r in rows], dtype=torch.int32,
-                       device=cuda_device).view(B, K, H)
-    _launch_against_plain(loss_name, X, y, alpha, w, idx, mask, xsq, lms)
+    _repeats_against_plain(loss_name, per_leaf, 64, cuda_device)
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_gmem_leaf_at_d_2000_is_exact_where_a_coordinate_is_drawn_again(
+        loss_name, per_leaf, cuda_device):
+    """The same draws at d = 2,000, where the stepping warp holds w in 16
+    float4 chunks a lane and the ring one group of 4 rows."""
+    _repeats_against_plain(loss_name, per_leaf, 2000, cuda_device)
 
 
 @pytest.mark.parametrize("masked", [False, True])
